@@ -1,0 +1,41 @@
+"""Enums (counterpart of ``metrics_tpu/utils/enums.py``)."""
+
+from enum import Enum
+from typing import Union
+
+
+class EnumStr(str, Enum):
+    """Case-insensitive string enum."""
+
+    def __eq__(self, other: Union[str, "EnumStr", None]) -> bool:  # type: ignore[override]
+        other = other.value if isinstance(other, Enum) else str(other)
+        return self.value.lower() == other.lower()
+
+    def __hash__(self) -> int:
+        return hash(self.value.lower())
+
+
+class DataType(EnumStr):
+    """Classification input case."""
+
+    BINARY = "binary"
+    MULTILABEL = "multi-label"
+    MULTICLASS = "multi-class"
+    MULTIDIM_MULTICLASS = "multi-dim multi-class"
+
+
+class AverageMethod(EnumStr):
+    """Reduction over classes."""
+
+    MICRO = "micro"
+    MACRO = "macro"
+    WEIGHTED = "weighted"
+    NONE = "none"
+    SAMPLES = "samples"
+
+
+class MDMCAverageMethod(EnumStr):
+    """Multi-dim multi-class handling."""
+
+    GLOBAL = "global"
+    SAMPLEWISE = "samplewise"

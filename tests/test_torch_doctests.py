@@ -1,0 +1,17 @@
+"""Run the docstring examples of every ``metrics_tpu_torch`` module (all on the CPU)."""
+
+import doctest
+import importlib
+import pkgutil
+
+import pytest
+
+import metrics_tpu_torch
+
+MODULES = sorted(m.name for m in pkgutil.walk_packages(metrics_tpu_torch.__path__, "metrics_tpu_torch."))
+
+
+@pytest.mark.parametrize("name", MODULES)
+def test_docstring_examples(name):
+    result = doctest.testmod(importlib.import_module(name), optionflags=doctest.NORMALIZE_WHITESPACE)
+    assert result.failed == 0
