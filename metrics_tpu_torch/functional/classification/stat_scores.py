@@ -3,14 +3,23 @@
 
 Absent or ignored classes are marked with a ``-1`` denominator sentinel and
 masked inside :func:`_reduce_stat_scores`, as in the JAX package.
+
+Float logits ``(N, C)`` with integer labels ``(N,)`` (the main path) go
+straight to :func:`fused_stat_scores_logits`; every other input is first
+canonicalised to binary one-hots and counted by :func:`_stat_scores`.
 """
 
 from typing import Optional, Tuple
 
 import torch
 
-from metrics_tpu_torch.ops.stat_scores import fused_stat_scores
-from metrics_tpu_torch.utils.checks import _as_tensor, _input_format_classification
+from metrics_tpu_torch.ops.stat_scores import (
+    LABEL_DTYPES,
+    LOGIT_DTYPES,
+    fused_stat_scores,
+    fused_stat_scores_logits,
+)
+from metrics_tpu_torch.utils.checks import _as_tensor, _canonical_format, _checked_inputs
 from metrics_tpu_torch.utils.enums import AverageMethod, DataType, MDMCAverageMethod
 
 Counts = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
@@ -32,11 +41,12 @@ def _stat_scores(
     (N,C): micro → scalar, macro → (C,), samples → (N,)
     (N,C,X): micro → (N,), macro → (N,C), samples → (N,X)
 
-    ``macro`` on 2-D CUDA operands goes through the hand-written kernel,
-    for any number of classes; everything else takes the torch reductions.
+    ``macro`` and ``micro`` on 2-D CUDA operands go through the hand-written
+    kernel, for any number of classes (``micro`` sums its per-class counts);
+    everything else takes the torch reductions.
     """
-    if reduce == "macro" and preds.ndim == 2 and preds.is_cuda:
-        return fused_stat_scores(preds.contiguous(), target.contiguous())
+    if reduce in ("macro", "micro") and preds.ndim == 2 and preds.is_cuda:
+        return _reduced(fused_stat_scores(preds.contiguous(), target.contiguous()), reduce)
 
     if reduce == "micro":
         dim = (0, 1) if preds.ndim == 2 else (1, 2)
@@ -55,6 +65,40 @@ def _stat_scores(
     tn = torch.sum(true_pred & neg_pred, dim=dim, dtype=torch.int32)
     fn = torch.sum(false_pred & neg_pred, dim=dim, dtype=torch.int32)
     return tp, fp, tn, fn
+
+
+def _reduced(counts: Counts, reduce: Optional[str]) -> Counts:
+    """Per-class ``(C,)`` counts as ``reduce`` wants them: ``micro`` sums the classes (exact in int32)."""
+    if reduce == "micro":
+        return torch.stack(counts).sum(dim=1, dtype=torch.int32).unbind(0)
+    return counts
+
+
+def _takes_logits_route(
+    preds: torch.Tensor,
+    target: torch.Tensor,
+    case: DataType,
+    reduce: Optional[str],
+    num_classes: Optional[int],
+    top_k: Optional[int],
+    multiclass: Optional[bool],
+    ignore_index: Optional[int],
+) -> bool:
+    """Whether checked inputs count straight from the logits: top-1 multi-class
+    ``(N, C)`` logits against ``(N,)`` labels, macro or micro, nothing ignored."""
+    return (
+        reduce in ("macro", "micro")
+        and case == DataType.MULTICLASS
+        and preds.ndim == 2
+        and preds.dtype in LOGIT_DTYPES
+        and preds.shape[1] > 0
+        and target.ndim == 1
+        and target.dtype in LABEL_DTYPES
+        and top_k in (None, 1)
+        and multiclass is not False
+        and ignore_index is None
+        and num_classes in (None, preds.shape[1])
+    )
 
 
 def _drop_negative_ignored_indices(
@@ -92,7 +136,7 @@ def _stat_scores_update(
         preds, target = _drop_negative_ignored_indices(preds, target, ignore_index, mode)
         _negative_index_dropped = True
 
-    preds, target, _ = _input_format_classification(
+    preds, target, case = _checked_inputs(
         preds,
         target,
         threshold=threshold,
@@ -103,6 +147,9 @@ def _stat_scores_update(
         validate_args=validate_args,
         case=mode if not _negative_index_dropped else None,
     )
+    if _takes_logits_route(preds, target, case, reduce, num_classes, top_k, multiclass, ignore_index):
+        return _reduced(fused_stat_scores_logits(preds.contiguous(), target.contiguous()), reduce)
+    preds, target, _ = _canonical_format(preds, target, case, threshold, top_k, num_classes, multiclass)
 
     if ignore_index is not None and ignore_index >= preds.shape[1]:
         raise ValueError(

@@ -1,11 +1,19 @@
-"""Fused tp/fp/tn/fn counts: the hand-written CUDA kernel, its plain version and its loader.
+"""Fused tp/fp/tn/fn counts: the hand-written CUDA kernels, their plain versions and their loader.
 
-Counterpart of ``metrics_tpu/ops/stat_scores_pallas.py::fused_stat_scores``.
-:func:`fused_stat_scores` launches ``csrc/stat_scores.cu`` for CUDA tensors
-and takes :func:`fused_stat_scores_plain` only for CPU tensors.  The kernel
-is compiled with ``nvcc`` from the package's own source at first use, into
-``build/kernels/`` at the root of the checkout, keyed by a hash of the source
-and flags, and loaded with ``ctypes``.  A failed build or launch raises.
+Counterpart of ``metrics_tpu/ops/stat_scores_pallas.py::fused_stat_scores``,
+with two entry points in ``csrc/stat_scores.cu``, one launch each:
+
+* :func:`fused_stat_scores` counts canonical binary ``(N, C)`` operands, the
+  TPU kernel's own function;
+* :func:`fused_stat_scores_logits` counts float logits ``(N, C)`` against
+  integer labels ``(N,)``, taking each row's argmax inside the kernel: the
+  result of ``fused_stat_scores(select_topk(logits, 1), to_onehot(labels, C))``
+  without the one-hot operands.
+
+CUDA tensors launch the kernel and CPU tensors take the plain version.  The
+kernels are compiled with ``nvcc`` from the package's own source at first use,
+into ``build/kernels/`` at the root of the checkout, keyed by a hash of the
+source and flags, and loaded with ``ctypes``.  A failed build or launch raises.
 """
 
 import ctypes
@@ -19,16 +27,22 @@ from typing import Tuple
 
 import torch
 
+from metrics_tpu_torch.utils.data import select_topk, to_onehot
+
 _SOURCE = Path(__file__).resolve().parent / "csrc" / "stat_scores.cu"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-_THREADS = 256  # classes per block, as kThreads in the source
-_MIN_ROWS_PER_BLOCK = 16
-_BLOCKS_PER_SM = 4
-_MAX_GRID_Y = 65535
+_COUNT_FUNCTIONS = {torch.int32: "stat_scores_i32", torch.bool: "stat_scores_u8"}
+_LOGITS_FUNCTIONS = {
+    torch.float32: "stat_scores_logits_f32",
+    torch.bfloat16: "stat_scores_logits_b16",
+    torch.float16: "stat_scores_logits_b16",
+}
+LOGIT_DTYPES = tuple(_LOGITS_FUNCTIONS)
+LABEL_DTYPES = (torch.int64, torch.int32)
 
 Counts = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -40,12 +54,12 @@ def _nvcc() -> str:
         return str(Path(CUDA_HOME) / "bin" / "nvcc")
     found = shutil.which("nvcc")
     if found is None:
-        raise RuntimeError("nvcc not found: the stat-scores CUDA kernel cannot be built")
+        raise RuntimeError("nvcc not found: the stat-scores CUDA kernels cannot be built")
     return found
 
 
 def build() -> Tuple[Path, str]:
-    """Compile the kernel if this source has not been built yet.
+    """Compile the kernels if this source has not been built yet.
 
     Returns the shared library's path and the compiler's messages (the
     ``-Xptxas -v`` register and shared-memory report; empty when the library
@@ -70,31 +84,32 @@ def build() -> Tuple[Path, str]:
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()[0]))
-    for name in ("stat_scores_i32", "stat_scores_u8"):
-        fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64] + [
-            ctypes.c_void_p
-        ] * 5
+    pointer, i64 = ctypes.c_void_p, ctypes.c_int64
+    for name in set(_COUNT_FUNCTIONS.values()):
+        fn = getattr(lib, name)  # (preds, target, n, c, out, stream)
+        fn.argtypes = [pointer, pointer, i64, i64, pointer, pointer]
+        fn.restype = ctypes.c_int
+    for name in set(_LOGITS_FUNCTIONS.values()):
+        fn = getattr(lib, name)  # (logits, labels, labels_are_64, n, c, pred scratch, out, stream)
+        fn.argtypes = [pointer, pointer, ctypes.c_int, i64, i64, pointer, pointer, pointer]
         fn.restype = ctypes.c_int
     return lib
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device_index: int) -> int:
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
-
-
-def _row_blocks(n: int, c: int, device: torch.device) -> int:
-    """Row splits (grid.y): enough blocks for a few per SM, at least 16 rows each."""
-    col_blocks = -(-c // _THREADS)
-    wanted = -(-_BLOCKS_PER_SM * _sm_count(device.index) // col_blocks)
-    return max(1, min(-(-n // _MIN_ROWS_PER_BLOCK), wanted, _MAX_GRID_Y))
+def _check_tensors(name: str, *tensors: torch.Tensor) -> None:
+    device = tensors[0].device
+    if any(t.device != device for t in tensors):
+        raise ValueError(f"{name} takes tensors on one device, got {[str(t.device) for t in tensors]}")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on CPU or CUDA tensors, got {device}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name} takes contiguous tensors")
 
 
 def _check_operands(preds: torch.Tensor, target: torch.Tensor) -> None:
     if not isinstance(preds, torch.Tensor) or not isinstance(target, torch.Tensor):
         raise TypeError("fused_stat_scores takes two tensors")
-    if preds.dtype != target.dtype or preds.dtype not in (torch.int32, torch.bool):
+    if preds.dtype != target.dtype or preds.dtype not in _COUNT_FUNCTIONS:
         raise TypeError(
             f"fused_stat_scores takes two int32 or two bool tensors, got {preds.dtype} and {target.dtype}"
         )
@@ -103,14 +118,32 @@ def _check_operands(preds: torch.Tensor, target: torch.Tensor) -> None:
             f"fused_stat_scores takes two (N, C) tensors of one shape, got {tuple(preds.shape)} "
             f"and {tuple(target.shape)}"
         )
-    if not (preds.is_contiguous() and target.is_contiguous()):
-        raise ValueError("fused_stat_scores takes contiguous tensors")
-    if preds.device != target.device:
-        raise ValueError(f"preds lie on {preds.device} but target on {target.device}")
+    _check_tensors("fused_stat_scores", preds, target)
+
+
+def _check_logits_operands(logits: torch.Tensor, labels: torch.Tensor) -> None:
+    if not isinstance(logits, torch.Tensor) or not isinstance(labels, torch.Tensor):
+        raise TypeError("fused_stat_scores_logits takes two tensors")
+    if logits.dtype not in LOGIT_DTYPES or labels.dtype not in LABEL_DTYPES:
+        raise TypeError(
+            "fused_stat_scores_logits takes float32, bfloat16 or float16 logits and int64 or int32 "
+            f"labels, got {logits.dtype} and {labels.dtype}"
+        )
+    if logits.ndim != 2 or labels.shape != logits.shape[:1] or logits.shape[1] == 0:
+        raise ValueError(
+            "fused_stat_scores_logits takes (N, C) logits with C >= 1 and (N,) labels, got "
+            f"{tuple(logits.shape)} and {tuple(labels.shape)}"
+        )
+    _check_tensors("fused_stat_scores_logits", logits, labels)
+
+
+def _raise_on_error(name: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed with CUDA error {err}")
 
 
 def fused_stat_scores_plain(preds: torch.Tensor, target: torch.Tensor) -> Counts:
-    """The kernel's function in plain PyTorch: four masked sums over axis 0, int32."""
+    """The canonical kernel's function in plain PyTorch: four masked sums over axis 0, int32."""
     pos = preds == 1
     same = target == preds
     return (
@@ -125,30 +158,59 @@ def fused_stat_scores(preds: torch.Tensor, target: torch.Tensor) -> Counts:
     """Per-class ``(tp, fp, tn, fn)``, each ``(C,)`` int32, over axis 0 of binary ``(N, C)`` tensors.
 
     CPU tensors take :func:`fused_stat_scores_plain`; CUDA tensors launch the
-    kernel on the current stream.  ``fused_stat_scores.launches`` counts the
-    kernel's launches.
+    kernel on the current stream, one device operation per call.
+    ``fused_stat_scores.launches`` counts the kernel's launches.
     """
     _check_operands(preds, target)
     if preds.device.type == "cpu":
         return fused_stat_scores_plain(preds, target)
-    if preds.device.type != "cuda":
-        raise ValueError(f"fused_stat_scores runs on CPU or CUDA tensors, got {preds.device}")
     n, c = preds.shape
-    out = torch.zeros((4, c), dtype=torch.int32, device=preds.device)
+    out = torch.empty((4, c), dtype=torch.int32, device=preds.device)
     if c == 0:
-        return out[0], out[1], out[2], out[3]
-    lib = _library()
-    fn = lib.stat_scores_i32 if preds.dtype == torch.int32 else lib.stat_scores_u8
+        return out.unbind(0)
+    fn = getattr(_library(), _COUNT_FUNCTIONS[preds.dtype])
     with torch.cuda.device(preds.device):
-        err = fn(
-            preds.data_ptr(), target.data_ptr(), n, c, _row_blocks(n, c, preds.device),
-            out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(), out[3].data_ptr(),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"stat_scores kernel launch failed with CUDA error {err}")
+        err = fn(preds.data_ptr(), target.data_ptr(), n, c, out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    _raise_on_error("stat_scores", err)
     fused_stat_scores.launches += 1
-    return out[0], out[1], out[2], out[3]
+    return out.unbind(0)
 
 
 fused_stat_scores.launches = 0
+
+
+def fused_stat_scores_logits_plain(logits: torch.Tensor, labels: torch.Tensor) -> Counts:
+    """The logits kernel's function in plain PyTorch, as the JAX package computes it:
+    the top-1 mask of the logits and the one-hot of the labels, then the four counts."""
+    return fused_stat_scores_plain(select_topk(logits, 1), to_onehot(labels, logits.shape[1]))
+
+
+def fused_stat_scores_logits(logits: torch.Tensor, labels: torch.Tensor) -> Counts:
+    """Per-class ``(tp, fp, tn, fn)``, each ``(C,)`` int32, of each row's argmax against its label.
+
+    ``logits`` is ``(N, C)`` float32, bfloat16 or float16; ``labels`` is
+    ``(N,)`` int64 or int32, and a label outside ``[0, C)`` counts for no
+    class.  The argmax ranks values as ``lax.top_k`` does (see
+    :func:`metrics_tpu_torch.utils.data.select_topk`).  CPU tensors take
+    :func:`fused_stat_scores_logits_plain`; CUDA tensors launch the kernel on
+    the current stream, one device operation per call.
+    ``fused_stat_scores_logits.launches`` counts the kernel's launches.
+    """
+    _check_logits_operands(logits, labels)
+    if logits.device.type == "cpu":
+        return fused_stat_scores_logits_plain(logits, labels)
+    n, c = logits.shape
+    buffer = torch.empty(4 * c + n, dtype=torch.int32, device=logits.device)
+    out, pred = buffer[: 4 * c].view(4, c), buffer[4 * c :]  # pred: each row's argmax, scratch
+    fn = getattr(_library(), _LOGITS_FUNCTIONS[logits.dtype])
+    with torch.cuda.device(logits.device):
+        err = fn(
+            logits.data_ptr(), labels.data_ptr(), labels.dtype == torch.int64, n, c,
+            pred.data_ptr(), out.data_ptr(), torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_on_error("stat_scores_logits", err)
+    fused_stat_scores_logits.launches += 1
+    return out.unbind(0)
+
+
+fused_stat_scores_logits.launches = 0

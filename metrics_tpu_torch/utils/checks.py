@@ -152,6 +152,25 @@ def _input_format_classification(
     (or ``(N, C, X)`` for multi-dim multi-class).  A ``case`` locked earlier
     by the module metric skips the value-dependent case detection.
     """
+    preds, target, case = _checked_inputs(
+        preds, target, threshold, top_k, num_classes, multiclass, ignore_index, validate_args, case
+    )
+    return _canonical_format(preds, target, case, threshold, top_k, num_classes, multiclass)
+
+
+def _checked_inputs(
+    preds,
+    target,
+    threshold: float = 0.5,
+    top_k: Optional[int] = None,
+    num_classes: Optional[int] = None,
+    multiclass: Optional[bool] = None,
+    ignore_index: Optional[int] = None,
+    validate_args: bool = True,
+    case: Optional[DataType] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, DataType]:
+    """The first half of :func:`_input_format_classification`: tensors on one
+    device, squeezed, validated when ``validate_args``, and their input case."""
     preds = _as_tensor(preds)
     target = _as_tensor(target)
     if preds.device != target.device:
@@ -164,6 +183,19 @@ def _input_format_classification(
         )
     if case is None:
         case = _classify_case(preds, target, multiclass)
+    return preds, target, case
+
+
+def _canonical_format(
+    preds: torch.Tensor,
+    target: torch.Tensor,
+    case: DataType,
+    threshold: float = 0.5,
+    top_k: Optional[int] = None,
+    num_classes: Optional[int] = None,
+    multiclass: Optional[bool] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, DataType]:
+    """The second half of :func:`_input_format_classification`: checked inputs to canonical form."""
     top_k = top_k or 1
 
     if case == DataType.BINARY:

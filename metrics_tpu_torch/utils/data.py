@@ -55,16 +55,38 @@ def to_onehot(label_tensor: torch.Tensor, num_classes: Optional[int] = None) -> 
     return (label_tensor.unsqueeze(1) == classes).to(torch.int32)
 
 
-def select_topk(prob_tensor: torch.Tensor, topk: int = 1, dim: int = 1) -> torch.Tensor:
-    """int32 mask of the top-k entries along ``dim``.
+_SAME_WIDTH_INT = {
+    torch.float64: torch.int64,
+    torch.float32: torch.int32,
+    torch.bfloat16: torch.int16,
+    torch.float16: torch.int16,
+}
 
-    ``k == 1`` takes ``argmax``, which picks the first of tied maxima as
-    ``lax.top_k`` does; ``torch.topk`` leaves the order of ties unspecified.
+
+def _total_order_keys(x: torch.Tensor) -> torch.Tensor:
+    """Integers that order the floats of ``x`` as IEEE-754 totalOrder, as ``lax.top_k`` does.
+
+    A NaN with the sign bit clear ranks above ``+inf``, one with it set below
+    ``-inf``, and ``-0.0`` below ``+0.0``; ``argmax`` and ``topk`` would tie the
+    zeros and rank every NaN first.
     """
+    bits = x.view(_SAME_WIDTH_INT[x.dtype])
+    width = bits.element_size() * 8
+    return bits ^ ((bits >> (width - 1)) & ((1 << (width - 1)) - 1))
+
+
+def select_topk(prob_tensor: torch.Tensor, topk: int = 1, dim: int = 1) -> torch.Tensor:
+    """int32 mask of the top-k entries along ``dim``, the entries ``lax.top_k`` picks.
+
+    Entries rank by :func:`_total_order_keys` and ties go to the lower index:
+    ``k == 1`` is an ``argmax`` of the keys (the first of tied maxima), ``k > 1``
+    a stable descending sort (``torch.topk`` leaves the order of ties unspecified).
+    """
+    keys = _total_order_keys(prob_tensor)
     if topk == 1:
-        idx = prob_tensor.argmax(dim=dim, keepdim=True)
+        idx = keys.argmax(dim=dim, keepdim=True)
     else:
-        idx = prob_tensor.topk(topk, dim=dim).indices
+        idx = keys.sort(dim=dim, descending=True, stable=True).indices.narrow(dim, 0, topk)
     mask = torch.zeros_like(prob_tensor, dtype=torch.int32)
     return mask.scatter_(dim, idx, 1)
 

@@ -15,7 +15,7 @@ FORBIDDEN = ("jax", "jaxlib", "metrics_tpu")
 
 
 def _port_sources():
-    return sorted((ROOT / "metrics_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted((ROOT / "metrics_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "tools" / "port_device_probe.py"]
 
 
 def _imported_roots(path: Path):
