@@ -21,17 +21,35 @@ Phases (each passes or raises; any failure exits non-zero):
      independent numpy float64 computation, with each entry point's launches
      counted over each run and checked against what the routes and compute
      groups imply;
-  5. timings: samples/s per configuration, and each entry point's device
+  5. sync: the same pass split unevenly over two ranks that share ``cuda:0``
+     and sync over ``torch.distributed`` (gloo, a ``FileStore`` in a temporary
+     directory): configuration 2 with a ``CatMetric`` of each sample's top
+     logit and a ``MeanMetric`` and ``MaxMetric`` of the batch accuracy.
+     Both ranks' results must equal phase 4's single-process pass (integers
+     bitwise) and numpy's, hold all 50,000 rows in rank order, sit on the
+     card and leave each rank's local state in place; a desynced peer must
+     raise ``SyncDesyncError`` on both ranks and a stalled one
+     ``SyncTimeoutError`` on the live rank within its budget.  A JSON line
+     gives the median ms of a synced config-2 ``compute()``, the bytes it
+     gathers and each rank's kernel launches;
+  6. timings: samples/s per configuration, and each entry point's device
      time beside its plain version and its bound; the logits route also
      beside the chain of operations it replaces.
 The last line is ``{"ok": true, "device": {...}}``.
+
+The sync phase runs this script again as its ranks
+(``chip_smoke.py --sync-rank SCENARIO RANK DIR``); the parent waits on them
+with a time limit and fails if a rank fails or hangs.
 """
 
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from datetime import timedelta
 from pathlib import Path
 from typing import Optional, Tuple
 
@@ -51,6 +69,12 @@ NAN_BITS = {torch.bfloat16: (0x7FC0, -0x40), torch.float16: (0x7E00, -0x200)}  #
 TOP_K = 5
 FLOAT_RTOL = 1e-5  # float32 scores from int32 counts vs float64 numpy
 SLEEP_CYCLES = 100_000_000  # the spinning kernel timed calls queue behind (about 50 ms)
+SYNC_WORLD = 2
+SYNC_SHARDS = ((0, 25), (25, 49))  # batch ranges: rank 1 ends with the ragged batch of 848
+SYNC_TIMEOUT = 2.0  # the stalled scenario's sync_timeout, seconds
+SYNC_SLACK = 3.0  # seconds past timeout x (retries + 1) the live rank may take to raise
+SYNC_COMPUTES = 10  # timed synced config-2 computes
+SYNC_LIMIT = 300.0  # seconds the parent waits for one two-rank run
 
 
 def _card_line() -> str:
@@ -233,6 +257,20 @@ def _counters(ops) -> dict:
     return {"logits": ops.fused_stat_scores_logits, "canonical": ops.fused_stat_scores}
 
 
+def _implied_config2(ops, col, n_batches: int) -> dict:
+    """The launches per entry point that ``n_batches`` config-2 updates imply: every member
+    on the first batch, then one update per compute group, by its first member."""
+    print(f"compute groups: {col.compute_groups}")
+    expected = {route: 0 for route in _counters(ops)}
+    for metric in col.values():
+        if _route(metric):
+            expected[_route(metric)] += 1
+    for group in col.compute_groups.values():
+        if _route(col[group[0]]):
+            expected[_route(col[group[0]])] += n_batches - 1
+    return expected
+
+
 def _driven(ops, name: str, run, implied):
     """Run one configuration with every launch count set to 0 just before it and read just after;
     the counts must be ``implied()``, what its routes and compute groups imply once it has run.
@@ -252,28 +290,51 @@ def _driven(ops, name: str, run, implied):
     return result, secs, counts
 
 
-def phase_main_path(mt, ops) -> dict:
+def _imagenet_pass():
+    """The ImageNet-val pass on the card, from seed 0: float32 logits, int64 labels, batches of 1024."""
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     logits = torch.randn((N_SAMPLES, N_CLASSES), generator=gen, device=DEVICE)
     labels = torch.randint(0, N_CLASSES, (N_SAMPLES,), generator=gen, device=DEVICE)
     # a classifier that is right about a quarter of the time
     logits.scatter_add_(1, labels[:, None], torch.full((N_SAMPLES, 1), 2.5, device=DEVICE))
     batches = [(logits[i : i + BATCH], labels[i : i + BATCH]) for i in range(0, N_SAMPLES, BATCH)]
+    return logits, labels, batches
+
+
+def _config2(mt, **kwargs):
+    return mt.MetricCollection(
+        {
+            "acc": mt.Accuracy(num_classes=N_CLASSES, average="macro", device=DEVICE),
+            "f1": mt.F1Score(num_classes=N_CLASSES, average="macro", device=DEVICE),
+            "prec": mt.Precision(num_classes=N_CLASSES, average="macro", device=DEVICE),
+            "cm": mt.ConfusionMatrix(num_classes=N_CLASSES, device=DEVICE),
+        },
+        device=DEVICE,
+        **kwargs,
+    )
+
+
+COUNTS = ("tp", "fp", "tn", "fn")
+
+
+def _integer_results(col) -> dict:
+    """Config 2's integer results on the host: the confusion matrix and the counts behind each score."""
+    out = {"cm": col["cm"].confmat.cpu()}
+    for name in ("acc", "f1", "prec"):
+        out.update({f"{name}.{k}": getattr(col[name], k).cpu() for k in COUNTS})
+    return out
+
+
+def phase_main_path(mt, ops) -> Tuple[dict, dict, torch.Tensor, torch.Tensor]:
+    """Returns each entry point's launches, config 2's integer results, and the pass's logits and labels."""
+    logits, labels, batches = _imagenet_pass()
     n_batches = len(batches)
 
     def config1():
         return mt.Accuracy(num_classes=N_CLASSES, device=DEVICE)
 
     def config2():
-        return mt.MetricCollection(
-            {
-                "acc": mt.Accuracy(num_classes=N_CLASSES, average="macro", device=DEVICE),
-                "f1": mt.F1Score(num_classes=N_CLASSES, average="macro", device=DEVICE),
-                "prec": mt.Precision(num_classes=N_CLASSES, average="macro", device=DEVICE),
-                "cm": mt.ConfusionMatrix(num_classes=N_CLASSES, device=DEVICE),
-            },
-            device=DEVICE,
-        )
+        return _config2(mt)
 
     def top_k_accuracy():
         return mt.Accuracy(num_classes=N_CLASSES, top_k=TOP_K, device=DEVICE)
@@ -307,18 +368,7 @@ def phase_main_path(mt, ops) -> dict:
             col.update(preds, target)
         return col.compute()
 
-    def implied2() -> dict:
-        print(f"compute groups: {col.compute_groups}")
-        expected = {route: 0 for route in _counters(ops)}
-        for metric in col.values():  # first batch: every member updates
-            if _route(metric):
-                expected[_route(metric)] += 1
-        for group in col.compute_groups.values():  # then one update per group, by its first member
-            if _route(col[group[0]]):
-                expected[_route(col[group[0]])] += n_batches - 1
-        return expected
-
-    out2, secs2, counts2 = _driven(ops, "config2", run2, implied2)
+    out2, secs2, counts2 = _driven(ops, "config2", run2, lambda: _implied_config2(ops, col, n_batches))
 
     acc3 = top_k_accuracy()
 
@@ -349,7 +399,266 @@ def phase_main_path(mt, ops) -> dict:
     print(f"top-{TOP_K} accuracy samples/s: {N_SAMPLES / secs3!r} ({secs3!r} s, update per batch + compute)")
     totals = {route: counts1[route] + counts2[route] + counts3[route] for route in _counters(ops)}
     print(f"main path launches per entry point: {totals}")
-    return totals
+    return totals, _integer_results(col), logits, labels
+
+# ------------------------------------------------------------------ sync
+def _rank_main(mt, ops, rank: int, batches, out: Path) -> None:
+    """This rank's share of the pass through config 2 and the aggregators, then synced computes."""
+    col = _config2(mt)
+    cat, mean, top = mt.CatMetric(device=DEVICE), mt.MeanMetric(device=DEVICE), mt.MaxMetric(device=DEVICE)
+    first, stop = SYNC_SHARDS[rank]
+    for fn in _counters(ops).values():
+        fn.launches = 0
+    for preds, target in batches[first:stop]:
+        col.update(preds, target)
+        cat.update(preds.max(dim=1).values)
+        acc = (preds.argmax(dim=1) == target).to(torch.float32).mean()
+        mean.update(acc, weight=float(target.shape[0]))
+        top.update(acc)
+    torch.cuda.synchronize()
+    launches = {route: fn.launches for route, fn in _counters(ops).items()}
+    implied = _implied_config2(ops, col, stop - first)
+    members = {**{f"col.{k}": m for k, m in col.items(keep_base=True)}, "cat": cat, "mean": mean, "max": top}
+    local = {name: m.state_pytree() for name, m in members.items()}
+
+    results = {f"col.{k}": v for k, v in col.compute().items()}
+    aggregate = col.aggregate_sync_report()
+    results.update(cat=cat.compute(), mean=mean.compute(), max=top.compute())
+    torch.cuda.synchronize()
+    devices = sorted({str(v.device) for v in results.values()})
+    after = {name: m.state_pytree() for name, m in members.items()}
+    unsynced = not any(m._is_synced for m in members.values()) and all(
+        local[name].keys() == after[name].keys() and all(
+            torch.equal(v, after[name][k]) if isinstance(v, torch.Tensor) else v == after[name][k]
+            for k, v in local[name].items()
+        )
+        for name in members
+    )
+    synced_counts = {}
+    for name in ("acc", "f1", "prec"):  # the counts behind each score, as synced
+        with col[name].sync_context():
+            synced_counts.update({f"{name}.{k}": getattr(col[name], k).cpu() for k in COUNTS})
+
+    times_ms = []
+    for _ in range(SYNC_COMPUTES):
+        for m in col.values():
+            m._computed = None
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        col.compute()
+        torch.cuda.synchronize()
+        times_ms.append((time.perf_counter() - start) * 1e3)
+    torch.save({**{k: v.cpu() for k, v in results.items()}, **synced_counts}, out / f"rank{rank}.pt")
+    (out / f"rank{rank}.json").write_text(json.dumps({
+        "launches": launches, "implied": implied, "devices": devices, "unsynced": unsynced,
+        "aggregate": aggregate, "times_ms": times_ms, "reports": col.last_sync_report,
+        "stages_ms": _sync_stages(col["cm"]),
+    }))
+
+
+def _sync_stages(cm, reps: int = 5) -> dict:
+    """Median ms of each stage of one packed sync of the confusion matrix, the largest state,
+    run through the same functions ``Metric.sync`` calls (both ranks run it in step)."""
+    from metrics_tpu_torch.metric import _pack_state_blob, _unpack_state_blob
+    from metrics_tpu_torch.parallel.backend import DistBackend, reduce_stack
+
+    backend = DistBackend()
+    stages = {"preflight": [], "pack (device to host)": [], "gather (gloo)": [],
+              "unpack (host to device)": [], "reduce": []}
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        marks = [time.perf_counter()]
+        backend.preflight_check(cm._schema_entries(), cm.update_count)
+        marks.append(time.perf_counter())
+        blob = _pack_state_blob({"r.confmat": cm.confmat})
+        marks.append(time.perf_counter())
+        shards = backend.all_gather_bytes(blob)
+        marks.append(time.perf_counter())
+        parts = [_unpack_state_blob(b)["r.confmat"].to(cm.device) for b in shards]
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        reduce_stack(torch.stack(parts), "sum")
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        for stage, (a, b) in zip(stages, zip(marks, marks[1:])):
+            stages[stage].append((b - a) * 1e3)
+    return {stage: statistics.median(times) for stage, times in stages.items()}
+
+
+def _rank_desync(mt, rank: int, batches, out: Path) -> None:
+    """Rank 1 counts 999 classes where rank 0 counts 1000: both must raise naming the peer and the state."""
+    from metrics_tpu_torch.utils.exceptions import SyncDesyncError
+
+    classes = N_CLASSES - rank
+    cm = mt.ConfusionMatrix(num_classes=classes, device=DEVICE)
+    for preds, target in batches[SYNC_SHARDS[rank][0] :][:2]:
+        cm.update(preds[:, :classes].contiguous(), target.clamp(max=classes - 1))
+    try:
+        cm.compute()
+        seen = {"error": None}
+    except SyncDesyncError as err:
+        seen = {"error": type(err).__name__, "rank": err.rank, "state": err.state, "message": str(err)}
+    (out / f"rank{rank}.json").write_text(json.dumps(seen))
+
+
+def _rank_stall(mt, rank: int, batches, out: Path, store) -> None:
+    """Rank 1 never syncs: rank 0 must raise SyncTimeoutError within timeout x (retries + 1) plus slack."""
+    from metrics_tpu_torch.utils.exceptions import SyncTimeoutError
+
+    if rank == 0:
+        col = _config2(mt, sync_timeout=SYNC_TIMEOUT)
+        for preds, target in batches[:2]:
+            col.update(preds, target)
+        start = time.perf_counter()
+        try:
+            col.compute()
+            seen = {"error": None}
+        except SyncTimeoutError as err:
+            seen = {"error": type(err).__name__, "state": err.state, "timeout": err.timeout,
+                    "attempts": err.attempts, "secs": time.perf_counter() - start}
+        # the group is out of step now: a later sync refuses at once, and
+        # on_sync_error="local" keeps compute alive on the local state
+        later = mt.SumMetric(device=DEVICE, on_sync_error="local")
+        later.update(torch.tensor([1.0, 2.0], device=DEVICE))
+        seen["local_value"] = float(later.compute())
+        seen["local_error"] = later.last_sync_report["error"]
+        (out / "rank0.json").write_text(json.dumps(seen))
+    # leave together without tearing down a group whose collective was
+    # abandoned: the stalled rank exits only once rank 0 is done
+    store.set(f"exit/{rank}", "1")
+    store.wait([f"exit/{1 - rank}"], timedelta(seconds=SYNC_LIMIT))
+    sys.stdout.flush()
+    os._exit(0)
+
+
+def sync_rank(scenario: str, rank: int, where: Path) -> int:
+    """One rank of a two-rank run on ``cuda:0`` over gloo (``--sync-rank``)."""
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    import metrics_tpu_torch as mt
+    from metrics_tpu_torch.ops import stat_scores as ops
+
+    torch.cuda.set_device(0)
+    store = dist.FileStore(str(where / "store"), SYNC_WORLD)
+    dist.init_process_group("gloo", store=store, rank=rank, world_size=SYNC_WORLD,
+                            timeout=timedelta(seconds=SYNC_LIMIT))
+    _, _, batches = _imagenet_pass()
+    if scenario == "stall":
+        _rank_stall(mt, rank, batches, where, store)
+    {"main": lambda: _rank_main(mt, ops, rank, batches, where),
+     "desync": lambda: _rank_desync(mt, rank, batches, where)}[scenario]()
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _start_ranks(scenario: str, where: Path) -> list:
+    """Both ranks of one scenario, each writing its output to a log in ``where``."""
+    where.mkdir()
+    ranks = []
+    for rank in range(SYNC_WORLD):
+        log = open(where / f"log{rank}.txt", "w")
+        command = [sys.executable, str(Path(__file__).resolve()), "--sync-rank", scenario, str(rank), str(where)]
+        ranks.append((subprocess.Popen(command, cwd=ROOT, stdout=log, stderr=subprocess.STDOUT), log))
+    return ranks
+
+
+def _wait_ranks(scenario: str, ranks: list, where: Path) -> list:
+    """Each rank's JSON record; raises when a rank fails or outlives the limit (and kills it)."""
+    deadline = time.monotonic() + SYNC_LIMIT
+    try:
+        for rank, (proc, _) in enumerate(ranks):
+            try:
+                code = proc.wait(timeout=max(deadline - time.monotonic(), 1.0))
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"sync {scenario}: rank {rank} still runs after {SYNC_LIMIT} s") from None
+            if code != 0:
+                log = (where / f"log{rank}.txt").read_text()[-4000:]
+                raise AssertionError(f"sync {scenario}: rank {rank} exited {code}:\n{log}")
+    finally:
+        for proc, log in ranks:
+            proc.kill()
+            proc.wait()
+            log.close()
+    return [json.loads(p.read_text()) if p.exists() else None
+            for p in (where / f"rank{rank}.json" for rank in range(SYNC_WORLD))]
+
+
+def phase_sync(single: dict, logits: torch.Tensor, labels: torch.Tensor, card: str) -> dict:
+    """Two ranks on ``cuda:0`` sync config 2 and the aggregators; then the desync and stall
+    scenarios, each a two-rank run of its own.  Returns the sync JSON line."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sync_") as tmp:
+        tmp = Path(tmp)
+        start = time.perf_counter()
+        main = _wait_ranks("main", _start_ranks("main", tmp / "main"), tmp / "main")
+        print(f"sync: two ranks took {time.perf_counter() - start:.1f} s (start-up included)")
+        faults = {s: _start_ranks(s, tmp / s) for s in ("desync", "stall")}
+        desync = _wait_ranks("desync", faults["desync"], tmp / "desync")
+        stall = _wait_ranks("stall", faults["stall"], tmp / "stall")
+        got = [torch.load(tmp / "main" / f"rank{rank}.pt") for rank in range(SYNC_WORLD)]
+
+    ref = _reference(logits, labels)
+    tops = logits.max(dim=1).values.cpu()
+    correct = (logits.argmax(dim=1) == labels).cpu().numpy()
+    batch_acc = [correct[i : i + BATCH].mean() for i in range(0, N_SAMPLES, BATCH)]
+    for rank, (seen, res) in enumerate(zip(main, got)):
+        if seen["launches"] != seen["implied"] or not seen["launches"]["logits"]:
+            raise AssertionError(f"sync rank {rank} launched {seen['launches']}, its compute groups imply {seen['implied']}")
+        if seen["devices"] != ["cuda:0"]:
+            raise AssertionError(f"sync rank {rank}: results on {seen['devices']}, not the card")
+        if not seen["unsynced"]:
+            raise AssertionError(f"sync rank {rank}: compute() did not restore the local state")
+        integers = {"cm": res["col.cm"], **{k: v for k, v in res.items() if k.split(".")[0] in ("acc", "f1", "prec")}}
+        for key, want in single.items():
+            if integers[key].dtype != torch.int32 or not torch.equal(integers[key], want):
+                raise AssertionError(f"sync rank {rank}: {key} differs from the single-process pass")
+        if not torch.equal(res["cat"], tops):
+            raise AssertionError(f"sync rank {rank}: CatMetric does not hold the 50,000 top logits in rank order")
+        for key in res:
+            if not torch.equal(res[key], got[0][key]):
+                raise AssertionError(f"sync: {key} differs between the ranks")
+        _check_close(f"sync rank {rank} macro accuracy", res["col.acc"], ref["macro_acc"])
+        _check_close(f"sync rank {rank} macro precision", res["col.prec"], ref["macro_precision"])
+        _check_close(f"sync rank {rank} macro f1", res["col.f1"], ref["macro_f1"])
+        _check_close(f"sync rank {rank} mean batch accuracy", res["mean"], ref["micro_acc"])
+        _check_close(f"sync rank {rank} max batch accuracy", res["max"], max(batch_acc))
+    print("check sync: both ranks bitwise equal to the single-process pass (cm, tp/fp/tn/fn), "
+          "CatMetric holds the 50,000 top logits in rank order, results on cuda:0, local state restored")
+
+    for rank, seen in enumerate(desync):
+        if (seen["error"], seen.get("rank"), seen.get("state")) != ("SyncDesyncError", 1 - rank, "confmat"):
+            raise AssertionError(f"sync desync: rank {rank} saw {seen}")
+        print(f"check sync desync: rank {rank} raised {seen['error']}: {seen['message']}")
+    seen = stall[0]
+    if seen["error"] != "SyncTimeoutError" or seen["secs"] > SYNC_TIMEOUT * 1 + SYNC_SLACK:
+        raise AssertionError(f"sync stall: rank 0 saw {seen}")
+    if seen["local_value"] != 3.0 or not (seen["local_error"] or "").startswith("SyncError"):
+        raise AssertionError(f"sync stall: a later sync did not refuse and fall back to the local state: {seen}")
+    print(f"check sync stall: rank 0 raised SyncTimeoutError on {seen['state']!r} after {seen['secs']!r} s "
+          f"(sync_timeout {SYNC_TIMEOUT} s, no retry); a later sync refused at once and fell back to the local state")
+
+    aggregate = main[0]["aggregate"]
+    line = {"sync": {
+        "card": card,
+        "transport": "gloo over one card (two ranks on cuda:0)",
+        "world_size": SYNC_WORLD,
+        "compute_ms_median": statistics.median(main[0]["times_ms"]),
+        "compute_ms_median_per_rank": [statistics.median(seen["times_ms"]) for seen in main],
+        "computes_timed": SYNC_COMPUTES,
+        "bytes_gathered": aggregate["bytes_gathered"],
+        "preflight_bytes": aggregate["preflight_bytes"],
+        "gather_calls": aggregate["gather_calls"],
+        "preflight_calls": aggregate["preflight_calls"],
+        "logits_launches_per_rank": [seen["launches"]["logits"] for seen in main],
+        "canonical_launches_per_rank": [seen["launches"]["canonical"] for seen in main],
+        "stall_raise_secs": stall[0]["secs"],
+        "confusion_matrix_sync_stages_ms": main[0]["stages_ms"],
+    }}
+    print(f"sync synced config-2 compute() ms, rank 0: {main[0]['times_ms']!r}")
+    print(f"sync stages of one confusion-matrix sync, median ms of 5, per rank: {[seen['stages_ms'] for seen in main]!r}")
+    return line
+
 
 
 def _device_ops(fn, calls: int = 1) -> Optional[list]:
@@ -424,10 +733,11 @@ def phase_timings(ops, launches: dict, max_abs_err: Tuple[int, int]) -> list:
           f"kernel {kernel_call_ms!r} ms, plain {plain_call_ms!r} ms")
     flags = preds.bool(), target.bool()
     bool_ms = _device_ms(lambda: ops.fused_stat_scores(*flags))[0]
+    bool_plain_ms = _device_ms(lambda: ops.fused_stat_scores_plain(*flags))[0]
     bool_own_ms = _one_launch("stat_scores bool", lambda: ops.fused_stat_scores(*flags))
     bool_bound, _ = _bound(2 * n * c + 4 * c * 4, 6 * n * c)
     print(f"stat_scores at {(n, c)} bool: kernel {bool_ms!r} ms (its own device time {bool_own_ms!r} ms), "
-          f"bound {bool_bound!r} ms")
+          f"plain {bool_plain_ms!r} ms, bound {bool_bound!r} ms")
     canonical = {
         "name": "stat_scores",
         "route": "cuda",
@@ -453,12 +763,12 @@ def phase_timings(ops, launches: dict, max_abs_err: Tuple[int, int]) -> list:
         name = str(dtype).replace("torch.", "")
         # each input read once, four (C,) int32 out; about six integer operations per logit (its order key and the max)
         bound_ms, bound_by = _bound(n * c * logits.element_size() + n * labels.element_size() + 4 * c * 4, 6 * n * c)
+        plain = lambda: ops.fused_stat_scores_logits_plain(logits, labels)  # noqa: E731
         if dtype != torch.float32:
             own_ms = _one_launch(f"stat_scores_logits {name}", kernel)
             print(f"stat_scores_logits at {(n, c)} {name} logits, int64 labels: kernel {_device_ms(kernel)[0]!r} ms "
-                  f"(its own device time {own_ms!r} ms), bound {bound_ms!r} ms")
+                  f"(its own device time {own_ms!r} ms), plain {_device_ms(plain)[0]!r} ms, bound {bound_ms!r} ms")
             continue
-        plain = lambda: ops.fused_stat_scores_logits_plain(logits, labels)  # noqa: E731
         chain = lambda: ops.fused_stat_scores(select_topk(logits, 1), to_onehot(labels, c))  # noqa: E731
         kernel_own_ms = _one_launch("stat_scores_logits", kernel)
         chain_ops = _device_ops(chain) or []
@@ -512,8 +822,11 @@ def main() -> int:
     print(card)
     phase_build(ops)
     max_abs_err = phase_kernels(ops)
-    launches = phase_main_path(mt, ops)
+    launches, single, logits, labels = phase_main_path(mt, ops)
+    sync_line = phase_sync(single, logits, labels, card)
+    del logits, labels
     kernels = phase_timings(ops, launches, max_abs_err)
+    print(json.dumps(sync_line))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -523,4 +836,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 5 and sys.argv[1] == "--sync-rank":
+        sys.exit(sync_rank(sys.argv[2], int(sys.argv[3]), Path(sys.argv[4])))
     sys.exit(main())

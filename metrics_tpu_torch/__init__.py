@@ -2,9 +2,12 @@
 
 Module metrics and :class:`MetricCollection` keep their state on ``device``
 (``"cuda"`` by default, ``"cpu"`` on request); functionals run on the device of
-their inputs.  This package imports neither JAX nor ``metrics_tpu``.
+their inputs.  With a ``torch.distributed`` process group initialised,
+``compute()`` syncs the states across processes (:mod:`metrics_tpu_torch.parallel`).
+This package imports neither JAX nor ``metrics_tpu``.
 """
 
+from metrics_tpu_torch.aggregation import CatMetric, MaxMetric, MeanMetric, MinMetric, SumMetric
 from metrics_tpu_torch.classification import (
     Accuracy,
     ConfusionMatrix,
@@ -29,14 +32,19 @@ from metrics_tpu_torch.metric import Metric
 
 __all__ = [
     "Accuracy",
+    "CatMetric",
     "ConfusionMatrix",
     "F1Score",
     "FBetaScore",
+    "MaxMetric",
+    "MeanMetric",
     "Metric",
     "MetricCollection",
+    "MinMetric",
     "Precision",
     "Recall",
     "StatScores",
+    "SumMetric",
     "accuracy",
     "confusion_matrix",
     "f1_score",

@@ -28,6 +28,10 @@ class MetricCollection(nn.Module):
             list of name-groups.
         device: the device every member keeps its state on, ``"cuda"`` (the
             default) or ``"cpu"``; a member on another device raises.
+        on_sync_error / sync_timeout / sync_max_retries / sync_backoff /
+            validate_sync: sync policy set on EVERY member at registration
+            (see the :class:`~metrics_tpu_torch.Metric` kwargs of the same
+            names); ``None`` leaves each member's own setting.
 
     Example:
         >>> import torch
@@ -51,11 +55,25 @@ class MetricCollection(nn.Module):
         postfix: Optional[str] = None,
         compute_groups: Union[bool, List[List[str]]] = True,
         device: str = "cuda",
+        on_sync_error: Optional[str] = None,
+        sync_timeout: Optional[float] = None,
+        sync_max_retries: Optional[int] = None,
+        sync_backoff: Optional[float] = None,
+        validate_sync: Optional[bool] = None,
     ) -> None:
         super().__init__()
         self.device = _resolve_device(device)
         self.prefix = self._check_arg(prefix, "prefix")
         self.postfix = self._check_arg(postfix, "postfix")
+        if on_sync_error is not None and on_sync_error not in ("raise", "local", "skip"):
+            raise ValueError(f"`on_sync_error` must be 'raise', 'local' or 'skip', got {on_sync_error!r}")
+        self._sync_policy = {
+            "on_sync_error": on_sync_error,
+            "sync_timeout": sync_timeout,
+            "sync_max_retries": sync_max_retries,
+            "sync_backoff": sync_backoff,
+            "validate_sync": validate_sync,
+        }
         self._enable_compute_groups = compute_groups
         self._groups_checked = False
         self._compute_groups: Dict[int, List[str]] = {}
@@ -78,6 +96,9 @@ class MetricCollection(nn.Module):
             raise ValueError(
                 f"Metric {name!r} keeps its state on {metric.device}, but the collection is on {self.device}"
             )
+        for key, value in self._sync_policy.items():
+            if value is not None:
+                setattr(metric, key, value)
         self.add_module(name, metric)
 
     def add_metrics(
@@ -229,6 +250,10 @@ class MetricCollection(nn.Module):
                     setattr(member, key, list(value) if isinstance(value, list) else value)
                 member._update_count = leader._update_count
                 member._computed = None
+                # shared states share ONE synced watermark: a member syncing
+                # through its own cache would splice the leader's prefix at
+                # the wrong row
+                member._delta_cache = leader._delta_cache
 
     def compute(self) -> Dict[str, Any]:
         res = _flatten_dict({k: m.compute() for k, m in self._modules.items()})
@@ -285,3 +310,54 @@ class MetricCollection(nn.Module):
     @property
     def compute_groups(self) -> Dict[int, List[str]]:
         return self._compute_groups
+
+    @property
+    def last_sync_report(self) -> Dict[str, Optional[Dict[str, Any]]]:
+        """Per-member sync telemetry, ``{name: metric.last_sync_report}``
+        (``None`` for members that have not attempted a distributed sync)."""
+        return {name: m.last_sync_report for name, m in self._modules.items()}
+
+    @property
+    def sync_report_history(self) -> Dict[str, List[Dict[str, Any]]]:
+        """Per-member bounded report rings: ``{name: [oldest, ..., newest]}``."""
+        return {name: list(m.sync_report_history) for name, m in self._modules.items()}
+
+    def aggregate_sync_report(self) -> Dict[str, Any]:
+        """Roll every member's latest sync report into collection totals.
+
+        Sums the additive fields (duration, retries, attempts, gather calls,
+        bytes, preflight traffic, backoff) and collects per-member errors, so
+        a loop can log one line per collection sync.
+        """
+        totals: Dict[str, Any] = {
+            "members_reporting": 0,
+            "duration_secs": 0.0,
+            "retries": 0,
+            "attempts": 0,
+            "gather_calls": 0,
+            "bytes_gathered": 0,
+            "preflight_calls": 0,
+            "preflight_bytes": 0,
+            "bytes_saved": 0,
+            "delta_syncs": 0,
+            "full_syncs": 0,
+            "backoff_secs": 0.0,
+            "errors": [],
+        }
+        for name, m in self._modules.items():
+            rep = m.last_sync_report
+            if not rep:
+                continue
+            totals["members_reporting"] += 1
+            for key in ("duration_secs", "backoff_secs"):
+                totals[key] = round(totals[key] + float(rep.get(key) or 0.0), 6)
+            for key in (
+                "retries", "attempts", "gather_calls", "bytes_gathered",
+                "preflight_calls", "preflight_bytes", "bytes_saved",
+            ):
+                totals[key] += int(rep.get(key) or 0)
+            if "delta" in rep:
+                totals["delta_syncs" if rep["delta"] else "full_syncs"] += 1
+            if rep.get("error"):
+                totals["errors"].append({"member": name, "error": rep["error"]})
+        return totals

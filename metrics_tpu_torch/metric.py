@@ -1,4 +1,4 @@
-"""Core ``Metric`` runtime, single process (counterpart of ``metrics_tpu/metric.py``).
+"""Core ``Metric`` runtime (counterpart of ``metrics_tpu/metric.py``).
 
 A metric is a ``torch.nn.Module``.  Its streaming states are tensors (or
 Python lists of tensors for ``cat`` states) held as plain attributes and
@@ -11,25 +11,142 @@ and :meth:`Metric.reset` installs clones of the defaults: so a value that
 ``compute`` returned, a ``forward`` snapshot, a compute group's shared
 tensors and the stored defaults never alias a tensor that a later update
 changes.  A subclass must keep to that style.
+
+``compute`` syncs the states across processes first when a
+``torch.distributed`` process group of more than one rank is initialised
+(or an explicit ``sync_backend`` is given): a schema preflight, then one
+packed blob gather, reduced in rank order on every rank; ``unsync`` restores
+the local state after.  See :mod:`metrics_tpu_torch.parallel`.
 """
 
 import copy
+import hashlib
 import inspect
 import numbers
+import os
+import struct
+import time
 from abc import ABC, abstractmethod
+from collections import deque
 from contextlib import contextmanager
-from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple, Union
+from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
-import torch.distributed as dist
 from torch import nn
 
+from metrics_tpu_torch.parallel.backend import (
+    Backend,
+    SyncOptions,
+    get_backend,
+    reduce_stack,
+    reduce_synced_state,
+)
 from metrics_tpu_torch.utils.data import _squeeze_if_scalar, dim_zero_cat
-from metrics_tpu_torch.utils.exceptions import MetricsTPUUserError
+from metrics_tpu_torch.utils.exceptions import (
+    MetricsTPUUserError,
+    SyncError,
+    SyncIntegrityError,
+    SyncTimeoutError,
+)
 from metrics_tpu_torch.utils.prints import rank_zero_warn
 
 _ALLOWED_REDUCE = ("sum", "mean", "max", "min", "cat")
+
+_UNSET = object()  # sentinel: distinguish "no saved value" from a None value
+
+
+def _rows_of(x: torch.Tensor) -> int:
+    """Leading-axis row count under ``dim_zero_cat`` semantics (0-d == 1 row)."""
+    return int(x.shape[0]) if x.ndim >= 1 else 1
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    """A torch dtype by its numpy name (``int32``, ``bfloat16``, ``bool``), as the JAX package prints dtypes."""
+    return str(dtype).replace("torch.", "")
+
+
+class _DeltaCache:
+    """Per-metric cache of the previously gathered cat/list state.
+
+    ``prefixes[name]`` holds the last globally gathered value of a cat-like
+    state (identical on every rank), ``watermarks[name]`` the number of local
+    rows that prefix covers on this rank.  A sync with a live cache gathers
+    only the rows past the watermark and splices them onto the prefix, so a
+    K-step streaming sync loop ships O(K) bytes, not O(K²).
+
+    ``round`` encodes trust: ``0`` means no verified prefix (the next sync is
+    a full gather); ``N >= 1`` means the prefix came out of round N and every
+    rank that agrees on ``N`` holds the identical prefix.  The preflight vote
+    compares ``(round, digest(state names))`` across ranks; any disagreement,
+    or any rank with a cleared cache, forces every rank back to a full gather.
+
+    Compute-group members of a :class:`MetricCollection` alias one cache
+    object, which is why :meth:`clear` empties in place rather than rebinding.
+    """
+
+    def __init__(self) -> None:
+        self.prefixes: Dict[str, Optional[torch.Tensor]] = {}
+        self.watermarks: Dict[str, int] = {}
+        self.round = 0
+
+    def clear(self) -> None:
+        self.prefixes.clear()
+        self.watermarks.clear()
+        self.round = 0
+
+    def token(self, names: Sequence[str]) -> Tuple[int, int, int]:
+        """``(round, digest_lo, digest_hi)`` int32-safe vote token over the
+        participating state names (watermarks differ across uneven shards)."""
+        h = hashlib.blake2b("\x1f".join(sorted(names)).encode(), digest_size=8).digest()
+        lo = int.from_bytes(h[:4], "little") & 0x7FFFFFFF
+        hi = int.from_bytes(h[4:], "little") & 0x7FFFFFFF
+        return (self.round & 0x7FFFFFFF, lo, hi)
+
+
+def _pack_state_blob(arrays: Dict[str, torch.Tensor]) -> bytes:
+    """Serialize named tensors into one self-describing blob.
+
+    Byte for byte the JAX package's format: a little-endian count, then per
+    key in sorted order its name, numpy dtype name, shape and C-order bytes.
+    """
+    parts = [struct.pack("<I", len(arrays))]
+    for key in sorted(arrays):
+        t = arrays[key].detach().cpu().contiguous()
+        # bfloat16 has no numpy dtype without ml_dtypes: ship its raw 2-byte words
+        raw = (t.view(torch.int16) if t.dtype == torch.bfloat16 else t).numpy().tobytes()
+        kb, db = key.encode(), _dtype_name(t.dtype).encode()
+        parts.append(struct.pack("<HHB", len(kb), len(db), t.ndim))
+        parts.append(kb)
+        parts.append(db)
+        parts.append(struct.pack(f"<{t.ndim}q", *t.shape))
+        parts.append(struct.pack("<q", len(raw)))
+        parts.append(raw)
+    return b"".join(parts)
+
+
+def _unpack_state_blob(blob: bytes) -> Dict[str, torch.Tensor]:
+    """The named CPU tensors of a blob from :func:`_pack_state_blob`."""
+    out: Dict[str, torch.Tensor] = {}
+    off = 4
+    (n,) = struct.unpack_from("<I", blob, 0)
+    for _ in range(n):
+        klen, dlen, ndim = struct.unpack_from("<HHB", blob, off)
+        off += 5
+        key = blob[off : off + klen].decode()
+        off += klen
+        name = blob[off : off + dlen].decode()
+        off += dlen
+        shape = struct.unpack_from(f"<{ndim}q", blob, off)
+        off += 8 * ndim
+        (nbytes,) = struct.unpack_from("<q", blob, off)
+        off += 8
+        dt = np.dtype(np.int16) if name == "bfloat16" else np.dtype(name)
+        arr = np.frombuffer(blob, dt, count=nbytes // dt.itemsize, offset=off).reshape(shape)
+        tensor = torch.from_numpy(arr.copy())
+        out[key] = tensor.view(torch.bfloat16) if name == "bfloat16" else tensor
+        off += nbytes
+    return out
 
 
 def _resolve_device(device: Union[str, torch.device]) -> torch.device:
@@ -89,10 +206,34 @@ class Metric(nn.Module, ABC):
         device: where the states live, ``"cuda"`` (the default) or ``"cpu"``.
             Construction raises when CUDA is asked for and absent.
         sync_on_compute: synchronize before ``compute`` (default True).
-            Cross-process sync is not part of this package yet: with a
-            ``torch.distributed`` process group initialised, a sync raises.
+        dist_sync_on_step: sync the batch state in every ``forward`` so its
+            value covers every rank's batch (default False).
+        dist_sync_fn: custom ``fn(state, reduce_fns, backend) -> state``
+            replacing the built-in gather.
+        process_group: the ``torch.distributed`` group to sync over (the
+            default group when ``None``).
+        sync_backend: an explicit :class:`~metrics_tpu_torch.parallel.Backend`
+            overriding the choice from ``process_group`` (the hook
+            :class:`~metrics_tpu_torch.parallel.ChaosBackend` uses).
+        sync_timeout / sync_max_retries / sync_backoff: the watchdog per
+            collective in seconds and the retry policy; ``None`` falls through
+            to ``METRICS_TPU_SYNC_*``.  A ``torch.distributed`` collective is
+            never retried (see :mod:`metrics_tpu_torch.parallel.backend`).
+        on_sync_error: on a :class:`~metrics_tpu_torch.utils.exceptions.SyncError`,
+            ``"raise"`` (default; env ``METRICS_TPU_ON_SYNC_ERROR``),
+            ``"local"`` (compute on the local state with a warning) or
+            ``"skip"`` (the same, silently).
+        validate_sync: check states for NaN/Inf and dtype drift before and
+            after sync, raising ``SyncIntegrityError`` (default off; env
+            ``METRICS_TPU_VALIDATE_SYNC``).
+        delta_sync: after a full gather, later syncs of append-only ``cat``
+            states ship only the rows appended since and splice them onto the
+            cached gathered prefix, when every rank votes for it in the
+            preflight (default on; env kill switch ``METRICS_TPU_DELTA_SYNC=0``).
 
     ``compute`` returns its cached value until the next update or reset.
+    Each distributed sync records ``last_sync_report`` and appends it to the
+    bounded ``sync_report_history``.
     """
 
     is_differentiable: Optional[bool] = None
@@ -105,10 +246,37 @@ class Metric(nn.Module, ABC):
     # be JSON-serializable or EnumStr members
     _ckpt_attrs: Tuple[str, ...] = ()
 
+    # set True on metrics whose per-batch appends are state-independent
+    # (re-running update on a reset state appends the same rows): lets the
+    # dist_sync_on_step batch gather advance the delta cache for free
+    _forward_delta_advance = False
+
     def __init__(self, **kwargs: Any) -> None:
         super().__init__()
         self.device = _resolve_device(kwargs.pop("device", "cuda"))
         self.sync_on_compute = kwargs.pop("sync_on_compute", True)
+        self.dist_sync_on_step = kwargs.pop("dist_sync_on_step", False)
+        self.dist_sync_fn = kwargs.pop("dist_sync_fn", None)
+        self.process_group = kwargs.pop("process_group", None)
+        self.sync_backend = kwargs.pop("sync_backend", None)
+        self.sync_timeout = kwargs.pop("sync_timeout", None)
+        self.sync_max_retries = kwargs.pop("sync_max_retries", None)
+        self.sync_backoff = kwargs.pop("sync_backoff", None)
+        self.on_sync_error = kwargs.pop(
+            "on_sync_error", os.environ.get("METRICS_TPU_ON_SYNC_ERROR", "").strip() or "raise"
+        )
+        if self.on_sync_error not in ("raise", "local", "skip"):
+            raise ValueError(
+                f"`on_sync_error` must be 'raise', 'local' or 'skip', got {self.on_sync_error!r}"
+            )
+        self.validate_sync = kwargs.pop(
+            "validate_sync",
+            os.environ.get("METRICS_TPU_VALIDATE_SYNC", "").strip().lower() in ("1", "true", "yes"),
+        )
+        self.delta_sync = kwargs.pop(
+            "delta_sync",
+            os.environ.get("METRICS_TPU_DELTA_SYNC", "").strip().lower() not in ("0", "false", "no"),
+        )
         if kwargs:
             raise ValueError(f"Unexpected keyword arguments: {sorted(kwargs)}")
         self._defaults: Dict[str, Any] = {}
@@ -120,6 +288,10 @@ class Metric(nn.Module, ABC):
         self._cache: Optional[Dict[str, Any]] = None
         self._cached_count = 0
         self._update_called_warned = False
+        self._delta_cache = _DeltaCache()
+        self._last_synced_state: Optional[Dict[str, Any]] = None
+        self.last_sync_report: Optional[Dict[str, Any]] = None
+        self.sync_report_history: deque = deque(maxlen=16)
         self._install_wrappers()
 
     def _install_wrappers(self) -> None:
@@ -244,7 +416,8 @@ class Metric(nn.Module, ABC):
 
         The fast path merges the pre-update state with the batch state
         through the per-state reductions; the full path re-runs update on
-        the cached global state.
+        the cached global state.  With ``dist_sync_on_step`` the batch value
+        is synced across processes (full path).
         """
         if self._is_synced:
             raise MetricsTPUUserError("Calling forward while the metric is synced is forbidden.")
@@ -254,16 +427,16 @@ class Metric(nn.Module, ABC):
             callable(fx) or (fx is None and not isinstance(getattr(self, name), list))
             for name, fx in self._reduce_fns.items()
         )
-        if self.full_state_update or no_fast_merge:
+        if self.full_state_update or self.dist_sync_on_step or no_fast_merge:
             return self._forward_full_state_update(*args, **kwargs)
         return self._forward_reduce_state_update(*args, **kwargs)
 
-    def _batch_value(self, *args: Any, **kwargs: Any) -> Any:
-        """Reset, update on this batch alone and compute, without a sync."""
+    def _batch_value(self, should_sync: bool, args: tuple, kwargs: dict) -> Any:
+        """Reset, update on this batch alone and compute, synced only when ``should_sync``."""
         self.reset()
         self.update(*args, **kwargs)
         prev_sync = self.sync_on_compute
-        self.sync_on_compute = False
+        self.sync_on_compute = should_sync
         try:
             return self.compute()
         finally:
@@ -273,17 +446,31 @@ class Metric(nn.Module, ABC):
         self.update(*args, **kwargs)
         cache = self._copy_state()
         cached_count = self._update_count
-        batch_val = self._batch_value(*args, **kwargs)
+        # the batch value syncs and resets a temporary delta cache: the batch
+        # sync must vote "full", and its reset must not clear the prefix of
+        # the accumulated state
+        global_dc = self._delta_cache
+        self._delta_cache = _DeltaCache()
+        self._last_synced_state = None
+        try:
+            batch_val = self._batch_value(self.dist_sync_on_step, args, kwargs)
+            batch_synced = self._last_synced_state
+            batch_state = self._copy_state()
+        finally:
+            self._delta_cache = global_dc
+            self._last_synced_state = None
         self._restore_state(cache)
         self._update_count = cached_count
         self._computed = None
         self._is_synced = False
+        if batch_synced is not None and self._forward_delta_advance and self.delta_sync:
+            self._forward_advance_delta(cache, batch_state, batch_synced)
         return batch_val
 
     def _forward_reduce_state_update(self, *args: Any, **kwargs: Any) -> Any:
         global_state = self._copy_state()
         global_count = self._update_count
-        batch_val = self._batch_value(*args, **kwargs)
+        batch_val = self._batch_value(False, args, kwargs)
         self._reduce_states(global_state, global_count)
         self._update_count = global_count + 1
         self._computed = None
@@ -304,24 +491,420 @@ class Metric(nn.Module, ABC):
             setattr(self, name, merged)
 
     # ------------------------------------------------------------------- sync
-    def sync(self, should_sync: bool = True) -> None:
-        """Mark the state synced, caching the local state for :meth:`unsync`.
+    def _sync_options(self) -> SyncOptions:
+        return SyncOptions.resolve(self.sync_timeout, self.sync_max_retries, self.sync_backoff)
 
-        Within one process there is nothing to gather.  Cross-process sync
-        over ``torch.distributed`` is a later part of the port: with a
-        process group initialised, a sync raises rather than computing on
-        the local state alone.
+    def _schema_entries(self) -> List[Tuple[str, str]]:
+        """``(state_name, signature)`` pairs for the preflight digest exchange.
+
+        A signature holds what must agree across ranks for the gather to be
+        well formed: the per-row shape and dtype of cat/list states, whose
+        leading dim differs with the shard, and the full shape and dtype of
+        reduced states.  Shapes print as Python tuples and dtypes by their
+        numpy names, so the digests equal the JAX package's for the same metric.
+        """
+        entries: List[Tuple[str, str]] = []
+        for name in self._defaults:
+            value = getattr(self, name)
+            fx = self._reduce_fns[name]
+            if isinstance(value, list):
+                if value:
+                    head = value[0]
+                    sig = f"list:{tuple(head.shape[1:])}:{_dtype_name(head.dtype)}"
+                else:
+                    # one empty and one non-empty rank would deadlock the cat
+                    # gather, so emptiness is part of the signature
+                    sig = "list:empty"
+            elif fx == "cat" or fx is None:
+                sig = f"cat:{tuple(value.shape[1:])}:{_dtype_name(value.dtype)}"
+            else:
+                fxn = fx if isinstance(fx, str) else getattr(fx, "__name__", "custom")
+                sig = f"{fxn}:{tuple(value.shape)}:{_dtype_name(value.dtype)}"
+            entries.append((name, sig))
+        return entries
+
+    def _validate_state_integrity(
+        self, state: Dict[str, Any], phase: str, reference: Optional[Dict[str, Any]] = None
+    ) -> None:
+        """NaN/Inf and dtype-drift checks for ``validate_sync=True``."""
+        for name, value in state.items():
+            leaves = value if isinstance(value, list) else [value]
+            for leaf in leaves:
+                if isinstance(leaf, torch.Tensor) and leaf.is_floating_point() and not bool(torch.isfinite(leaf).all()):
+                    raise SyncIntegrityError(
+                        f"metric state {name!r} of {type(self).__name__} holds non-finite "
+                        f"values {phase}; a peer contributed NaN/Inf or the payload was "
+                        "corrupted in flight",
+                        state=name,
+                        phase=phase,
+                        problem="non-finite values",
+                    )
+            if reference is not None and name in reference:
+                ref = reference[name]
+                ref_leaf = ref[0] if isinstance(ref, list) and ref else ref
+                new_leaf = value[0] if isinstance(value, list) and value else value
+                if isinstance(ref_leaf, torch.Tensor) and isinstance(new_leaf, torch.Tensor):
+                    old_dt, new_dt = _dtype_name(ref_leaf.dtype), _dtype_name(new_leaf.dtype)
+                    if old_dt != new_dt:
+                        raise SyncIntegrityError(
+                            f"metric state {name!r} of {type(self).__name__} drifted from "
+                            f"dtype {old_dt} to {new_dt} through sync",
+                            state=name,
+                            phase=phase,
+                            problem=f"dtype drift {old_dt} -> {new_dt}",
+                        )
+
+    def _sync_state_pure(
+        self,
+        state: Dict[str, Any],
+        backend: Backend,
+        delta_plan: Optional[Dict[str, tuple]] = None,
+    ) -> Dict[str, Any]:
+        """The synced states: one packed gather where the backend can, else
+        one collective (or a sizes and a rows gather) per state, in state order."""
+        state = dict(state)
+        delta_plan = delta_plan or {}
+        if getattr(backend, "supports_packed", False):
+            return self._sync_state_packed(state, backend, delta_plan)
+        out: Dict[str, Any] = {}
+        try:
+            for name, value in state.items():
+                with backend.annotate(name):
+                    if isinstance(value, list):
+                        if not value:
+                            out[name] = value
+                            continue
+                        value = torch.atleast_1d(dim_zero_cat(value))
+                    elif name not in delta_plan:
+                        out[name] = reduce_synced_state(value, self._reduce_fns[name], backend)
+                        continue
+                    if name in delta_plan:
+                        value = torch.atleast_1d(value)[delta_plan[name][-1] :]
+                        out[name] = self._splice_prefix(name, backend.all_gather_cat(value))
+                    else:
+                        out[name] = backend.all_gather_cat(value)
+        except SyncTimeoutError as err:
+            # per-state progress: the states that HAD completed before the straggler
+            err.synced_states = sorted(out)
+            raise
+        return out
+
+    def _sync_state_packed(
+        self, state: Dict[str, Any], backend: Backend, delta_plan: Dict[str, tuple]
+    ) -> Dict[str, Any]:
+        """Whole-state sync over ONE byte-blob gather.
+
+        This rank's contribution (delta-sliced where the plan allows) goes
+        into one blob and travels through ``backend.all_gather_bytes``: two
+        collectives in all instead of two per state.  Each rank's part comes
+        back to the metric's device, where cat states concatenate in rank
+        order and reduced states fold in rank order, with their own dtypes.
+        """
+        payload: Dict[str, torch.Tensor] = {}
+        out: Dict[str, Any] = {}
+        cat_names: List[str] = []
+        reduce_names: List[str] = []
+        for name, value in state.items():
+            fx = self._reduce_fns[name]
+            if isinstance(value, list) or fx == "cat" or fx is None:
+                if isinstance(value, list):
+                    if not value:
+                        # the preflight's "list:empty" signature guarantees every
+                        # rank agrees this state is empty: nothing to exchange
+                        out[name] = value
+                        continue
+                    value = dim_zero_cat(value)
+                rows = torch.atleast_1d(value)
+                if name in delta_plan:
+                    rows = rows[delta_plan[name][-1] :]
+                payload["c." + name] = rows
+                cat_names.append(name)
+            else:
+                payload["r." + name] = value
+                reduce_names.append(name)
+        try:
+            with backend.annotate("packed"):
+                shards = backend.all_gather_bytes(_pack_state_blob(payload))
+        except SyncTimeoutError as err:
+            err.synced_states = []  # all or nothing: nothing landed
+            raise
+        per_rank = [
+            {key: t.to(self.device) for key, t in _unpack_state_blob(s).items()} for s in shards
+        ]
+        for name in cat_names:
+            parts = [r["c." + name] for r in per_rank]
+            filled = [p for p in parts if p.shape[0]]
+            gathered = torch.cat(filled) if filled else parts[0]
+            out[name] = self._splice_prefix(name, gathered) if name in delta_plan else gathered
+        for name in reduce_names:
+            stacked = torch.stack([r["r." + name] for r in per_rank])
+            out[name] = reduce_stack(stacked, self._reduce_fns[name])
+        return out
+
+    # ------------------------------------------------------------- delta sync
+    def _delta_state_names(self) -> List[str]:
+        """States eligible for incremental gather: append-only cat/list rows."""
+        return sorted(
+            name
+            for name, fx in self._reduce_fns.items()
+            if isinstance(getattr(self, name), list) or fx == "cat" or fx is None
+        )
+
+    def _build_delta_plan(self) -> Optional[Dict[str, tuple]]:
+        """Check the cached prefixes against the current local state.
+
+        Returns ``{name: ("list", skip_entries, watermark) | ("tensor",
+        watermark)}`` when every eligible state still extends its watermark
+        (rows were only appended since the last sync), else ``None``, which
+        makes this rank vote for a full gather.  Purely local: the agreement
+        happens in the preflight token exchange.
+        """
+        if not self.delta_sync:
+            return None
+        dc = self._delta_cache
+        if dc.round < 1:
+            return None
+        names = self._delta_state_names()
+        if not names or set(dc.watermarks) != set(names):
+            return None
+        plan: Dict[str, tuple] = {}
+        for name in names:
+            wm = int(dc.watermarks[name])
+            prefix = dc.prefixes.get(name)
+            if prefix is None and wm != 0:
+                return None
+            value = getattr(self, name)
+            if isinstance(value, list):
+                skip = cum = 0
+                while skip < len(value) and cum < wm:
+                    cum += _rows_of(value[skip])
+                    skip += 1
+                if cum != wm:
+                    return None  # the watermark falls inside an entry: rows changed
+                if prefix is not None and skip < len(value):
+                    head = torch.atleast_1d(value[skip])
+                    if tuple(head.shape[1:]) != tuple(prefix.shape[1:]) or head.dtype != prefix.dtype:
+                        return None
+                plan[name] = ("list", skip, wm)
+            else:
+                arr = torch.atleast_1d(value)
+                if _rows_of(arr) < wm:
+                    return None
+                if prefix is not None and (
+                    tuple(arr.shape[1:]) != tuple(prefix.shape[1:]) or arr.dtype != prefix.dtype
+                ):
+                    return None
+                plan[name] = ("tensor", wm)
+        return plan
+
+    def _splice_prefix(self, name: str, gathered: torch.Tensor) -> torch.Tensor:
+        """Prepend the cached gathered prefix to this round's gathered delta.
+
+        Row order becomes (round, rank) blocks rather than the full gather's
+        (rank, rows): a permutation identical on every rank and common to all
+        of a metric's cat states, so an order-insensitive compute is unaffected.
+        """
+        prefix = self._delta_cache.prefixes.get(name)
+        gathered = torch.atleast_1d(gathered)
+        if prefix is None:
+            return gathered
+        if _rows_of(gathered) == 0:
+            return prefix
+        return torch.cat([prefix, gathered])
+
+    def _advance_delta_cache(self, new_state: Dict[str, Any], delta_used: bool, report: Dict[str, Any]) -> None:
+        """After a successful sync, install the gathered result as the next
+        prefix and stamp the report with the delta telemetry."""
+        dc = self._delta_cache
+        saved = 0
+        if delta_used:
+            saved = sum(p.numel() * p.element_size() for p in dc.prefixes.values() if p is not None)
+        report["delta"] = bool(delta_used)
+        report["bytes_saved"] = saved
+        # a full gather restarts the induction at round 1; a delta sync extends it
+        dc.round = dc.round + 1 if delta_used else 1
+        report["delta_round"] = dc.round
+        local = self._cache or {}
+        prefixes: Dict[str, Optional[torch.Tensor]] = {}
+        watermarks: Dict[str, int] = {}
+        for name in self._delta_state_names():
+            gv = new_state.get(name, getattr(self, name))
+            if isinstance(gv, list):
+                if not gv:
+                    prefixes[name] = None
+                    watermarks[name] = 0
+                    continue
+                gv = dim_zero_cat(gv)
+            prefixes[name] = torch.atleast_1d(gv)
+            lv = local.get(name)
+            if isinstance(lv, list):
+                watermarks[name] = sum(_rows_of(x) for x in lv)
+            else:
+                watermarks[name] = _rows_of(lv) if lv is not None else 0
+        dc.prefixes.clear()
+        dc.prefixes.update(prefixes)
+        dc.watermarks.clear()
+        dc.watermarks.update(watermarks)
+
+    def _forward_advance_delta(
+        self, cache: Dict[str, Any], batch_state: Dict[str, Any], batch_synced: Dict[str, Any]
+    ) -> None:
+        """Advance the delta cache for free off a ``dist_sync_on_step`` batch
+        gather: the batch rows every rank just exchanged are the global delta,
+        so the accumulated prefix absorbs them without another collective.
+
+        Opt-in per class (``_forward_delta_advance``): it assumes batch
+        appends are state-independent.  Any inconsistency clears the cache,
+        which costs one full gather.
+        """
+        dc = self._delta_cache
+        try:
+            names = self._delta_state_names()
+            advanced_prefixes: Dict[str, Optional[torch.Tensor]] = {}
+            advanced_wms: Dict[str, int] = {}
+            for name in names:
+                total, batch = cache.get(name), batch_state.get(name)
+                total_rows = sum(_rows_of(x) for x in total) if isinstance(total, list) else _rows_of(total)
+                batch_rows = sum(_rows_of(x) for x in batch) if isinstance(batch, list) else _rows_of(batch)
+                expected_prev = total_rows - batch_rows
+                if dc.round >= 1:
+                    if dc.watermarks.get(name) != expected_prev:
+                        dc.clear()
+                        return
+                elif expected_prev != 0 or dc.watermarks:
+                    # no verified prefix, and the rows before this batch were
+                    # never gathered: cannot start from this batch
+                    dc.clear()
+                    return
+                gathered = batch_synced.get(name)
+                if isinstance(gathered, list):
+                    gathered = dim_zero_cat(gathered) if gathered else None  # None: all ranks empty
+                if gathered is None:
+                    advanced_prefixes[name] = dc.prefixes.get(name)
+                else:
+                    advanced_prefixes[name] = self._splice_prefix(name, gathered)
+                advanced_wms[name] = total_rows
+            if not names:
+                return
+            dc.prefixes.clear()
+            dc.prefixes.update(advanced_prefixes)
+            dc.watermarks.clear()
+            dc.watermarks.update(advanced_wms)
+            dc.round = max(dc.round, 0) + 1
+        except Exception:
+            dc.clear()
+
+    def _finish_sync_report(self, report: Dict[str, Any], backend: Backend, start: float) -> None:
+        report["duration_secs"] = round(time.perf_counter() - start, 6)
+        tel = backend.pop_telemetry() or {}
+        report["retries"] = int(tel.pop("retries", 0))
+        report["gather_calls"] = int(tel.pop("gather_calls", 0))
+        report["bytes_gathered"] = int(tel.pop("bytes_gathered", 0))
+        report.update(tel)
+        self.last_sync_report = report
+        self.sync_report_history.append(report)
+
+    def sync(
+        self,
+        dist_sync_fn: Optional[Callable] = None,
+        should_sync: bool = True,
+        distributed_available: Optional[bool] = None,
+        backend: Optional[Backend] = None,
+    ) -> None:
+        """Gather and reduce the states across processes, caching the local
+        state for :meth:`unsync`.
+
+        The backend is ``backend``, else ``sync_backend``, else the one
+        ``process_group`` implies (:func:`~metrics_tpu_torch.parallel.get_backend`).
+        A preflight digest exchange turns a diverged peer into
+        ``SyncDesyncError``; every collective runs under the watchdog of
+        :meth:`_sync_options`; a ``SyncError`` is handled per
+        ``on_sync_error`` (``"local"``/``"skip"`` keep the local state so
+        compute stays live).  Each attempt records ``last_sync_report``.
         """
         if self._is_synced:
             raise MetricsTPUUserError("The Metric has already been synced.")
-        if should_sync and dist.is_available() and dist.is_initialized():
-            raise NotImplementedError(
-                "cross-process metric sync over torch.distributed is not ported yet; "
-                "pass sync_on_compute=False to compute on this process's state alone"
-            )
-        self._cache = self._copy_state()
-        self._cached_count = self._update_count
-        self._is_synced = True
+        self._last_synced_state = None
+        saved_options: Any = _UNSET
+        if backend is None:
+            backend = self.sync_backend
+        if backend is None:
+            backend = get_backend(self.process_group, self._sync_options())
+        elif hasattr(backend, "options") and (
+            self.sync_timeout is not None or self.sync_max_retries is not None or self.sync_backoff is not None
+        ):
+            # per-metric knobs take precedence for THIS call only: an injected
+            # backend may be shared across metrics
+            saved_options = backend.options
+            backend.options = self._sync_options()
+        try:
+            if distributed_available is None:
+                distributed_available = backend.is_distributed()
+            self._cache = self._copy_state()
+            self._cached_count = self._update_count
+            if not should_sync or not distributed_available:
+                self._is_synced = True
+                return
+            report: Dict[str, Any] = {
+                "backend": type(backend).__name__,
+                "world_size": int(backend.world_size()),
+                "fallback": None,
+                "error": None,
+            }
+            start = time.perf_counter()
+            delta_plan = None
+            delta_ok = False
+            custom_fn = dist_sync_fn or self.dist_sync_fn
+            backend_delta = getattr(backend, "supports_delta", False) and custom_fn is None
+            try:
+                if self.validate_sync:
+                    self._validate_state_integrity(self._copy_state(), "pre-sync")
+                preflight_kwargs: Dict[str, Any] = {}
+                if backend_delta:
+                    delta_plan = self._build_delta_plan()
+                    preflight_kwargs["delta_token"] = (
+                        self._delta_cache.token(list(delta_plan)) if delta_plan else None
+                    )
+                info = backend.preflight_check(self._schema_entries(), self._update_count, **preflight_kwargs)
+                if info:
+                    report.update(info)
+                # delta only when EVERY rank voted a matching token
+                delta_ok = bool(delta_plan) and bool((info or {}).get("delta_ok"))
+                if custom_fn is not None:
+                    new_state = custom_fn(self._copy_state(), dict(self._reduce_fns), backend)
+                else:
+                    new_state = self._sync_state_pure(self._copy_state(), backend, delta_plan if delta_ok else None)
+                if self.validate_sync:
+                    self._validate_state_integrity(new_state, "post-sync", reference=self._cache)
+                self._restore_state(new_state)
+                self._is_synced = True
+                self._last_synced_state = new_state
+                if backend_delta and self.delta_sync:
+                    self._advance_delta_cache(new_state, delta_ok, report)
+            except SyncError as err:
+                # the ranks no longer provably share one prefix: re-verify
+                # from a full gather next time
+                self._delta_cache.clear()
+                report["error"] = f"{type(err).__name__}: {err}"
+                if self.on_sync_error == "raise":
+                    self._finish_sync_report(report, backend, start)
+                    raise
+                report["fallback"] = "local"
+                if self.on_sync_error == "local":
+                    rank_zero_warn(
+                        f"Metric {type(self).__name__} sync failed ({type(err).__name__}: {err}); "
+                        "falling back to local unsynced state on this rank.",
+                        UserWarning,
+                    )
+                self._restore_state(self._cache)
+                self._is_synced = True
+            except BaseException:
+                self._delta_cache.clear()
+                raise
+            self._finish_sync_report(report, backend, start)
+        finally:
+            if saved_options is not _UNSET:
+                backend.options = saved_options
 
     def unsync(self, should_unsync: bool = True) -> None:
         """Restore the pre-sync local state."""
@@ -337,8 +920,21 @@ class Metric(nn.Module, ABC):
         self._cache = None
 
     @contextmanager
-    def sync_context(self, should_sync: bool = True, should_unsync: bool = True) -> Iterator["Metric"]:
-        self.sync(should_sync=should_sync)
+    def sync_context(
+        self,
+        dist_sync_fn: Optional[Callable] = None,
+        should_sync: bool = True,
+        should_unsync: bool = True,
+        distributed_available: Optional[bool] = None,
+        backend: Optional[Backend] = None,
+    ) -> Iterator["Metric"]:
+        """Synced within the block, local again after it."""
+        self.sync(
+            dist_sync_fn=dist_sync_fn,
+            should_sync=should_sync,
+            distributed_available=distributed_available,
+            backend=backend,
+        )
         try:
             yield self
         finally:
@@ -366,6 +962,8 @@ class Metric(nn.Module, ABC):
         self._computed = None
         self._cache = None
         self._is_synced = False
+        self._delta_cache.clear()  # gathered prefixes describe the cleared epoch
+        self._last_synced_state = None
         for name, default in self._defaults.items():
             setattr(self, name, [] if isinstance(default, list) else default.clone())
 
@@ -468,10 +1066,14 @@ class Metric(nn.Module, ABC):
             d.pop(key, None)
         d["_cache"] = None
         d["_computed"] = None
+        # a restored metric re-verifies from one full gather
+        d["_delta_cache"] = None
+        d["_last_synced_state"] = None
         return d
 
     def __setstate__(self, d: Dict[str, Any]) -> None:
         super().__setstate__(d)
+        self._delta_cache = _DeltaCache()
         self._install_wrappers()
 
     def _filter_kwargs(self, **kwargs: Any) -> Dict[str, Any]:

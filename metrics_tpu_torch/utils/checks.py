@@ -17,10 +17,14 @@ from metrics_tpu_torch.utils.enums import DataType
 
 
 def _as_tensor(x) -> torch.Tensor:
-    """Tensors pass through on their own device; numpy arrays and lists land on the CPU."""
-    if isinstance(x, torch.Tensor):
-        return x
-    return torch.as_tensor(np.asarray(x))
+    """Tensors stay on their own device; numpy arrays and lists land on the CPU.
+
+    float64 rounds to float32, as ``jnp.asarray`` rounds it with
+    ``jax_enable_x64`` off, so rankings and thresholds decide on the same values.
+    """
+    if not isinstance(x, torch.Tensor):
+        x = torch.as_tensor(np.asarray(x))
+    return x.to(torch.float32) if x.dtype == torch.float64 else x
 
 
 def _max_value(*xs: torch.Tensor) -> float:

@@ -249,6 +249,10 @@ def test_update_while_synced_raises():
 
 
 def test_sync_raises_once_a_process_group_exists(tmp_path):
+    """Before sync was ported a process group made ``compute()`` raise; now it syncs over
+    the group.  A world of one holds all the data, so the value is the local one."""
+    from metrics_tpu_torch.parallel import DistBackend
+
     metric = mt.Accuracy(num_classes=C, device="cpu")
     local_only = mt.Accuracy(num_classes=C, device="cpu", sync_on_compute=False)
     batches = _batches(seed=10)
@@ -256,11 +260,19 @@ def test_sync_raises_once_a_process_group_exists(tmp_path):
         metric.update(preds, target)
         local_only.update(preds, target)
     expected = metric.compute()  # no process group: nothing to gather
-    metric.update(*batches[0])
     dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'store'}", rank=0, world_size=1)
     try:
-        with pytest.raises(NotImplementedError, match="torch.distributed"):
-            metric.compute()
+        metric._computed = None
+        _equal(metric.compute(), expected)
+        assert metric.last_sync_report is None  # a world of one has no peer to gather from
+        explicit = mt.Accuracy(num_classes=C, device="cpu", sync_backend=DistBackend())
+        for preds, target in batches:
+            explicit.update(preds, target)
+        explicit.sync(distributed_available=True)  # a world of one, through the real transport
+        report = explicit.last_sync_report
+        assert (report["backend"], report["world_size"], report["gather_calls"]) == ("DistBackend", 1, 2)
+        explicit.unsync()
+        _equal(explicit.compute(), expected)
         _equal(local_only.compute(), expected)
     finally:
         dist.destroy_process_group()

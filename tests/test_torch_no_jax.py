@@ -18,6 +18,16 @@ def _port_sources():
     return sorted((ROOT / "metrics_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "tools" / "port_device_probe.py"]
 
 
+def test_the_walk_covers_the_sync_modules_and_the_aggregators():
+    walked = {p.relative_to(ROOT).as_posix() for p in _port_sources()}
+    assert {
+        "metrics_tpu_torch/aggregation.py",
+        "metrics_tpu_torch/parallel/__init__.py",
+        "metrics_tpu_torch/parallel/backend.py",
+        "metrics_tpu_torch/parallel/faults.py",
+    } <= walked
+
+
 def _imported_roots(path: Path):
     for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
         if isinstance(node, ast.Import):
