@@ -34,10 +34,23 @@ Phases (each passes or raises; any failure exits non-zero):
      gathers and each rank's kernel launches;
   6. timings: samples/s per configuration, and each entry point's device
      time beside its plain version and its bound; the logits route also
-     beside the chain of operations it replaces.
+     beside the chain of operations it replaces;
+  7. curves: the same pass, as float32 softmax probabilities, through one
+     ``MetricCollection`` of ``AUROC`` and ``AveragePrecision`` (macro, one
+     compute group sharing one pair of buffer states), ``Specificity`` and
+     ``Dice`` (macro, one stat-scores group on the logits entry point),
+     ``HammingDistance`` and ``BinnedAveragePrecision`` (100 thresholds),
+     checked against independent numpy/scipy float64 computations (rank-sum
+     AUROC, an AP sweep, binned counts, a bincount confusion matrix), with
+     the launches and buffer appends checked against the groups; the card's
+     exact curves (``roc``, ``precision_recall_curve``, ``auroc`` with
+     ``max_fpr``) bitwise against the plain CPU path on tied, signed-zero and
+     NaN scores; and the collection synced over two gloo ranks on ``cuda:0``
+     (the 25/24 split of phase 5) equal to the single-process pass bitwise;
+     its samples/s, compute and update times and peak memory.
 The last line is ``{"ok": true, "device": {...}}``.
 
-The sync phase runs this script again as its ranks
+The sync phases run this script again as their ranks
 (``chip_smoke.py --sync-rank SCENARIO RANK DIR``); the parent waits on them
 with a time limit and fails if a rank fails or hangs.
 """
@@ -75,6 +88,17 @@ SYNC_TIMEOUT = 2.0  # the stalled scenario's sync_timeout, seconds
 SYNC_SLACK = 3.0  # seconds past timeout x (retries + 1) the live rank may take to raise
 SYNC_COMPUTES = 10  # timed synced config-2 computes
 SYNC_LIMIT = 300.0  # seconds the parent waits for one two-rank run
+CURVE_THRESHOLDS = 100  # BinnedAveragePrecision's thresholds
+CURVE_COMPUTES = 3  # timed computes of each curve metric (median)
+# per-class AUROC and AP are float32 areas over up to 50,001 float32 curve points, summed in
+# a tree: their macro means agree with float64 to about log2(50,001) x 6e-8 ~ 1e-6 relative
+CURVE_RTOL = 1e-5
+# a binned AP is -sum over 100 steps of (recall difference) x precision, all float32 from
+# float32 counts: each step carries about 2 ulp of recall, so <= 101 x 2 x 6e-8 ~ 1.2e-5 absolute
+BINNED_ATOL = 2e-5
+# Hamming is float32 1 - correct / total: a quotient near 1 keeps up to an ulp of 1.0 of rounding
+# (the count above 2**24 and the division), and the subtraction keeps it as an absolute error
+HAMMING_ATOL = 2 * 2.0**-23
 
 
 def _card_line() -> str:
@@ -547,7 +571,8 @@ def sync_rank(scenario: str, rank: int, where: Path) -> int:
     if scenario == "stall":
         _rank_stall(mt, rank, batches, where, store)
     {"main": lambda: _rank_main(mt, ops, rank, batches, where),
-     "desync": lambda: _rank_desync(mt, rank, batches, where)}[scenario]()
+     "desync": lambda: _rank_desync(mt, rank, batches, where),
+     "curves": lambda: _rank_curves(mt, ops, rank, batches, where)}[scenario]()
     dist.barrier()
     dist.destroy_process_group()
     return 0
@@ -659,6 +684,362 @@ def phase_sync(single: dict, logits: torch.Tensor, labels: torch.Tensor, card: s
     print(f"sync stages of one confusion-matrix sync, median ms of 5, per rank: {[seen['stages_ms'] for seen in main]!r}")
     return line
 
+
+
+# ---------------------------------------------------------------- curves
+def _curve_collection(mt):
+    return mt.MetricCollection(
+        {
+            "auroc": mt.AUROC(num_classes=N_CLASSES, device=DEVICE),
+            "ap": mt.AveragePrecision(num_classes=N_CLASSES, device=DEVICE),
+            "spec": mt.Specificity(num_classes=N_CLASSES, average="macro", device=DEVICE),
+            "dice": mt.Dice(num_classes=N_CLASSES, average="macro", device=DEVICE),
+            "hamming": mt.HammingDistance(device=DEVICE),
+            "binned_ap": mt.BinnedAveragePrecision(num_classes=N_CLASSES, thresholds=CURVE_THRESHOLDS, device=DEVICE),
+        },
+        device=DEVICE,
+    )
+
+
+def _probability_batches(batches):
+    """float32 softmax probabilities of each batch's logits (per batch, as every rank takes them)."""
+    return [(torch.softmax(x, dim=1), t) for x, t in batches]
+
+
+CURVE_INTEGERS = {"spec": COUNTS, "dice": COUNTS, "hamming": ("correct", "total"), "binned_ap": ("TPs", "FPs", "FNs")}
+
+
+def _curve_integers(col) -> dict:
+    """The integer states behind the curve collection's scores, on the host."""
+    return {f"{name}.{k}": getattr(col[name], k).cpu() for name, keys in CURVE_INTEGERS.items() for k in keys}
+
+
+def _curve_reference(probs: torch.Tensor, labels: torch.Tensor, thresholds: torch.Tensor) -> dict:
+    """Independent float64 numpy/scipy results and integer counts, on the host."""
+    from scipy.stats import rankdata
+
+    scores, target = probs.cpu().numpy(), labels.cpu().numpy()
+    n, c = scores.shape
+    positives = target[:, None] == np.arange(c)
+    npos = positives.sum(0)
+    # AUROC by the rank-sum (Mann-Whitney) formula, average ranks for ties
+    ranks = rankdata(scores, axis=0)
+    auroc = ((ranks * positives).sum(0) - npos * (npos + 1) / 2) / (npos * (n - npos))
+    # AP as the sweep sums it: each positive adds precision at the lowest row of its tie group;
+    # binned counts: rows (and positives) scoring at least each threshold
+    thr = thresholds.cpu().numpy()
+    ap = np.empty(c)
+    tps = np.empty((c, len(thr)), np.int64)
+    predicted = np.empty_like(tps)
+    columns = np.sort(scores.T, axis=1)
+    for k in range(c):
+        column = columns[k]
+        pos = np.sort(scores[target == k, k])
+        ap[k] = np.mean((npos[k] - np.searchsorted(pos, pos, "left")) / (n - np.searchsorted(column, pos, "left")))
+        tps[k] = npos[k] - np.searchsorted(pos, thr, "left")
+        predicted[k] = n - np.searchsorted(column, thr, "left")
+    fps, fns = predicted - tps, npos[:, None] - tps
+    precision = np.concatenate([(tps + 1e-6) / (tps + fps + 1e-6), np.ones((c, 1))], 1)
+    recall = np.concatenate([tps / (tps + fns + 1e-6), np.zeros((c, 1))], 1)
+    binned_ap = -((recall[:, 1:] - recall[:, :-1]) * precision[:, :-1]).sum(1)
+    pred = scores.argmax(axis=1)
+    cm = np.bincount(target * c + pred, minlength=c * c).reshape(c, c)
+    tp = np.diag(cm)
+    fp, fn = cm.sum(0) - tp, cm.sum(1) - tp
+    tn = n - tp - fp - fn
+    present = (tp + fp + fn) > 0
+    counts = {k: v.astype(np.int32) for k, v in zip(COUNTS, (tp, fp, tn, fn))}
+    wrong = int((pred != target).sum())
+    return {
+        "auroc": auroc.mean(),
+        "ap": ap.mean(),
+        "binned_ap": binned_ap,
+        "spec": (tn / (tn + fp)).mean(),
+        "dice": (2 * tp / np.maximum(2 * tp + fp + fn, 1))[present].mean(),
+        "hamming": 2 * wrong / (n * c),
+        "integers": {
+            **{f"{name}.{k}": v for name in ("spec", "dice") for k, v in counts.items()},
+            "hamming.correct": np.int32(n * c - 2 * wrong), "hamming.total": np.int32(n * c),
+            "binned_ap.TPs": tps, "binned_ap.FPs": fps, "binned_ap.FNs": fns,
+        },
+    }
+
+
+def _check_curve_results(name: str, out: dict, integers: dict, ref: dict) -> None:
+    for key, want in ref["integers"].items():
+        got = integers[key].numpy()
+        if not np.array_equal(got, want) or (got.dtype != np.float32 and got.dtype != want.dtype):
+            raise AssertionError(f"{name}: {key} differs from numpy's counts")
+    print(f"check {name} integer states: tp/fp/tn/fn of spec and dice, hamming's correct/total and the "
+          f"binned TPs/FPs/FNs bitwise equal to numpy's counts")
+    for key in ("auroc", "ap"):
+        value = float(out[key])
+        if not np.isclose(value, ref[key], rtol=CURVE_RTOL, atol=0.0):
+            raise AssertionError(f"{name} {key}: port {value!r} vs numpy/scipy {ref[key]!r}")
+        print(f"check {name} {key}: {value!r} (numpy/scipy {ref[key]!r}, rtol {CURVE_RTOL})")
+    binned = torch.stack(list(out["binned_ap"])).cpu().numpy().astype(np.float64)
+    worst = float(np.abs(binned - ref["binned_ap"]).max())
+    if binned.shape != ref["binned_ap"].shape or worst > BINNED_ATOL:
+        raise AssertionError(f"{name} binned AP: largest difference {worst!r} from numpy's > {BINNED_ATOL}")
+    print(f"check {name} binned AP per class: largest difference {worst!r} from numpy's (atol {BINNED_ATOL})")
+    for key, rtol, atol in (("spec", FLOAT_RTOL, 0.0), ("dice", FLOAT_RTOL, 0.0), ("hamming", 0.0, HAMMING_ATOL)):
+        value = float(out[key])
+        if not np.isclose(value, ref[key], rtol=rtol, atol=atol):
+            raise AssertionError(f"{name} {key}: port {value!r} vs numpy {ref[key]!r}")
+        print(f"check {name} {key}: {value!r} (numpy {ref[key]!r})")
+
+
+def _same_values(a, b) -> bool:
+    """Same dtype, shape and values, bit for bit except the payload of a NaN (a NaN that
+    passes through arithmetic comes out canonical on the GPU, as it came in on the CPU)."""
+    if isinstance(a, (list, tuple)):
+        return isinstance(b, (list, tuple)) and len(a) == len(b) and all(_same_values(x, y) for x, y in zip(a, b))
+    a, b = a.cpu(), b.cpu()
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    nan = torch.isnan(a)
+    if not torch.equal(nan, torch.isnan(b)):
+        return False
+    width = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+    return torch.equal(a[~nan].view(width), b[~nan].view(width))
+
+
+def _tricky_scores(shape, seed: int) -> np.ndarray:
+    """Scores on a grid of eighths in [-1, 1] (most rows tie), with NaNs, signed zeros and infinities."""
+    rng = np.random.default_rng(seed)
+    x = (rng.integers(-8, 9, shape) / 8).astype(np.float32)
+    flat = x.reshape(-1)
+    flat[rng.choice(flat.size, 24, replace=False)] = np.nan
+    flat[rng.choice(flat.size, 24, replace=False)] = -0.0
+    flat[rng.choice(flat.size, 24, replace=False)] = 0.0
+    flat[rng.choice(flat.size, 6, replace=False)] = np.inf
+    flat[rng.choice(flat.size, 6, replace=False)] = -np.inf
+    return x
+
+
+def _card_vs_plain_curves(mt) -> int:
+    """The card's exact curves against the plain CPU path on the same inputs; returns the number of tensors compared."""
+    f = mt.functional
+    n, c = 515, 7
+    rng = np.random.default_rng(SEED + 7)
+    cases = {
+        "binary": (_tricky_scores(n, 1), rng.integers(0, 2, n), {"pos_label": 1}),
+        "multi-class": (_tricky_scores((n, c), 2), rng.integers(0, c, n), {"num_classes": c}),
+        "multi-label": (_tricky_scores((n, c), 3), rng.integers(0, 2, (n, c)), {"num_classes": c}),
+    }
+    calls = {
+        "roc": lambda p, t, kw: f.roc(p, t, **kw),
+        "precision_recall_curve": lambda p, t, kw: f.precision_recall_curve(p, t, **kw),
+    }
+    compared = 0
+    for case, (scores, target, kwargs) in cases.items():
+        runs = dict(calls)
+        if case == "binary":
+            for max_fpr in (0.1, 0.5):
+                runs[f"auroc max_fpr={max_fpr}"] = lambda p, t, kw, m=max_fpr: f.auroc(p, t, max_fpr=m, **kw)
+        for name, call in runs.items():
+            cpu = call(torch.from_numpy(scores), torch.from_numpy(target), kwargs)
+            card = call(torch.from_numpy(scores).to(DEVICE), torch.from_numpy(target).to(DEVICE), kwargs)
+            torch.cuda.synchronize()
+            leaves = [card] if isinstance(card, torch.Tensor) else [x for part in card for x in (part if isinstance(part, list) else [part])]
+            if any(x.device.type != torch.device(DEVICE).type for x in leaves) or not _same_values(card, cpu):
+                raise AssertionError(f"{name} on {case} scores: the card's result differs from the plain CPU path")
+            compared += len(leaves)
+            print(f"check card vs plain: {name} on {case} scores with ties, +-0.0, NaN and +-inf: bitwise equal")
+    return compared
+
+
+def _append_counter(mt):
+    """Count each metric's buffer appends (by instance) while installed."""
+    original = mt.Metric._buffer_append
+    seen: dict = {}
+
+    def counting(self, name, values):
+        seen[id(self)] = seen.get(id(self), 0) + 1
+        return original(self, name, values)
+
+    return original, counting, seen
+
+
+def _ops_by_name(fn) -> list:
+    """(name, total device ms, count) of the device operations one call of ``fn`` issues, largest first."""
+    seen = _device_ops(fn) or []
+    totals: dict = {}
+    for name, ms in seen:
+        key = name.split("<")[0].split("(")[0][-60:]
+        total, count = totals.get(key, (0.0, 0))
+        totals[key] = (total + ms, count + 1)
+    return sorted(((k, t, n) for k, (t, n) in totals.items()), key=lambda row: -row[1])
+
+
+def phase_curves(mt, ops, logits: torch.Tensor, labels: torch.Tensor, card: str) -> Tuple[dict, dict]:
+    """The curve phase; returns each entry point's launches in its run and the curve JSON line."""
+    batches = _probability_batches([(logits[i : i + BATCH], labels[i : i + BATCH]) for i in range(0, N_SAMPLES, BATCH)])
+    probs = torch.cat([p for p, _ in batches])
+    n_batches = len(batches)
+    compared = _card_vs_plain_curves(mt)
+
+    warm = _curve_collection(mt)  # loads the CUDA modules of every op on the path
+    for preds, target in batches[:2]:
+        warm.update(preds, target)
+    warm.compute()
+    del warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_bytes = torch.cuda.memory_allocated()
+
+    col = _curve_collection(mt)
+    original, counting, appends = _append_counter(mt)
+    mt.Metric._buffer_append = counting
+
+    def run():
+        for preds, target in batches:
+            col.update(preds, target)
+        return col.compute()
+
+    try:
+        out, secs, counts = _driven(ops, "curves", run, lambda: _implied_config2(ops, col, n_batches))
+    finally:
+        mt.Metric._buffer_append = original
+    peak_bytes = torch.cuda.max_memory_allocated() - base_bytes
+    groups = sorted(sorted(g) for g in col.compute_groups.values())
+    if groups != [["ap", "auroc"], ["binned_ap"], ["dice", "spec"], ["hamming"]]:
+        raise AssertionError(f"curve compute groups {groups}")
+    shared = all(getattr(col["ap"], k) is getattr(col["auroc"], k) for k in ("preds__buf", "target__buf"))
+    per_metric = {name: appends.get(id(m), 0) for name, m in col.items(keep_base=True) if appends.get(id(m))}
+    leader = col.compute_groups[next(i for i, g in col.compute_groups.items() if "auroc" in g)][0]
+    implied_appends = {"ap": 2, "auroc": 2}
+    implied_appends[leader] += 2 * (n_batches - 1)
+    print(f"curve buffer appends per metric: {per_metric} (the group implies {implied_appends}); "
+          f"AUROC and AveragePrecision share one preds/target buffer pair: {shared}")
+    if not shared or per_metric != implied_appends:
+        raise AssertionError("AUROC and AveragePrecision do not share one pair of buffers, appended once per batch")
+    rows = col["auroc"].preds__len
+    if rows != N_SAMPLES or tuple(col["auroc"].preds__buf.shape) != (65536, N_CLASSES):
+        raise AssertionError(f"the preds buffer holds {rows} rows in {tuple(col['auroc'].preds__buf.shape)}")
+
+    ref = _curve_reference(probs, labels, col["binned_ap"].thresholds)
+    integers = _curve_integers(col)
+    _check_curve_results("curves", out, integers, ref)
+
+    def timed_compute(metric) -> list:
+        times = []
+        for _ in range(CURVE_COMPUTES):
+            metric._computed = None
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            metric.compute()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - start) * 1e3)
+        return times
+
+    auroc_ms, ap_ms = timed_compute(col["auroc"]), timed_compute(col["ap"])
+    binned = mt.BinnedAveragePrecision(num_classes=N_CLASSES, thresholds=CURVE_THRESHOLDS, device=DEVICE)
+    binned_ms = _call_ms(lambda: binned.update(*batches[0]), reps=20, warmup=3)
+    auroc = mt.AUROC(num_classes=N_CLASSES, device=DEVICE)
+    auroc_update_ms = _call_ms(lambda: auroc.update(*batches[0]), reps=20, warmup=3)
+    update_ops = _device_ops(lambda: auroc.update(*batches[0])) or []
+    reads = sum("DtoH" in name for name, _ in update_ops)
+    compute_ops = _ops_by_name(lambda: col["auroc"]._compute_impl())
+    print(f"curve pass samples/s: {N_SAMPLES / secs!r} ({secs!r} s, update per batch + compute of all six members)")
+    print(f"curve compute() ms at {(N_SAMPLES, N_CLASSES)}, {CURVE_COMPUTES} calls: AUROC {auroc_ms!r}, "
+          f"AveragePrecision {ap_ms!r}")
+    print(f"BinnedAveragePrecision update ms per batch of {BATCH}, {CURVE_THRESHOLDS} thresholds: {binned_ms!r}")
+    print(f"AUROC update ms per batch of {BATCH} (a buffer append): {auroc_update_ms!r}; device operations "
+          f"{len(update_ops)}, device->host copies {reads} (0: not counted where the profiler saw no device activity)")
+    print(f"AUROC compute() device operations by total device ms: "
+          f"{[(name, round(ms, 3), count) for name, ms, count in compute_ops[:10]]!r}")
+    print(f"curve phase peak device memory above its start: {peak_bytes} bytes")
+
+    sync = phase_curve_sync(out, integers, ref, probs.shape)
+    line = {"curves": {
+        "card": card,
+        "samples_per_s": N_SAMPLES / secs,
+        "auroc_compute_ms": auroc_ms,
+        "ap_compute_ms": ap_ms,
+        "binned_update_ms": binned_ms,
+        "auroc_update_ms": auroc_update_ms,
+        "auroc_update_device_to_host_copies": reads,
+        "peak_bytes": peak_bytes,
+        "launches": counts,
+        "buffer_appends": per_metric,
+        "card_vs_plain_tensors": compared,
+        **sync,
+    }}
+    return counts, line
+
+
+def _rank_curves(mt, ops, rank: int, batches, out: Path) -> None:
+    """This rank's share of the curve pass, then a synced compute of the collection."""
+    probs = _probability_batches(batches)
+    col = _curve_collection(mt)
+    first, stop = SYNC_SHARDS[rank]
+    for fn in _counters(ops).values():
+        fn.launches = 0
+    for preds, target in probs[first:stop]:
+        col.update(preds, target)
+    torch.cuda.synchronize()
+    launches = {route: fn.launches for route, fn in _counters(ops).items()}
+    implied = _implied_config2(ops, col, stop - first)
+    local = col["auroc"].buffer_values("preds").clone()
+    start = time.perf_counter()
+    results = col.compute()
+    torch.cuda.synchronize()
+    compute_ms = (time.perf_counter() - start) * 1e3
+    aggregate = col.aggregate_sync_report()
+    with col["auroc"].sync_context():  # the gathered rows, in rank order, against the whole pass
+        rows_equal = torch.equal(col["auroc"].buffer_values("preds"), torch.cat([p for p, _ in probs])) and torch.equal(
+            col["auroc"].buffer_values("target"), torch.cat([t for _, t in probs]).to(torch.int32))
+    restored = torch.equal(col["auroc"].buffer_values("preds"), local) and not any(m._is_synced for m in col.values())
+    synced = {}
+    for name, keys in CURVE_INTEGERS.items():  # the integer states, as synced
+        with col[name].sync_context():
+            synced.update({f"{name}.{k}": getattr(col[name], k).cpu() for k in keys})
+    torch.save({**{k: v.cpu() for k, v in results.items() if k != "binned_ap"},
+                "binned_ap": torch.stack(list(results["binned_ap"])).cpu(), **synced}, out / f"rank{rank}.pt")
+    (out / f"rank{rank}.json").write_text(json.dumps({
+        "launches": launches, "implied": implied, "rows_equal": rows_equal, "restored": restored,
+        "compute_ms": compute_ms, "aggregate": aggregate,
+    }))
+
+
+def phase_curve_sync(single: dict, single_integers: dict, ref: dict, shape) -> dict:
+    """Two ranks on ``cuda:0`` sync the curve collection; both must equal the single-process pass."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_curves_") as tmp:
+        tmp = Path(tmp)
+        start = time.perf_counter()
+        seen = _wait_ranks("curves", _start_ranks("curves", tmp / "curves"), tmp / "curves")
+        print(f"curve sync: two ranks took {time.perf_counter() - start:.1f} s (start-up included)")
+        got = [torch.load(tmp / "curves" / f"rank{rank}.pt") for rank in range(SYNC_WORLD)]
+    want = {key: value.cpu() for key, value in single.items() if key != "binned_ap"}
+    want["binned_ap"] = torch.stack(list(single["binned_ap"])).cpu()
+    want.update(single_integers)
+    for rank, (info, res) in enumerate(zip(seen, got)):
+        if info["launches"] != info["implied"] or not info["launches"]["logits"]:
+            raise AssertionError(f"curve sync rank {rank} launched {info['launches']}, its groups imply {info['implied']}")
+        if not info["rows_equal"]:
+            raise AssertionError(f"curve sync rank {rank}: the gathered buffer rows are not the pass's rows in order")
+        if not info["restored"]:
+            raise AssertionError(f"curve sync rank {rank}: compute() did not restore the local buffers")
+        for key, value in want.items():
+            if not _same_values(res[key], value):
+                raise AssertionError(f"curve sync rank {rank}: {key} differs from the single-process pass")
+        _check_curve_results(f"curve sync rank {rank}", {**res, "binned_ap": list(res["binned_ap"])},
+                             {k: v for k, v in res.items() if "." in k}, ref)
+    print(f"check curve sync: both ranks hold the {N_SAMPLES:,} rows in rank order and equal the single-process pass "
+          "bitwise (AUROC, AP, binned AP, spec, dice, hamming and their integer states)")
+    aggregate = seen[0]["aggregate"]
+    print(f"curve sync: synced compute() ms per rank {[info['compute_ms'] for info in seen]!r}, "
+          f"bytes_gathered {aggregate['bytes_gathered']} (rank 0, all members), gather calls {aggregate['gather_calls']}")
+    return {
+        "sync_compute_ms_per_rank": [info["compute_ms"] for info in seen],
+        "sync_bytes_gathered": aggregate["bytes_gathered"],
+        "sync_gather_calls": aggregate["gather_calls"],
+        "sync_logits_launches_per_rank": [info["launches"]["logits"] for info in seen],
+        "preds_rows": shape[0],
+    }
 
 
 def _device_ops(fn, calls: int = 1) -> Optional[list]:
@@ -824,9 +1205,15 @@ def main() -> int:
     max_abs_err = phase_kernels(ops)
     launches, single, logits, labels = phase_main_path(mt, ops)
     sync_line = phase_sync(single, logits, labels, card)
-    del logits, labels
+    # the kernels' own times first: torch.profiler sessions after the curve phase's lost events
     kernels = phase_timings(ops, launches, max_abs_err)
+    curve_launches, curve_line = phase_curves(mt, ops, logits, labels, card)
+    del logits, labels
+    print(f"launches per entry point: main path {launches}, curve phase {curve_launches}")
+    for entry in kernels:
+        entry["launches"] += curve_launches["canonical" if entry["name"] == "stat_scores" else "logits"]
     print(json.dumps(sync_line))
+    print(json.dumps(curve_line))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,9 @@ Compute groups: metrics whose states are identical after the first update
 automatically; afterwards ``update`` runs ONCE per group and the other
 members point at the leader's state tensors.  States are rebound, never
 written in place, so the shared tensors stay valid until the next update
-re-points the members.
+re-points the members.  Buffer states are appended in place, but only by
+the leader, past the rows the members see: a member copies a shared buffer
+before it appends to it.
 """
 
 from copy import deepcopy
@@ -234,6 +236,9 @@ class MetricCollection(nn.Module):
             if isinstance(s1, list):
                 if len(s1) != len(s2) or not all(allclose(a, b) for a, b in zip(s1, s2)):
                     return False
+            elif isinstance(s1, int):  # a buffer's row count
+                if s1 != s2:
+                    return False
             elif not allclose(s1, s2):
                 return False
         return True
@@ -248,6 +253,10 @@ class MetricCollection(nn.Module):
                     value = getattr(leader, key)
                     # lists are appended to in place: each member gets its own list
                     setattr(member, key, list(value) if isinstance(value, list) else value)
+                for bname, meta in member._buffer_states.items():
+                    # the leader alone appends in place into the shared buffers
+                    member._refresh_buffer_meta(bname)
+                    meta["owned"] = None
                 member._update_count = leader._update_count
                 member._computed = None
                 # shared states share ONE synced watermark: a member syncing

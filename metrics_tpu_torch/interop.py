@@ -31,7 +31,10 @@ def load_jax_state(metric: Metric, state: Dict[str, Any], extra: Optional[Dict[s
     """Load a JAX metric's state (and its checkpoint extras) into ``metric``.
 
     Every state lands on ``metric.device`` with its dtype kept; a tensor
-    state whose dtype or shape differs from the metric's own raises.
+    state whose dtype or shape differs from the metric's own raises.  A
+    buffer state's ``<name>__buf`` may hold any number of rows (trimmed, as
+    ``state_pytree`` gives it, or padded, as ``state_dict`` does) and any
+    dtype; its ``<name>__len`` says how many are valid.
     ``_update_count``, where ``state`` carries it, and the attributes in
     ``extra`` (such as the locked classification ``mode``) are restored too.
     """
@@ -42,7 +45,9 @@ def load_jax_state(metric: Metric, state: Dict[str, Any], extra: Optional[Dict[s
             continue
         if name not in metric._defaults:
             raise KeyError(f"{type(metric).__name__} has no state {name!r}")
-        tree[name] = _as_numpy(value, name, metric._defaults[name])
+        # a buffer's rows grow with the stream: its placeholder default fixes no shape
+        default = None if name in metric._buffer_keys() else metric._defaults[name]
+        tree[name] = _as_numpy(value, name, default)
     if "_update_count" not in tree:
         tree["_update_count"] = metric._update_count
     metric.load_state_pytree(tree)

@@ -12,6 +12,13 @@ and :meth:`Metric.reset` installs clones of the defaults: so a value that
 tensors and the stored defaults never alias a tensor that a later update
 changes.  A subclass must keep to that style.
 
+Buffer states (:meth:`Metric.add_buffer_state`) are the one exception: rows
+are appended in place into a padded ``<name>__buf`` past its ``<name>__len``
+valid rows, and only by the metric that allocated that buffer.  A snapshot
+sees rows ``[:len]``, which later appends never touch; a metric that holds a
+buffer it did not allocate (a compute-group member, a loaded or synced
+state) copies it before its first append.
+
 ``compute`` syncs the states across processes first when a
 ``torch.distributed`` process group of more than one rank is initialised
 (or an explicit ``sync_backend`` is given): a schema preflight, then one
@@ -42,7 +49,7 @@ from metrics_tpu_torch.parallel.backend import (
     reduce_stack,
     reduce_synced_state,
 )
-from metrics_tpu_torch.utils.data import _squeeze_if_scalar, dim_zero_cat
+from metrics_tpu_torch.utils.data import _squeeze_if_scalar, _x32, _x32_dtype, dim_zero_cat
 from metrics_tpu_torch.utils.exceptions import (
     MetricsTPUUserError,
     SyncError,
@@ -177,6 +184,14 @@ def _merge_tensor_state(fx: Any, global_val: torch.Tensor, local_val: torch.Tens
     raise MetricsTPUUserError(f"cannot fast-merge a state with reduce {fx!r}")
 
 
+def _grown_capacity(capacity: int, rows: int) -> int:
+    """``capacity`` (at least 1) doubled until it holds ``rows``."""
+    cap = max(capacity, 1)
+    while cap < rows:
+        cap *= 2
+    return cap
+
+
 def _to_state_tensor(value: Any, device: torch.device) -> torch.Tensor:
     """A tensor, numpy array or number as a state tensor on ``device``.
 
@@ -282,6 +297,7 @@ class Metric(nn.Module, ABC):
         self._defaults: Dict[str, Any] = {}
         self._reduce_fns: Dict[str, Any] = {}
         self._persistent: Dict[str, bool] = {}
+        self._buffer_states: Dict[str, Dict[str, Any]] = {}
         self._update_count = 0
         self._computed: Any = None
         self._is_synced = False
@@ -335,12 +351,103 @@ class Metric(nn.Module, ABC):
         self._persistent[name] = persistent
         setattr(self, name, [] if isinstance(default, list) else default.clone())
 
+    # ---------------------------------------------------------- buffer states
+    def add_buffer_state(
+        self,
+        name: str,
+        dist_reduce_fx: str = "cat",
+        capacity: int = 256,
+        persistent: bool = False,
+    ) -> None:
+        """Register a growing row buffer: a ``cat`` state held as one padded
+        tensor ``<name>__buf`` (``capacity`` rows at first, doubled as it
+        fills) and a Python-int row count ``<name>__len``, as the JAX package
+        holds it.  ``update`` appends with :meth:`_buffer_append`; ``compute``
+        reads the valid rows with :meth:`buffer_values`.
+        """
+        if dist_reduce_fx != "cat":
+            raise ValueError("buffer states currently support only 'cat' reduction")
+        self._buffer_states[name] = {
+            "capacity": int(capacity),
+            "alloc_cap": 0,
+            "trail": None,
+            "dtype": None,
+            "owned": None,  # the buffer tensor this metric allocated and may write in place
+        }
+        # a placeholder until the first append fixes the trailing shape and dtype
+        self.add_state(name + "__buf", torch.zeros((0,), dtype=torch.float32), dist_reduce_fx="cat", persistent=persistent)
+        self._defaults[name + "__len"] = 0
+        self._reduce_fns[name + "__len"] = "sum"
+        self._persistent[name + "__len"] = persistent
+        setattr(self, name + "__len", 0)
+
+    def _buffer_keys(self) -> set:
+        return {key for name in self._buffer_states for key in (name + "__buf", name + "__len")}
+
+    def _buffer_append(self, name: str, values: torch.Tensor) -> None:
+        """Append rows to buffer state ``name``, growing its capacity by doubling.
+
+        Rows take the JAX package's dtypes (int64 as int32, float64 as
+        float32); later rows promote the buffer's dtype (int rows, then float
+        rows: float).  The rows are written in place only into a buffer this
+        metric allocated; any other is copied first.
+        """
+        meta = self._buffer_states[name]
+        bkey, lkey = name + "__buf", name + "__len"
+        values = _x32(values)
+        if values.ndim == 0:
+            values = values[None]
+        rows = values.shape[0]
+        buf, cur = getattr(self, bkey), getattr(self, lkey)
+        trail = tuple(values.shape[1:])
+        if buf.ndim != values.ndim or tuple(buf.shape[1:]) != trail or buf.shape[0] == 0 or cur == 0:
+            if cur:
+                raise ValueError(
+                    f"buffer state {name!r} holds rows of shape {tuple(buf.shape[1:])}, "
+                    f"got rows of shape {trail}"
+                )
+            buf = torch.zeros((_grown_capacity(meta["capacity"], rows),) + trail, dtype=values.dtype, device=self.device)
+        else:
+            promoted = _x32_dtype(torch.promote_types(buf.dtype, values.dtype))
+            if promoted != buf.dtype or cur + rows > buf.shape[0] or buf is not meta["owned"]:
+                new = torch.zeros((_grown_capacity(buf.shape[0], cur + rows),) + trail, dtype=promoted, device=self.device)
+                new[:cur] = buf[:cur]
+                buf = new
+        buf[cur : cur + rows] = values
+        setattr(self, bkey, buf)
+        setattr(self, lkey, cur + rows)
+        meta.update(owned=buf, trail=trail, dtype=buf.dtype, alloc_cap=buf.shape[0])
+
+    @staticmethod
+    def _extract_buffer_values(buf: torch.Tensor, count: int, name: str) -> torch.Tensor:
+        """The valid rows of a buffer state snapshot."""
+        count = int(count)
+        if count > buf.shape[0]:
+            raise MetricsTPUUserError(
+                f"buffer state {name!r} holds {count} rows but only capacity {buf.shape[0]}"
+            )
+        return buf[:count]
+
+    def buffer_values(self, name: str) -> torch.Tensor:
+        """The valid rows of buffer state ``name`` (compute-side accessor)."""
+        return self._extract_buffer_values(getattr(self, name + "__buf"), getattr(self, name + "__len"), name)
+
+    def _refresh_buffer_meta(self, name: str) -> None:
+        """Re-derive a buffer's bookkeeping from the state it now holds."""
+        meta = self._buffer_states[name]
+        buf = getattr(self, name + "__buf")
+        meta["alloc_cap"] = buf.shape[0]
+        if buf.shape[0]:
+            meta["trail"] = tuple(buf.shape[1:])
+            meta["dtype"] = buf.dtype
+
     @property
     def update_count(self) -> int:
         return self._update_count
 
     def _copy_state(self) -> Dict[str, Any]:
-        """A snapshot of the states: updates rebind tensors, so references suffice."""
+        """A snapshot of the states: updates rebind tensors (buffer appends
+        write past the snapshot's rows), so references suffice."""
         out: Dict[str, Any] = {}
         for name in self._defaults:
             value = getattr(self, name)
@@ -350,6 +457,9 @@ class Metric(nn.Module, ABC):
     def _restore_state(self, cache: Dict[str, Any]) -> None:
         for name, value in cache.items():
             setattr(self, name, list(value) if isinstance(value, list) else value)
+        for bname in self._buffer_states:
+            if bname + "__buf" in cache:
+                self._refresh_buffer_meta(bname)
 
     # ----------------------------------------------------------------- update
     @abstractmethod
@@ -479,6 +589,23 @@ class Metric(nn.Module, ABC):
 
     def _reduce_states(self, global_state: Dict[str, Any], global_count: int) -> None:
         """Merge the pre-update state with the batch state now held by the metric."""
+        global_state = dict(global_state)
+        for bname, meta in self._buffer_states.items():
+            bkey, lkey = bname + "__buf", bname + "__len"
+            g_vals = self._extract_buffer_values(global_state.pop(bkey), global_state.pop(lkey), bname)
+            l_vals = self.buffer_values(bname)
+            total = g_vals.shape[0] + l_vals.shape[0]
+            buf = torch.zeros(
+                (_grown_capacity(meta["capacity"], total),) + tuple(l_vals.shape[1:]),
+                dtype=l_vals.dtype, device=self.device,
+            )
+            if g_vals.shape[0]:  # before the first forward the global buffer is the empty placeholder
+                buf[: g_vals.shape[0]] = g_vals.to(buf.dtype)
+            buf[g_vals.shape[0] : total] = l_vals
+            setattr(self, bkey, buf)
+            setattr(self, lkey, total)
+            self._refresh_buffer_meta(bname)
+            meta["owned"] = buf
         for name, global_val in global_state.items():
             local_val = getattr(self, name)
             fx = self._reduce_fns[name]
@@ -504,7 +631,14 @@ class Metric(nn.Module, ABC):
         numpy names, so the digests equal the JAX package's for the same metric.
         """
         entries: List[Tuple[str, str]] = []
+        for bname, meta in self._buffer_states.items():
+            trail = meta["trail"]
+            dtype = _dtype_name(meta["dtype"]) if meta["dtype"] is not None else None
+            entries.append((bname, f"buffer:{trail if trail is not None else '?'}:{dtype}"))
+        handled = self._buffer_keys()
         for name in self._defaults:
+            if name in handled:
+                continue
             value = getattr(self, name)
             fx = self._reduce_fns[name]
             if isinstance(value, list):
@@ -528,6 +662,8 @@ class Metric(nn.Module, ABC):
     ) -> None:
         """NaN/Inf and dtype-drift checks for ``validate_sync=True``."""
         for name, value in state.items():
+            if isinstance(value, int):  # a buffer's row count
+                continue
             leaves = value if isinstance(value, list) else [value]
             for leaf in leaves:
                 if isinstance(leaf, torch.Tensor) and leaf.is_floating_point() and not bool(torch.isfinite(leaf).all()):
@@ -568,6 +704,13 @@ class Metric(nn.Module, ABC):
             return self._sync_state_packed(state, backend, delta_plan)
         out: Dict[str, Any] = {}
         try:
+            for bname in self._buffer_states:
+                bkey, lkey = bname + "__buf", bname + "__len"
+                buf, cnt = state.pop(bkey), state.pop(lkey)
+                with backend.annotate(bname):
+                    gathered = backend.all_gather_cat(self._extract_buffer_values(buf, cnt, bname))
+                out[bkey] = gathered
+                out[lkey] = int(gathered.shape[0])
             for name, value in state.items():
                 with backend.annotate(name):
                     if isinstance(value, list):
@@ -585,7 +728,7 @@ class Metric(nn.Module, ABC):
                         out[name] = backend.all_gather_cat(value)
         except SyncTimeoutError as err:
             # per-state progress: the states that HAD completed before the straggler
-            err.synced_states = sorted(out)
+            err.synced_states = sorted(k for k in out if not k.endswith("__len"))
             raise
         return out
 
@@ -604,6 +747,9 @@ class Metric(nn.Module, ABC):
         out: Dict[str, Any] = {}
         cat_names: List[str] = []
         reduce_names: List[str] = []
+        for bname in self._buffer_states:
+            bkey, lkey = bname + "__buf", bname + "__len"
+            payload["b." + bname] = self._extract_buffer_values(state.pop(bkey), state.pop(lkey), bname)
         for name, value in state.items():
             fx = self._reduce_fns[name]
             if isinstance(value, list) or fx == "cat" or fx is None:
@@ -631,10 +777,18 @@ class Metric(nn.Module, ABC):
         per_rank = [
             {key: t.to(self.device) for key, t in _unpack_state_blob(s).items()} for s in shards
         ]
-        for name in cat_names:
-            parts = [r["c." + name] for r in per_rank]
+
+        def cat_ranks(key: str) -> torch.Tensor:
+            parts = [r[key] for r in per_rank]
             filled = [p for p in parts if p.shape[0]]
-            gathered = torch.cat(filled) if filled else parts[0]
+            return torch.cat(filled) if filled else parts[0]
+
+        for bname in self._buffer_states:
+            gathered = cat_ranks("b." + bname)
+            out[bname + "__buf"] = gathered
+            out[bname + "__len"] = int(gathered.shape[0])
+        for name in cat_names:
+            gathered = cat_ranks("c." + name)
             out[name] = self._splice_prefix(name, gathered) if name in delta_plan else gathered
         for name in reduce_names:
             stacked = torch.stack([r["r." + name] for r in per_rank])
@@ -643,11 +797,15 @@ class Metric(nn.Module, ABC):
 
     # ------------------------------------------------------------- delta sync
     def _delta_state_names(self) -> List[str]:
-        """States eligible for incremental gather: append-only cat/list rows."""
+        """States eligible for incremental gather: append-only cat/list rows.
+
+        Buffer states are left out: growth and promotion rewrite their rows.
+        """
+        buffered = self._buffer_keys()
         return sorted(
             name
             for name, fx in self._reduce_fns.items()
-            if isinstance(getattr(self, name), list) or fx == "cat" or fx is None
+            if name not in buffered and (isinstance(getattr(self, name), list) or fx == "cat" or fx is None)
         )
 
     def _build_delta_plan(self) -> Optional[Dict[str, tuple]]:
@@ -965,7 +1123,20 @@ class Metric(nn.Module, ABC):
         self._delta_cache.clear()  # gathered prefixes describe the cleared epoch
         self._last_synced_state = None
         for name, default in self._defaults.items():
-            setattr(self, name, [] if isinstance(default, list) else default.clone())
+            if isinstance(default, list):
+                setattr(self, name, [])
+            elif isinstance(default, int):
+                setattr(self, name, default)  # a buffer's row count
+            else:
+                setattr(self, name, default.clone())
+        for bname, meta in self._buffer_states.items():
+            meta["owned"] = None
+            if meta["trail"] is not None:
+                # keep the grown capacity, trailing shape and dtype across resets
+                cap = max(meta["alloc_cap"], meta["capacity"], 1)
+                buf = torch.zeros((cap,) + meta["trail"], dtype=meta["dtype"], device=self.device)
+                setattr(self, bname + "__buf", buf)
+                meta["owned"] = buf
 
     def clone(self) -> "Metric":
         return copy.deepcopy(self)
@@ -978,10 +1149,11 @@ class Metric(nn.Module, ABC):
     def _save_to_state_dict(self, destination: Dict[str, Any], prefix: str, keep_vars: bool) -> None:
         """Add the persistent states to ``state_dict()``."""
         super()._save_to_state_dict(destination, prefix, keep_vars)
+        trimmed = self._trimmed_buffers()
         for name in self._defaults:
             if not self._persistent[name]:
                 continue
-            value = getattr(self, name)
+            value = trimmed.get(name, getattr(self, name))
             if isinstance(value, list):
                 destination[prefix + name] = [v if keep_vars else v.detach().clone() for v in value]
             else:
@@ -999,14 +1171,7 @@ class Metric(nn.Module, ABC):
     ) -> None:
         """Load states from ``load_state_dict``: tensors or numpy arrays, dtypes kept."""
         self._computed = None  # a cached compute() predates the loaded state
-        for name in self._defaults:
-            key = prefix + name
-            if key in state_dict:
-                value = state_dict.pop(key)
-                if isinstance(value, list):
-                    setattr(self, name, [_to_state_tensor(v, self.device) for v in value])
-                else:
-                    setattr(self, name, _to_state_tensor(value, self.device))
+        self._load_states({name: state_dict.pop(prefix + name) for name in self._defaults if prefix + name in state_dict})
         super()._load_from_state_dict(
             state_dict, prefix, local_metadata, strict, missing_keys, unexpected_keys, error_msgs
         )
@@ -1034,29 +1199,50 @@ class Metric(nn.Module, ABC):
                 value = enum_cls(value["value"]) if enum_cls is not None else value["value"]
             setattr(self, attr, value)
 
+    def _trimmed_buffers(self) -> Dict[str, Any]:
+        """Each buffer state as its valid rows and an int32 row count, as checkpoints hold it."""
+        out: Dict[str, Any] = {}
+        for bname in self._buffer_states:
+            rows = self.buffer_values(bname)
+            out[bname + "__buf"] = rows
+            out[bname + "__len"] = torch.tensor(rows.shape[0], dtype=torch.int32, device=self.device)
+        return out
+
     def state_pytree(self) -> Dict[str, Any]:
         """The full state as a flat dict: ``_update_count`` and every state,
-        list states concatenated."""
+        list states concatenated, buffer states trimmed to their valid rows."""
         out: Dict[str, Any] = {"_update_count": self._update_count}
         for name in self._defaults:
             value = getattr(self, name)
             out[name] = dim_zero_cat(value) if isinstance(value, list) and value else value
+        out.update(self._trimmed_buffers())
         return out
 
-    def load_state_pytree(self, tree: Dict[str, Any]) -> None:
-        """Load what :meth:`state_pytree` returns (tensors or numpy arrays) onto this metric's device."""
-        tree = dict(tree)
-        self._computed = None  # a cached compute() predates the loaded state
-        self._update_count = int(tree.pop("_update_count", 0))
-        for name, value in tree.items():
+    def _load_states(self, states: Dict[str, Any]) -> None:
+        """Install loaded states (tensors, numpy arrays or numbers) on this metric's device."""
+        counts = {name + "__len" for name in self._buffer_states}
+        for name, value in states.items():
             if name not in self._defaults:
                 raise KeyError(f"unknown state {name!r}")
-            if isinstance(value, list):
+            if name in counts:
+                setattr(self, name, int(value))
+            elif isinstance(value, list):
                 setattr(self, name, [_to_state_tensor(v, self.device) for v in value])
             elif isinstance(self._defaults[name], list):
                 setattr(self, name, [_to_state_tensor(value, self.device)])
             else:
                 setattr(self, name, _to_state_tensor(value, self.device))
+        for bname in self._buffer_states:
+            if bname + "__buf" in states:
+                self._refresh_buffer_meta(bname)
+
+    def load_state_pytree(self, tree: Dict[str, Any]) -> None:
+        """Load what :meth:`state_pytree` returns (tensors or numpy arrays) onto this metric's device."""
+        tree = dict(tree)
+        self._delta_cache.clear()  # loaded rows were never part of a gathered prefix
+        self._computed = None  # a cached compute() predates the loaded state
+        self._update_count = int(tree.pop("_update_count", 0))
+        self._load_states(tree)
 
     # -------------------------------------------------------------- pickling
     def __getstate__(self) -> Dict[str, Any]:

@@ -14,6 +14,19 @@ def dim_zero_cat(x: Union[torch.Tensor, List[torch.Tensor], tuple]) -> torch.Ten
     return torch.cat([torch.atleast_1d(v) for v in x], dim=0)
 
 
+_X32 = {torch.int64: torch.int32, torch.float64: torch.float32, torch.complex128: torch.complex64}
+
+
+def _x32_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype ``jnp.asarray`` gives an array of ``dtype`` with ``jax_enable_x64`` off."""
+    return _X32.get(dtype, dtype)
+
+
+def _x32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in the dtype the JAX package would hold it in: int64 as int32, float64 as float32."""
+    return x.to(_x32_dtype(x.dtype))
+
+
 def dim_zero_sum(x: torch.Tensor) -> torch.Tensor:
     return torch.sum(x, dim=0)
 

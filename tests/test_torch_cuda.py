@@ -133,3 +133,79 @@ def test_accuracy_on_cuda_takes_its_route(cuda, kwargs, route):
     for state in ("tp", "fp", "tn", "fn"):
         assert torch.equal(getattr(metric, state).cpu(), getattr(reference, state))
     torch.testing.assert_close(metric.compute().cpu(), reference.compute(), rtol=1e-6, atol=1e-7)
+
+
+# ------------------------------------------------------------------ curves
+def tricky_scores(shape, seed):
+    """Scores on a grid of eighths in [-1, 1] (most rows tie), with NaNs, signed zeros and infinities."""
+    rng = np.random.default_rng(seed)
+    x = (rng.integers(-8, 9, shape) / 8).astype(np.float32)
+    flat = x.reshape(-1)
+    for value, count in ((np.nan, 12), (-0.0, 12), (0.0, 12), (np.inf, 4), (-np.inf, 4)):
+        flat[rng.choice(flat.size, count, replace=False)] = value
+    return x
+
+
+def assert_same_curves(card, cpu):
+    """Bit for bit, but a NaN's payload (arithmetic on a NaN gives the canonical one on the GPU)."""
+    if isinstance(cpu, (list, tuple)):
+        assert len(card) == len(cpu)
+        for a, b in zip(card, cpu):
+            assert_same_curves(a, b)
+        return
+    assert card.device.type == "cuda" and card.dtype == cpu.dtype and card.shape == cpu.shape
+    card = card.cpu()
+    if not cpu.is_floating_point():
+        assert torch.equal(card, cpu)
+        return
+    nan = torch.isnan(cpu)
+    assert torch.equal(torch.isnan(card), nan)
+    width = {2: torch.int16, 4: torch.int32, 8: torch.int64}[cpu.element_size()]
+    assert torch.equal(card[~nan].view(width), cpu[~nan].view(width))
+
+
+CURVE_CASES = {
+    "binary": lambda rng: (tricky_scores(301, 1), rng.integers(0, 2, 301), {"pos_label": 1}),
+    "multiclass": lambda rng: (tricky_scores((301, 6), 2), rng.integers(0, 6, 301), {"num_classes": 6}),
+    "multilabel": lambda rng: (tricky_scores((301, 6), 3), rng.integers(0, 2, (301, 6)), {"num_classes": 6}),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["roc", "precision_recall_curve"])
+@pytest.mark.parametrize("case", CURVE_CASES)
+def test_exact_curves_on_cuda_equal_the_plain_cpu_path(cuda, case, name):
+    scores, target, kwargs = CURVE_CASES[case](np.random.default_rng(0))
+    fn = getattr(mt.functional, name)
+    cpu = fn(torch.from_numpy(scores), torch.from_numpy(target), **kwargs)
+    assert_same_curves(fn(torch.from_numpy(scores).to(cuda), torch.from_numpy(target).to(cuda), **kwargs), cpu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_fpr", [0.1, 0.5])
+def test_partial_auroc_on_cuda_equals_the_plain_cpu_path(cuda, max_fpr):
+    scores, target, kwargs = CURVE_CASES["binary"](np.random.default_rng(1))
+    cpu = mt.functional.auroc(torch.from_numpy(scores), torch.from_numpy(target), max_fpr=max_fpr, **kwargs)
+    card = mt.functional.auroc(torch.from_numpy(scores).to(cuda), torch.from_numpy(target).to(cuda), max_fpr=max_fpr, **kwargs)
+    assert_same_curves(card, cpu)
+
+
+@pytest.mark.cuda
+def test_curve_collection_on_cuda_shares_its_buffers_and_matches_the_cpu(cuda):
+    rng = np.random.default_rng(2)
+    batches = [(torch.softmax(torch.from_numpy(rng.standard_normal((n, 9)).astype(np.float32)), 1),
+                torch.from_numpy(rng.integers(0, 9, n))) for n in (200, 200, 77)]
+
+    def collection(device):
+        return mt.MetricCollection({"auroc": mt.AUROC(num_classes=9, device=device),
+                                    "ap": mt.AveragePrecision(num_classes=9, device=device)}, device=device)
+
+    card, cpu = collection(cuda), collection("cpu")
+    for preds, target in batches:
+        card.update(preds.to(cuda), target.to(cuda))
+        cpu.update(preds, target)
+    assert card["auroc"].preds__buf is card["ap"].preds__buf and card["auroc"].preds__len == 477
+    assert torch.equal(card["auroc"].buffer_values("preds").cpu(), cpu["auroc"].buffer_values("preds"))
+    got, want = card.compute(), cpu.compute()
+    for key in want:
+        torch.testing.assert_close(got[key].cpu(), want[key], rtol=1e-6, atol=0)

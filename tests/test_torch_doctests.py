@@ -15,3 +15,16 @@ MODULES = sorted(m.name for m in pkgutil.walk_packages(metrics_tpu_torch.__path_
 def test_docstring_examples(name):
     result = doctest.testmod(importlib.import_module(name), optionflags=doctest.NORMALIZE_WHITESPACE)
     assert result.failed == 0
+
+
+CURVE_SLICE = [
+    "AUC", "AUROC", "AveragePrecision", "BinnedAveragePrecision", "BinnedPrecisionRecallCurve",
+    "BinnedRecallAtFixedPrecision", "Dice", "HammingDistance", "PrecisionRecallCurve", "ROC", "Specificity",
+    "auc", "auroc", "average_precision", "dice", "dice_score", "hamming_distance", "precision_recall_curve",
+    "roc", "specificity",
+]
+
+
+@pytest.mark.parametrize("name", CURVE_SLICE)
+def test_each_public_name_of_the_curve_slice_has_an_example(name):
+    assert ">>>" in (getattr(metrics_tpu_torch, name).__doc__ or "")

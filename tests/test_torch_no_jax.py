@@ -28,6 +28,16 @@ def test_the_walk_covers_the_sync_modules_and_the_aggregators():
     } <= walked
 
 
+CURVE_SLICE = ("auc", "auroc", "precision_recall_curve", "roc", "specificity", "dice", "hamming")
+
+
+def test_the_walk_covers_the_curve_and_stat_derivative_modules():
+    walked = {p.relative_to(ROOT).as_posix() for p in _port_sources()}
+    expected = {f"metrics_tpu_torch/functional/classification/{name}.py" for name in CURVE_SLICE + ("average_precision",)}
+    expected |= {f"metrics_tpu_torch/classification/{name}.py" for name in CURVE_SLICE + ("avg_precision", "binned_precision_recall")}
+    assert expected <= walked
+
+
 def _imported_roots(path: Path):
     for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
         if isinstance(node, ast.Import):
