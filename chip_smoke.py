@@ -47,7 +47,20 @@ Phases (each passes or raises; any failure exits non-zero):
      ``max_fpr``) bitwise against the plain CPU path on tied, signed-zero and
      NaN scores; and the collection synced over two gloo ranks on ``cuda:0``
      (the 25/24 split of phase 5) equal to the single-process pass bitwise;
-     its samples/s, compute and update times and peak memory.
+     its samples/s, compute and update times and peak memory;
+  8. rest of classification: the same pass's probabilities through one
+     ``MetricCollection`` of ``ConfusionMatrix``, ``JaccardIndex``,
+     ``MatthewsCorrCoef``, ``CohenKappa`` (one compute group sharing one
+     confusion matrix) and ``CalibrationError`` (15 bins); its logits through
+     ``HingeLoss`` (Crammer-Singer, and one-vs-all squared) and, against a
+     second seeded classifier's, ``KLDivergence`` (mean, and per row on
+     log-probabilities); a multilabel pass of the shape of MS-COCO 2014 val
+     (40,504 x 80) through ``CoverageError``, ``LabelRankingAveragePrecision``
+     and ``LabelRankingLoss``, without and with sample weights; each against
+     an independent numpy/scipy float64 computation (integer counts bitwise);
+     the card's ranking, calibration and hinge functionals against the plain
+     CPU path on tied, signed-zero, NaN and infinite inputs; update and
+     compute times; neither stat-scores entry point may launch.
 The last line is ``{"ok": true, "device": {...}}``.
 
 The sync phases run this script again as their ranks
@@ -81,6 +94,7 @@ LOGIT_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 NAN_BITS = {torch.bfloat16: (0x7FC0, -0x40), torch.float16: (0x7E00, -0x200)}  # (+NaN, -NaN) as int16
 TOP_K = 5
 FLOAT_RTOL = 1e-5  # float32 scores from int32 counts vs float64 numpy
+PROFILER_ATTEMPTS = 3  # torch.profiler sessions at times drop device events: fewer than launched means profile again
 SLEEP_CYCLES = 100_000_000  # the spinning kernel timed calls queue behind (about 50 ms)
 SYNC_WORLD = 2
 SYNC_SHARDS = ((0, 25), (25, 49))  # batch ranges: rank 1 ends with the ragged batch of 848
@@ -99,6 +113,19 @@ BINNED_ATOL = 2e-5
 # Hamming is float32 1 - correct / total: a quotient near 1 keeps up to an ulp of 1.0 of rounding
 # (the count above 2**24 and the division), and the subtraction keeps it as an absolute error
 HAMMING_ATOL = 2 * 2.0**-23
+N_COCO, N_LABELS, COCO_LABELS_MEAN = 40_504, 80, 2.9  # MS-COCO 2014 val: images, labels, labels per image
+CE_BINS = 15  # CalibrationError's bins
+# MCC's float32 terms c * s, s**2 and the sums near s**2 each carry up to s**2 * 2**-24 of rounding,
+# and the numerator cancels: the error is a few such units over sqrt(denominator)
+MCC_ATOL_UNITS = 4
+# kappa is 1 - k, k a quotient of two float32 sums of C**2 = 10**6 terms, which the card adds in short
+# serial runs under a reduction tree: each sum carries a few dozen roundings of 2**-24 of itself at most
+KAPPA_ATOL_UNITS = 128
+# ECE sums 15 bins of |accuracy - confidence| x proportion, each gap a difference of float32 quotients
+# carrying up to 2 ulp of either: a few 2**-24 absolute in all
+ECE_ATOL = 8 * 2.0**-24
+# a KL row is a float32 sum of 1000 terms of either sign: its error scales with the terms' magnitudes
+KL_RTOL = 1e-5
 
 
 def _card_line() -> str:
@@ -1042,6 +1069,464 @@ def phase_curve_sync(single: dict, single_integers: dict, ref: dict, shape) -> d
     }
 
 
+# ------------------------------------------------------ rest of classification
+def _confmat_collection(mt):
+    return mt.MetricCollection(
+        {
+            "cm": mt.ConfusionMatrix(num_classes=N_CLASSES, device=DEVICE),
+            "jaccard": mt.JaccardIndex(num_classes=N_CLASSES, device=DEVICE),
+            "mcc": mt.MatthewsCorrCoef(num_classes=N_CLASSES, device=DEVICE),
+            "kappa": mt.CohenKappa(num_classes=N_CLASSES, device=DEVICE),
+            "ce": mt.CalibrationError(n_bins=CE_BINS, norm="l1", device=DEVICE),
+        },
+        device=DEVICE,
+    )
+
+
+def _hinge_collection(mt):
+    return mt.MetricCollection(
+        {"hinge": mt.HingeLoss(device=DEVICE),
+         "hinge_ova_sq": mt.HingeLoss(squared=True, multiclass_mode="one-vs-all", device=DEVICE)},
+        device=DEVICE,
+    )
+
+
+def _kl_collection(mt):
+    return mt.MetricCollection(
+        {"kl": mt.KLDivergence(device=DEVICE),
+         "kl_log_none": mt.KLDivergence(log_prob=True, reduction="none", device=DEVICE)},
+        device=DEVICE,
+    )
+
+
+def _ranking_collection(mt):
+    return mt.MetricCollection(
+        {"coverage": mt.CoverageError(device=DEVICE), "lrap": mt.LabelRankingAveragePrecision(device=DEVICE),
+         "lrl": mt.LabelRankingLoss(device=DEVICE)},
+        device=DEVICE,
+    )
+
+
+def _teacher_logits(labels: torch.Tensor) -> torch.Tensor:
+    """A second classifier's float32 logits on the pass (a distillation teacher), from its own seed."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 12)
+    logits = torch.randn((N_SAMPLES, N_CLASSES), generator=gen, device=DEVICE)
+    return logits.scatter_add_(1, labels[:, None], torch.full((N_SAMPLES, 1), 2.5, device=DEVICE))
+
+
+def _coco_pass():
+    """A multilabel pass of the shape of MS-COCO 2014 val: 40,504 images x 80 labels, every image
+    with at least one label and 2.9 on average (1 + Poisson(1.9)), labels drawn with a skewed
+    frequency (weights 1 / rank**0.8, as a few classes dominate COCO), float32 scores from a
+    sigmoid of a noisy margin, and float32 per-sample weights in [0.5, 1.5); from the seed,
+    built on the host in bulk and moved to the card once."""
+    rng = np.random.default_rng(SEED + 11)
+    n, c = N_COCO, N_LABELS
+    counts = np.minimum(1 + rng.poisson(COCO_LABELS_MEAN - 1, n), c)
+    keys = np.log(1.0 / np.arange(1, c + 1) ** 0.8)[rng.permutation(c)] + rng.gumbel(size=(n, c))
+    ranks = np.argsort(np.argsort(-keys, axis=1), axis=1)  # Gumbel top-k: k labels without replacement
+    target = (ranks < counts[:, None]).astype(np.int64)
+    scores = (1 / (1 + np.exp(-(rng.standard_normal((n, c)) + 2.0 * target - 1.0)))).astype(np.float32)
+    weights = rng.uniform(0.5, 1.5, n).astype(np.float32)
+    return tuple(torch.from_numpy(x).to(DEVICE) for x in (scores, target, weights))
+
+
+def _ranking_reference(scores: np.ndarray, target: np.ndarray, weights: np.ndarray) -> dict:
+    """Independent float64 numpy/scipy values: coverage from each row's lowest relevant score,
+    LRAP from scipy's 'min' ranks (ties count as ranked at or above), the ranking loss from a
+    stable sort (a tie is ordered wrong when the irrelevant label comes later in the row)."""
+    from scipy.stats import rankdata
+
+    s = scores.astype(np.float64)
+    rel = target == 1
+    n, c = s.shape
+    n_rel = rel.sum(1)
+    lowest = np.where(rel, s, np.inf).min(1)
+    coverage = (s >= lowest[:, None]).sum(1).astype(np.float64)
+    rank_all = c + 1 - rankdata(s, method="min", axis=1)
+    rank_rel = c + 1 - rankdata(np.where(rel, s, -np.inf), method="min", axis=1)
+    ratios = np.where(rel, rank_rel / rank_all, 0.0).sum(1) / np.maximum(n_rel, 1)
+    lrap = np.where((n_rel > 0) & (n_rel < c), ratios, 1.0)
+    order = np.argsort(s, axis=1, kind="stable")
+    rel_sorted = np.take_along_axis(rel, order, axis=1)
+    irr_after = np.cumsum((~rel_sorted)[:, ::-1], axis=1)[:, ::-1] - ~rel_sorted  # irrelevant labels later in the row
+    wrong = (rel_sorted * irr_after).sum(1)
+    lrl = np.where((n_rel > 0) & (n_rel < c), wrong / np.maximum(n_rel * (c - n_rel), 1), 0.0)
+    w = weights.astype(np.float64)
+    out = {}
+    for name, per_row in (("coverage", coverage), ("lrap", lrap), ("lrl", lrl)):
+        out[name] = per_row.mean()
+        out[f"{name} weighted"] = (per_row * w).sum() / w.sum()
+    return out
+
+
+def _check_rest_close(name: str, got, expected: float, rtol: float = FLOAT_RTOL, atol: float = 0.0) -> dict:
+    value = float(got)
+    if not np.isclose(value, expected, rtol=rtol, atol=atol):
+        raise AssertionError(f"{name}: port {value!r} vs numpy {expected!r} (rtol {rtol}, atol {atol})")
+    print(f"check {name}: {value!r} (numpy {expected!r}, rtol {rtol}, atol {atol!r})")
+    return {"port": value, "numpy": float(expected)}
+
+
+def _confmat_reference(cm: np.ndarray) -> dict:
+    """Jaccard (macro), MCC and kappa (each weighting) in float64 from the int confusion matrix,
+    with the tolerance each float32 value is held to."""
+    cm = cm.astype(np.float64)
+    tp, rows, cols, s = np.diag(cm), cm.sum(1), cm.sum(0), cm.sum()
+    union = rows + cols - tp
+    jaccard = np.where(union == 0, 0.0, tp / np.where(union == 0, 1.0, union)).mean()
+    denom = (s * s - (cols * cols).sum()) * (s * s - (rows * rows).sum())
+    mcc = (tp.sum() * s - (rows * cols).sum()) / np.sqrt(denom)
+    out = {"jaccard": (jaccard, FLOAT_RTOL, 0.0),
+           # c * s, s**2 and the sums near s**2 each carry up to s**2 * 2**-24 of float32 rounding
+           "mcc": (mcc, 0.0, MCC_ATOL_UNITS * s * s * 2.0**-24 / np.sqrt(denom))}
+    expected = np.outer(rows, cols) / s
+    i = np.arange(cm.shape[0], dtype=np.float64)
+    for weights, w in ((None, 1.0 - np.eye(cm.shape[0])), ("linear", np.abs(i[:, None] - i)),
+                       ("quadratic", (i[:, None] - i) ** 2)):
+        k = (w * cm).sum() / (w * expected).sum()
+        # kappa is 1 - k, k a quotient of two float32 sums of 10**6 terms on the card
+        out[f"kappa {weights}"] = (1 - k, 0.0, KAPPA_ATOL_UNITS * 2.0**-24 * abs(k))
+    return out
+
+
+def _ce_reference(probs: np.ndarray, labels: np.ndarray, edges: np.ndarray) -> dict:
+    """float64 expected calibration error on the same float32 confidences and edges; per-bin counts."""
+    conf = probs.max(1)
+    acc = (probs.argmax(1) == labels).astype(np.float64)
+    idx = np.clip(np.searchsorted(edges, conf, side="left") - 1, 0, len(edges) - 2)
+    counts = np.bincount(idx, minlength=len(edges) - 1)
+    per = np.maximum(counts, 1)
+    gap = np.abs(np.bincount(idx, acc, len(edges) - 1) / per - np.bincount(idx, conf.astype(np.float64), len(edges) - 1) / per)
+    return {"conf": conf, "acc": acc.astype(np.float32), "counts": counts, "ece": (gap * counts).sum() / counts.sum()}
+
+
+def _hinge_kl_reference(logits: np.ndarray, labels: np.ndarray, p: np.ndarray, q: np.ndarray,
+                        lp: np.ndarray, lq: np.ndarray) -> dict:
+    """float64 hinge losses and KL divergences on the same float32 inputs, row by row, with each
+    KL row's sum of term magnitudes (its float32 rounding scales with it, not with the sum)."""
+    n = len(labels)
+    x = logits.astype(np.float64)
+    rows = np.arange(n)
+    true = x[rows, labels]
+    x[rows, labels] = -np.inf
+    crammer = np.maximum(1 - (true - x.max(1)), 0).mean()
+    x[rows, labels] = true
+    onehot = np.zeros(x.shape, bool)
+    onehot[rows, labels] = True
+    ova = (np.maximum(1 - np.where(onehot, x, -x), 0) ** 2).sum(0) / n
+    del x
+    p64, q64 = p.astype(np.float64), q.astype(np.float64)
+    p64 /= p64.sum(1, keepdims=True)
+    q64 /= q64.sum(1, keepdims=True)
+    terms = p64 * np.log(p64 / q64)
+    kl_rows, kl_scale = terms.sum(1), np.abs(terms).sum(1)
+    lp64, lq64 = lp.astype(np.float64), lq.astype(np.float64)
+    terms = np.exp(lp64) * (lp64 - lq64)
+    return {"hinge": crammer, "hinge_ova_sq": ova, "kl": kl_rows.mean(), "kl_scale": kl_scale.mean(),
+            "kl_log_rows": terms.sum(1), "kl_log_scale": np.abs(terms).sum(1)}
+
+
+def _rest_inputs(n: int, c: int, seed: int):
+    """Small inputs with ties, +-0.0, NaN and +-inf: scores, labels, multilabel targets (a row with
+    no relevant label and one with every label relevant), weights, and confidences on bin edges."""
+    rng = np.random.default_rng(seed)
+    scores = _tricky_scores((n, c), seed)
+    labels = rng.integers(0, c, n)
+    labels[:3] = (c, -1, c + 4)  # out of range: hinge's one-hot row is all zero
+    multilabel = rng.integers(0, 2, (n, c))
+    multilabel[0], multilabel[1] = 0, 1
+    weights = (rng.random(n) + 0.5).astype(np.float32)
+    edges = _linspace_edges(CE_BINS)
+    conf = np.concatenate([edges, np.nextafter(edges, 2), [np.nan, -0.0, 0.0, 1.5, -0.5, np.inf],
+                           rng.random(n)]).astype(np.float32)
+    with np.errstate(invalid="ignore"):  # a row holding an infinity gives NaNs
+        probs = np.abs(scores) / np.nansum(np.abs(scores), 1, keepdims=True)
+    probs[rng.choice(n, 5, replace=False), rng.integers(0, c, 5)] = np.nan  # the first NaN of a row wins its argmax
+    probs[2] = probs[2, 0]  # a row of tied maxima
+    return scores, labels, multilabel, weights, conf, probs.astype(np.float32)
+
+
+def _linspace_edges(n_bins: int) -> np.ndarray:
+    from metrics_tpu_torch.utils.data import _linspace_thresholds
+
+    return _linspace_thresholds(n_bins + 1)
+
+
+def _card_vs_cpu_rest(mt) -> dict:
+    """The card's ranking, calibration and hinge functionals against the plain CPU path on the same
+    small inputs.  Bitwise where no float sum runs in a device-dependent order: rank positions, rank
+    counts, each row's coverage and ranking loss, the unweighted coverage (a sum of integers), bin
+    indices and counts, top-1 confidences and hits, and each sample's hinge loss.  The rest (float32
+    sums over rows, float64 bin sums rounded to float32) to ``rtol=1e-6``, NaN as NaN.  The ranking
+    and hinge calls run on the tricky scores and again with their NaNs and ``-inf`` replaced (one NaN
+    or ``-inf`` in a batch sets every row's coverage to 0, as in the JAX package).  Returns how
+    many tensors each way compared."""
+    from metrics_tpu_torch.functional.classification import ranking as rk
+    from metrics_tpu_torch.functional.classification.calibration_error import _bin_indices, _ce_update
+    from metrics_tpu_torch.functional.classification.hinge import _hinge_measures
+
+    f = mt.functional
+    scores, labels, multilabel, weights, conf, probs = _rest_inputs(515, 7, SEED + 13)
+    finite = np.where(np.isnan(scores) | (scores == -np.inf), np.float32(0.25), scores)
+    edges = torch.from_numpy(_linspace_edges(CE_BINS))
+    hits = np.arange(conf.size) % 2
+    # (scores, multilabel targets, weights, labels) -> tensors
+    bitwise = {
+        "rank positions": lambda s, t, w, y: rk._rank_inverse(s),
+        "LRAP rank counts": lambda s, t, w, y: rk._lrap_ranks(s, t == 1),
+        "coverage per row": lambda s, t, w, y: rk._coverage_per_sample(s, t),
+        "ranking loss per row": lambda s, t, w, y: rk._lrl_per_sample(s, t),
+        "coverage_error": lambda s, t, w, y: f.coverage_error(s, t),
+    }
+    for squared in (False, True):
+        for mode in (None, "one-vs-all"):
+            bitwise[f"hinge per sample, {mode or 'crammer-singer'}, squared={squared}"] = (
+                lambda s, t, w, y, sq=squared, m=mode: _hinge_measures(s, y, sq, m))
+    close = {
+        "label_ranking_loss": lambda s, t, w, y: f.label_ranking_loss(s, t),
+        "label_ranking_loss weighted": lambda s, t, w, y: f.label_ranking_loss(s, t, sample_weight=w),
+        "label_ranking_average_precision": lambda s, t, w, y: f.label_ranking_average_precision(s, t),
+        "label_ranking_average_precision weighted": lambda s, t, w, y: f.label_ranking_average_precision(s, t, sample_weight=w),
+        "coverage_error weighted": lambda s, t, w, y: f.coverage_error(s, t, sample_weight=w),
+        "LRAP per row": lambda s, t, w, y: rk._lrap_per_sample(s, t),
+        "hinge_loss crammer-singer": lambda s, t, w, y: f.hinge_loss(s, y),
+        "hinge_loss one-vs-all squared": lambda s, t, w, y: f.hinge_loss(s, y, squared=True, multiclass_mode="one-vs-all"),
+    }
+    calibration_bitwise = {
+        "bin indices": lambda d: _bin_indices(torch.from_numpy(conf).to(d), edges.to(d)),
+        "bin counts": lambda d: torch.bincount(_bin_indices(torch.from_numpy(conf).to(d), edges.to(d)), minlength=CE_BINS),
+        "top-1 confidences and hits": lambda d: _ce_update(torch.from_numpy(probs).to(d), torch.from_numpy(labels.clip(0, 6)).to(d)),
+    }
+    calibration_close = {}
+    for norm in ("l1", "l2", "max"):
+        for case, (p, t) in {"confidences on bin edges, NaN, +-0.0 and past 1": (conf, hits),
+                             "probabilities with NaN and tied maxima": (probs, labels.clip(0, 6))}.items():
+            calibration_close[f"calibration_error {norm}, {case}"] = (
+                lambda d, p=p, t=t, n=norm: f.calibration_error(torch.from_numpy(p).to(d), torch.from_numpy(t).to(d), n_bins=CE_BINS, norm=n))
+
+    def leaves(x):
+        return [x] if isinstance(x, torch.Tensor) else [y for part in x for y in leaves(part)]
+
+    def same(name, got, want, exact: bool) -> int:
+        torch.cuda.synchronize()
+        got, want = leaves(got), leaves(want)
+        if any(x.device.type != torch.device(DEVICE).type for x in got):
+            raise AssertionError(f"{name}: the card's result is not on the card")
+        ok = _same_values(got, want) if exact else len(got) == len(want) and all(
+            g.dtype == w.dtype and g.shape == w.shape and torch.allclose(g.cpu(), w, rtol=1e-6, atol=0.0, equal_nan=True)
+            for g, w in zip(got, want))
+        if not ok:
+            raise AssertionError(f"{name}: the card's result differs from the plain CPU path")
+        print(f"check card vs plain: {name}: {'bitwise equal' if exact else 'equal to rtol 1e-6 (NaN as NaN)'}")
+        return len(got)
+
+    compared = {"bitwise": 0, "rtol": 0}
+    for case, s in {"ties, +-0.0, NaN and +-inf": scores, "ties, +-0.0 and +inf": finite}.items():
+        cpu_in = tuple(torch.from_numpy(x) for x in (s, multilabel, weights, labels))
+        card_in = tuple(x.to(DEVICE) for x in cpu_in)
+        for table, key in ((bitwise, "bitwise"), (close, "rtol")):
+            for name, call in table.items():
+                compared[key] += same(f"{name} on {case}", call(*card_in), call(*cpu_in), key == "bitwise")
+    for table, key in ((calibration_bitwise, "bitwise"), (calibration_close, "rtol")):
+        for name, call in table.items():
+            compared[key] += same(name, call(torch.device(DEVICE)), call(torch.device("cpu")), key == "bitwise")
+    return compared
+
+
+def _member_timings(members: dict) -> dict:
+    """ms per update of each metric at full width (median of 20 on an idle card, the host's launch
+    work included), and the device operations and device->host copies of one update: the most that
+    any of ``PROFILER_ATTEMPTS`` profiler sessions recorded, since a session may drop events."""
+    out = {}
+    for name, (metric, args) in members.items():
+        ms = _call_ms(lambda: metric.update(*args), reps=20, warmup=3)
+        seen = max(((_device_ops(lambda: metric.update(*args)) or []) for _ in range(PROFILER_ATTEMPTS)), key=len)
+        out[name] = {"update_ms": ms, "device_ops": len(seen), "device_to_host": sum("DtoH" in op for op, _ in seen)}
+        print(f"{name} update at full width: {ms!r} ms (median of 20), {len(seen)} device operations, "
+              f"{out[name]['device_to_host']} device->host copies (0: not counted where the profiler saw no device activity)")
+    return out
+
+
+def _timed_compute(col, reps: int = 3) -> list:
+    times = []
+    for _ in range(reps):
+        for m in col.values():
+            m._computed = None
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        col.compute()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - start) * 1e3)
+    return times
+
+
+def _timed_pass(col, batches) -> Tuple[dict, float]:
+    """One update per batch and the final compute, synchronised; returns the results and the seconds."""
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for args in batches:
+        col.update(*args)
+    out = col.compute()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - start
+
+
+def phase_rest(mt, ops, logits: torch.Tensor, labels: torch.Tensor, card: str) -> Tuple[dict, dict]:
+    """The rest of classification: the confusion-matrix family and calibration on the ImageNet
+    pass's probabilities, hinge and KL on its logits, the ranking metrics on a COCO-shaped
+    multilabel pass, the card against the CPU on small tricky inputs, and timings.  None of these
+    metrics goes through the stat-scores kernel: both entry points must stay at 0 launches."""
+    phase_start = time.perf_counter()
+    for fn in _counters(ops).values():
+        fn.launches = 0
+    batch_slices = [slice(i, i + BATCH) for i in range(0, N_SAMPLES, BATCH)]
+    probs = [torch.softmax(logits[s], dim=1) for s in batch_slices]
+    teacher = _teacher_logits(labels)
+    checks = {}
+
+    # (a) the confusion-matrix family and calibration on the probabilities
+    warm = _confmat_collection(mt)  # loads the CUDA modules of every op on the path
+    for s, p in zip(batch_slices[:2], probs[:2]):
+        warm.update(p, labels[s])
+    warm.compute()
+    col_a = _confmat_collection(mt)
+    out_a, secs_a = _timed_pass(col_a, [(p, labels[s]) for s, p in zip(batch_slices, probs)])
+    groups = sorted(sorted(g) for g in col_a.compute_groups.values())
+    if groups != [["ce"], ["cm", "jaccard", "kappa", "mcc"]]:
+        raise AssertionError(f"confusion-matrix family compute groups {groups}")
+    if not all(col_a[k].confmat is col_a["cm"].confmat for k in ("jaccard", "mcc", "kappa")):
+        raise AssertionError("the confusion-matrix family does not share one confmat")
+    probs_host, labels_host = torch.cat(probs).cpu().numpy(), labels.cpu().numpy()
+    cm_ref = np.bincount(labels_host * N_CLASSES + probs_host.argmax(1), minlength=N_CLASSES**2).reshape(N_CLASSES, N_CLASSES)
+    cm = out_a["cm"].cpu().numpy()
+    if cm.dtype != np.int32 or not np.array_equal(cm, cm_ref):
+        raise AssertionError("the family's confusion matrix differs from numpy's bincount")
+    print("check rest cm: bitwise equal to numpy bincount; groups {cm, jaccard, mcc, kappa} and {ce}")
+    from metrics_tpu_torch.functional.classification.calibration_error import _bin_indices
+    from metrics_tpu_torch.functional.classification.cohen_kappa import _cohen_kappa_compute
+
+    scores = {"jaccard": out_a["jaccard"], "mcc": out_a["mcc"], "kappa None": out_a["kappa"]}
+    for weights in ("linear", "quadratic"):
+        scores[f"kappa {weights}"] = _cohen_kappa_compute(col_a["kappa"].confmat, weights)
+    for name, (want, rtol, atol) in _confmat_reference(cm).items():
+        checks[name] = _check_rest_close(name, scores[name], want, rtol, atol)
+    ce_ref = _ce_reference(probs_host, labels_host, col_a["ce"].bin_boundaries.cpu().numpy())
+    conf, acc = torch.cat(col_a["ce"].confidences), torch.cat(col_a["ce"].accuracies)
+    counts = torch.bincount(_bin_indices(conf, col_a["ce"].bin_boundaries), minlength=CE_BINS).cpu().numpy()
+    if not (np.array_equal(conf.cpu().numpy(), ce_ref["conf"]) and np.array_equal(acc.cpu().numpy(), ce_ref["acc"])
+            and np.array_equal(counts, ce_ref["counts"])):
+        raise AssertionError("calibration: confidences, hits or per-bin counts differ from numpy's")
+    print(f"check rest calibration: {N_SAMPLES:,} confidences and hits and the per-bin counts {counts.tolist()} bitwise equal to numpy's")
+    # 15 bins of |accuracy - confidence| x proportion, each gap a difference of two float32 quotients
+    checks["ece"] = _check_rest_close("ece (l1, 15 bins)", out_a["ce"], ce_ref["ece"], FLOAT_RTOL, ECE_ATOL)
+
+    # (b) hinge and KL on the logits
+    col_h, col_k = _hinge_collection(mt), _kl_collection(mt)
+    kl_inputs = [(torch.softmax(logits[s], 1), torch.softmax(teacher[s], 1)) for s in batch_slices]
+    kl_log_inputs = [(torch.log_softmax(logits[s], 1), torch.log_softmax(teacher[s], 1)) for s in batch_slices]
+    out_h, secs_h = _timed_pass(col_h, [(logits[s], labels[s]) for s in batch_slices])
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for (p, q), (lp, lq) in zip(kl_inputs, kl_log_inputs):
+        col_k["kl"].update(p, q)
+        col_k["kl_log_none"].update(lp, lq)
+    out_k = col_k.compute()
+    torch.cuda.synchronize()
+    secs_k = time.perf_counter() - start
+    ref_b = _hinge_kl_reference(
+        logits.cpu().numpy(), labels_host, torch.cat([p for p, _ in kl_inputs]).cpu().numpy(),
+        torch.cat([q for _, q in kl_inputs]).cpu().numpy(), torch.cat([p for p, _ in kl_log_inputs]).cpu().numpy(),
+        torch.cat([q for _, q in kl_log_inputs]).cpu().numpy())
+    checks["hinge"] = _check_rest_close("hinge (crammer-singer)", out_h["hinge"], ref_b["hinge"])
+    ova = out_h["hinge_ova_sq"].cpu().numpy().astype(np.float64)
+    worst = float(np.max(np.abs(ova - ref_b["hinge_ova_sq"]) / ref_b["hinge_ova_sq"]))
+    if ova.shape != (N_CLASSES,) or worst > FLOAT_RTOL:
+        raise AssertionError(f"hinge one-vs-all squared: largest relative difference {worst!r} from numpy's > {FLOAT_RTOL}")
+    print(f"check hinge (one-vs-all, squared) per class: largest relative difference {worst!r} (rtol {FLOAT_RTOL})")
+    checks["hinge_ova_sq"] = {"worst_rel": worst}
+    checks["kl"] = _check_rest_close("kl (mean)", out_k["kl"], ref_b["kl"], 0.0, KL_RTOL * ref_b["kl_scale"])
+    rows = out_k["kl_log_none"].cpu().numpy().astype(np.float64)
+    excess = np.abs(rows - ref_b["kl_log_rows"]) - KL_RTOL * ref_b["kl_log_scale"]
+    if rows.shape != (N_SAMPLES,) or len(col_k["kl_log_none"].measures) != len(batch_slices) or excess.max() > 0:
+        raise AssertionError(f"kl (log_prob, none): {rows.shape} rows, worst excess over the tolerance {excess.max()!r}")
+    worst = float(np.max(np.abs(rows - ref_b["kl_log_rows"]) / ref_b["kl_log_scale"]))
+    print(f"check kl (log_prob, reduction none): {N_SAMPLES:,} rows in a list state of {len(batch_slices)} entries; "
+          f"largest difference {worst!r} of a row's term magnitudes (rtol {KL_RTOL})")
+    checks["kl_log_none"] = {"rows": int(rows.shape[0]), "worst_rel_to_scale": worst}
+
+    # (c) multilabel ranking on a COCO-shaped pass, without and with per-sample weights
+    scores_c, target_c, weights_c = _coco_pass()
+    coco_slices = [slice(i, i + BATCH) for i in range(0, N_COCO, BATCH)]
+    warm = _ranking_collection(mt)
+    warm.update(scores_c[:BATCH], target_c[:BATCH])
+    warm.compute()
+    col_c = _ranking_collection(mt)
+    out_c, secs_c = _timed_pass(col_c, [(scores_c[s], target_c[s]) for s in coco_slices])
+    col_cw = _ranking_collection(mt)
+    out_cw, secs_cw = _timed_pass(col_cw, [(scores_c[s], target_c[s], weights_c[s]) for s in coco_slices])
+    ref_c = _ranking_reference(scores_c.cpu().numpy(), target_c.cpu().numpy(), weights_c.cpu().numpy())
+    for name in ("coverage", "lrap", "lrl"):
+        checks[name] = _check_rest_close(name, out_c[name], ref_c[name])
+        checks[f"{name} weighted"] = _check_rest_close(f"{name} weighted", out_cw[name], ref_c[f"{name} weighted"])
+    if int(col_c["lrl"].total) != N_COCO or float(col_c["lrl"].weight) != N_COCO:
+        raise AssertionError("the unweighted ranking states did not count every image")
+    labels_per_image = float(target_c.sum()) / N_COCO
+
+    # (d) the card against the CPU on small tricky inputs
+    compared = _card_vs_cpu_rest(mt)
+
+    # (e) timings, each metric alone at full width
+    batch_p, batch_l = probs[0], labels[batch_slices[0]]
+    members = {
+        "ConfusionMatrix": (mt.ConfusionMatrix(num_classes=N_CLASSES, device=DEVICE), (batch_p, batch_l)),
+        "JaccardIndex": (mt.JaccardIndex(num_classes=N_CLASSES, device=DEVICE), (batch_p, batch_l)),
+        "MatthewsCorrCoef": (mt.MatthewsCorrCoef(num_classes=N_CLASSES, device=DEVICE), (batch_p, batch_l)),
+        "CohenKappa": (mt.CohenKappa(num_classes=N_CLASSES, device=DEVICE), (batch_p, batch_l)),
+        "CalibrationError": (mt.CalibrationError(n_bins=CE_BINS, device=DEVICE), (batch_p, batch_l)),
+        "HingeLoss": (mt.HingeLoss(device=DEVICE), (logits[batch_slices[0]], batch_l)),
+        "HingeLoss one-vs-all squared": (mt.HingeLoss(squared=True, multiclass_mode="one-vs-all", device=DEVICE),
+                                         (logits[batch_slices[0]], batch_l)),
+        "KLDivergence": (mt.KLDivergence(device=DEVICE), kl_inputs[0]),
+        "KLDivergence log_prob none": (mt.KLDivergence(log_prob=True, reduction="none", device=DEVICE), kl_log_inputs[0]),
+        "CoverageError": (mt.CoverageError(device=DEVICE), (scores_c[:BATCH], target_c[:BATCH])),
+        "LabelRankingAveragePrecision": (mt.LabelRankingAveragePrecision(device=DEVICE), (scores_c[:BATCH], target_c[:BATCH])),
+        "LabelRankingLoss": (mt.LabelRankingLoss(device=DEVICE), (scores_c[:BATCH], target_c[:BATCH])),
+        "LabelRankingLoss weighted": (mt.LabelRankingLoss(device=DEVICE), (scores_c[:BATCH], target_c[:BATCH], weights_c[:BATCH])),
+    }
+    updates = _member_timings(members)
+    compute_ms = {"confmat family + calibration": _timed_compute(col_a), "hinge": _timed_compute(col_h),
+                  "kl": _timed_compute(col_k), "ranking": _timed_compute(col_c), "ranking weighted": _timed_compute(col_cw)}
+    print(f"rest compute() ms per collection, 3 calls: {compute_ms!r}")
+
+    launches = {route: fn.launches for route, fn in _counters(ops).items()}
+    print(f"rest launches per entry point: {launches} (none of these metrics goes through the stat-scores kernel)")
+    if any(launches.values()):
+        raise AssertionError(f"the rest of classification launched the stat-scores kernel: {launches}")
+    secs = time.perf_counter() - phase_start
+    print(f"rest pass (a) samples/s: {N_SAMPLES / secs_a!r} ({secs_a!r} s, update per batch + compute of the five members)")
+    print(f"rest pass (b) samples/s: hinge {N_SAMPLES / secs_h!r}, kl {N_SAMPLES / secs_k!r}")
+    print(f"rest pass (c) samples/s: {N_COCO / secs_c!r} unweighted, {N_COCO / secs_cw!r} weighted "
+          f"({labels_per_image!r} labels per image)")
+    print(f"rest phase took {secs:.1f} s")
+    line = {"classification_rest": {
+        "card": card,
+        "imagenet_samples_per_s": N_SAMPLES / secs_a,
+        "hinge_samples_per_s": N_SAMPLES / secs_h,
+        "kl_samples_per_s": N_SAMPLES / secs_k,
+        "coco_samples_per_s": N_COCO / secs_c,
+        "coco_weighted_samples_per_s": N_COCO / secs_cw,
+        "coco_labels_per_image": labels_per_image,
+        "compute_ms": compute_ms,
+        "updates": updates,
+        "checks": checks,
+        "card_vs_cpu": compared,
+        "launches": launches,
+        "phase_s": secs,
+    }}
+    return launches, line
+
+
 def _device_ops(fn, calls: int = 1) -> Optional[list]:
     """(name, device ms) of each device operation that ``calls`` calls of ``fn`` issue, as
     torch.profiler records them; None where the profiler records no device activity on this machine."""
@@ -1082,11 +1567,15 @@ def _bound(bytes_moved: int, operations: int) -> Tuple[float, str]:
 def _one_launch(name: str, fn, calls: int = 20) -> Optional[float]:
     """Check that each call of ``fn`` issues one device operation; return that operation's own
     median device ms (the profiler's, without the event method's per-call cost)."""
-    seen = _device_ops(fn, calls)
-    if seen is None:
-        print(f"{name}: device operations per call not checked (the profiler recorded no device activity)")
-        return None
-    print(f"{name}: {len(seen)} device operations in {calls} calls: {sorted({op for op, _ in seen})}")
+    for _ in range(PROFILER_ATTEMPTS):
+        seen = _device_ops(fn, calls)
+        if seen is None:
+            print(f"{name}: device operations per call not checked (the profiler recorded no device activity)")
+            return None
+        print(f"{name}: {len(seen)} device operations in {calls} calls: {sorted({op for op, _ in seen})}")
+        if len(seen) >= calls:
+            break
+        # a session that records fewer operations than the calls launched lost events: profile again
     if len(seen) != calls:
         raise AssertionError(f"{name} issued {len(seen)} device operations in {calls} calls, not one a call")
     return statistics.median(ms for _, ms in seen)
@@ -1208,12 +1697,16 @@ def main() -> int:
     # the kernels' own times first: torch.profiler sessions after the curve phase's lost events
     kernels = phase_timings(ops, launches, max_abs_err)
     curve_launches, curve_line = phase_curves(mt, ops, logits, labels, card)
+    rest_launches, rest_line = phase_rest(mt, ops, logits, labels, card)
     del logits, labels
-    print(f"launches per entry point: main path {launches}, curve phase {curve_launches}")
+    print(f"launches per entry point: main path {launches}, curve phase {curve_launches}, "
+          f"rest of classification {rest_launches}")
     for entry in kernels:
-        entry["launches"] += curve_launches["canonical" if entry["name"] == "stat_scores" else "logits"]
+        route = "canonical" if entry["name"] == "stat_scores" else "logits"
+        entry["launches"] += curve_launches[route] + rest_launches[route]
     print(json.dumps(sync_line))
     print(json.dumps(curve_line))
+    print(json.dumps(rest_line))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -10,7 +10,6 @@ intermediates stay under a fixed size and sums each chunk in integers.
 
 from typing import Any, List, Tuple, Union
 
-import numpy as np
 import torch
 
 from metrics_tpu_torch.functional.classification.average_precision import (
@@ -18,20 +17,10 @@ from metrics_tpu_torch.functional.classification.average_precision import (
     _step_integrals,
 )
 from metrics_tpu_torch.metric import Metric
-from metrics_tpu_torch.utils.data import _x32, to_onehot
+from metrics_tpu_torch.utils.data import _linspace_thresholds, _x32, to_onehot
 
 METRIC_EPS = 1e-6
 _CHUNK_ELEMENTS = 1 << 24  # elements of one (rows, C, T) comparison
-
-
-def _linspace_thresholds(num: int) -> np.ndarray:
-    """``jnp.linspace(0, 1.0, num)`` bit for bit: XLA multiplies ``iota(num - 1)`` by
-    the float32 reciprocal of ``num - 1`` and appends the end point 1.0 (a division,
-    or that product at the last point, differs from it in the last bit)."""
-    if num == 1:
-        return np.zeros(1, np.float32)
-    step = np.float32(1) / np.float32(num - 1)
-    return np.concatenate([np.arange(num - 1, dtype=np.float32) * step, np.ones(1, np.float32)])
 
 
 def _binned_counts(

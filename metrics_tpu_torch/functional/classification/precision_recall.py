@@ -143,3 +143,38 @@ def recall(
     )
     return _recall_compute(tp, fp, fn, average, mdmc_average)
 
+
+
+def precision_recall(
+    preds: torch.Tensor,
+    target: torch.Tensor,
+    average: str = "micro",
+    mdmc_average: Optional[str] = None,
+    ignore_index: Optional[int] = None,
+    num_classes: Optional[int] = None,
+    threshold: float = 0.5,
+    top_k: Optional[int] = None,
+    multiclass: Optional[bool] = None,
+    validate_args: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Precision and recall from one count of the stat scores, on the device of the inputs.
+
+    Example:
+        >>> import torch
+        >>> preds = torch.tensor([2, 0, 2, 1])
+        >>> target = torch.tensor([1, 1, 2, 0])
+        >>> p, r = precision_recall(preds, target, average='macro', num_classes=3)
+        >>> round(float(p), 6), round(float(r), 6)
+        (0.166667, 0.333333)
+    """
+    _check_avg_arg(average, mdmc_average, num_classes, ignore_index)
+    reduce = "macro" if average in ("weighted", "none", None) else average
+    tp, fp, _, fn = _stat_scores_update(
+        preds, target, reduce=reduce, mdmc_reduce=mdmc_average, threshold=threshold,
+        num_classes=num_classes, top_k=top_k, multiclass=multiclass,
+        ignore_index=ignore_index, validate_args=validate_args,
+    )
+    return (
+        _precision_compute(tp, fp, fn, average, mdmc_average),
+        _recall_compute(tp, fp, fn, average, mdmc_average),
+    )

@@ -27,6 +27,15 @@ def _as_tensor(x) -> torch.Tensor:
     return x.to(torch.float32) if x.dtype == torch.float64 else x
 
 
+def _check_same_shape(preds: torch.Tensor, target: torch.Tensor) -> None:
+    """Raise if the shapes differ."""
+    if preds.shape != target.shape:
+        raise RuntimeError(
+            f"Predictions and targets are expected to have the same shape, "
+            f"but got {tuple(preds.shape)} and {tuple(target.shape)}."
+        )
+
+
 def _max_value(*xs: torch.Tensor) -> float:
     """The largest value over the given tensors, as a host float (one device read)."""
     return float(torch.stack([x.max().to(torch.float64) for x in xs]).max())

@@ -2,6 +2,7 @@
 
 from typing import Any, Dict, List, Optional, Union
 
+import numpy as np
 import torch
 
 
@@ -122,6 +123,16 @@ def _confusion_counts(preds: torch.Tensor, target: torch.Tensor, num_classes: in
     return _bincount(target * num_classes + preds, minlength=num_classes**2).reshape(
         num_classes, num_classes
     )
+
+
+def _linspace_thresholds(num: int) -> np.ndarray:
+    """``jnp.linspace(0, 1.0, num)`` bit for bit: XLA multiplies ``iota(num - 1)`` by
+    the float32 reciprocal of ``num - 1`` and appends the end point 1.0 (a division,
+    or that product at the last point, differs from it in the last bit)."""
+    if num == 1:
+        return np.zeros(1, np.float32)
+    step = np.float32(1) / np.float32(num - 1)
+    return np.concatenate([np.arange(num - 1, dtype=np.float32) * step, np.ones(1, np.float32)])
 
 
 def _squeeze_if_scalar(data: Any) -> Any:

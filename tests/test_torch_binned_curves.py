@@ -18,7 +18,8 @@ import torch
 
 import metrics_tpu as jm
 import metrics_tpu_torch as mt
-from metrics_tpu_torch.classification.binned_precision_recall import _binned_counts, _linspace_thresholds
+from metrics_tpu_torch.classification.binned_precision_recall import _binned_counts
+from metrics_tpu_torch.utils.data import _linspace_thresholds
 from tests.test_torch_curves import _np, assert_area, assert_bitwise
 
 N, C = 200, 4

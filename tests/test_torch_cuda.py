@@ -13,6 +13,7 @@ import torch
 
 import metrics_tpu_torch as mt
 from metrics_tpu_torch.ops import stat_scores as ops
+from metrics_tpu_torch.utils.data import _linspace_thresholds
 
 SHAPES = [(1024, 1000), (848, 1000), (3, 5), (0, 4), (4096, 4097)]
 NAN_BITS = {torch.bfloat16: (0x7FC0, -0x40), torch.float16: (0x7E00, -0x200)}  # (+NaN, -NaN) as int16
@@ -209,3 +210,125 @@ def test_curve_collection_on_cuda_shares_its_buffers_and_matches_the_cpu(cuda):
     got, want = card.compute(), cpu.compute()
     for key in want:
         torch.testing.assert_close(got[key].cpu(), want[key], rtol=1e-6, atol=0)
+
+
+# ------------------------------------------------------ rest of classification
+def rest_inputs(n=301, c=7, seed=4):
+    """Tricky scores (and the same with their NaNs and -infs replaced), labels with some out of
+    range, multilabel targets with an empty and a full row, weights, confidences on bin edges
+    and past them, and probabilities with NaNs and a row of tied maxima."""
+    rng = np.random.default_rng(seed)
+    scores = tricky_scores((n, c), seed)
+    finite = np.where(np.isnan(scores) | (scores == -np.inf), np.float32(0.25), scores)
+    labels = rng.integers(0, c, n)
+    labels[:3] = (c, -1, c + 4)
+    multilabel = rng.integers(0, 2, (n, c))
+    multilabel[0], multilabel[1] = 0, 1
+    weights = (rng.random(n) + 0.5).astype(np.float32)
+    edges = _linspace_thresholds(16)
+    conf = np.concatenate([edges, np.nextafter(edges, 2), [np.nan, -0.0, 0.0, 1.5, -0.5, np.inf], rng.random(n)])
+    with np.errstate(invalid="ignore"):
+        probs = np.abs(scores) / np.nansum(np.abs(scores), 1, keepdims=True)
+    probs[rng.choice(n, 5, replace=False), rng.integers(0, c, 5)] = np.nan
+    probs[2] = probs[2, 0]
+    return {"scores": scores, "finite": finite, "labels": labels, "multilabel": multilabel, "weights": weights,
+            "conf": conf.astype(np.float32), "hits": np.arange(conf.size) % 2, "probs": probs.astype(np.float32),
+            "in_range": labels.clip(0, c - 1)}
+
+
+def _ranking_calls():
+    from metrics_tpu_torch.functional.classification import ranking as rk
+    from metrics_tpu_torch.functional.classification.hinge import _hinge_measures
+
+    f = mt.functional
+    bitwise = {
+        "rank_positions": lambda s, t, w, y: rk._rank_inverse(s),
+        "lrap_rank_counts": lambda s, t, w, y: rk._lrap_ranks(s, t == 1),
+        "coverage_per_row": lambda s, t, w, y: rk._coverage_per_sample(s, t),
+        "ranking_loss_per_row": lambda s, t, w, y: rk._lrl_per_sample(s, t),
+        "coverage_error": lambda s, t, w, y: f.coverage_error(s, t),
+        "hinge_per_sample": lambda s, t, w, y: _hinge_measures(s, y),
+        "hinge_per_sample_ova_squared": lambda s, t, w, y: _hinge_measures(s, y, True, "one-vs-all"),
+    }
+    close = {
+        "label_ranking_loss": lambda s, t, w, y: f.label_ranking_loss(s, t, sample_weight=w),
+        "label_ranking_average_precision": lambda s, t, w, y: f.label_ranking_average_precision(s, t, sample_weight=w),
+        "coverage_error_weighted": lambda s, t, w, y: f.coverage_error(s, t, sample_weight=w),
+        "hinge_loss": lambda s, t, w, y: f.hinge_loss(s, y),
+        "hinge_loss_ova_squared": lambda s, t, w, y: f.hinge_loss(s, y, squared=True, multiclass_mode="one-vs-all"),
+    }
+    return bitwise, close
+
+
+def assert_close_on_card(card, cpu):
+    """To rtol=1e-6, NaN as NaN: a float32 sum over rows runs in another order on the card."""
+    assert card.device.type == "cuda" and card.dtype == cpu.dtype and card.shape == cpu.shape
+    torch.testing.assert_close(card.cpu(), cpu, rtol=1e-6, atol=0, equal_nan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scores", ["scores", "finite"])
+@pytest.mark.parametrize("name", list(_ranking_calls()[0]) + list(_ranking_calls()[1]))
+def test_ranking_and_hinge_on_cuda_equal_the_plain_cpu_path(cuda, name, scores):
+    """Bitwise where no float sum runs in a device-dependent order (rank positions and counts, each
+    row's coverage and loss, each sample's hinge loss, the unweighted coverage: a sum of integers)."""
+    bitwise, close = _ranking_calls()
+    x = rest_inputs()
+    cpu = [torch.from_numpy(x[k]) for k in (scores, "multilabel", "weights", "labels")]
+    call = bitwise.get(name) or close[name]
+    want, got = call(*cpu), call(*(t.to(cuda) for t in cpu))
+    if name in bitwise:
+        assert_same_curves(got, want)
+    else:
+        assert_close_on_card(got, want)
+
+
+@pytest.mark.cuda
+def test_calibration_bins_and_top1_on_cuda_equal_the_plain_cpu_path(cuda):
+    from metrics_tpu_torch.functional.classification.calibration_error import _bin_edges, _bin_indices, _ce_update
+
+    x = rest_inputs()
+    conf = torch.from_numpy(x["conf"])
+    idx_cpu = _bin_indices(conf, _bin_edges(15, torch.device("cpu")))
+    idx_card = _bin_indices(conf.to(cuda), _bin_edges(15, cuda))
+    assert_same_curves(idx_card, idx_cpu)
+    assert_same_curves(torch.bincount(idx_card, minlength=15), torch.bincount(idx_cpu, minlength=15))
+    probs, labels = torch.from_numpy(x["probs"]), torch.from_numpy(x["in_range"])
+    assert_same_curves(_ce_update(probs.to(cuda), labels.to(cuda)), _ce_update(probs, labels))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("norm", ["l1", "l2", "max"])
+@pytest.mark.parametrize("case", [("conf", "hits"), ("probs", "in_range")], ids=["edges", "probs"])
+def test_calibration_error_on_cuda_equals_the_plain_cpu_path(cuda, case, norm):
+    x = rest_inputs()
+    preds, target = torch.from_numpy(x[case[0]]), torch.from_numpy(x[case[1]])
+    want = mt.functional.calibration_error(preds, target, n_bins=15, norm=norm)
+    assert_close_on_card(mt.functional.calibration_error(preds.to(cuda), target.to(cuda), n_bins=15, norm=norm), want)
+
+
+@pytest.mark.cuda
+def test_rest_of_classification_modules_on_cuda_match_the_cpu_and_skip_the_kernel(cuda):
+    gen = torch.Generator().manual_seed(5)
+    logits = torch.randn((600, 12), generator=gen)
+    labels = torch.randint(0, 12, (600,), generator=gen)
+    probs = torch.softmax(logits, 1)
+
+    def family(device):
+        return mt.MetricCollection({
+            "cm": mt.ConfusionMatrix(num_classes=12, device=device), "jaccard": mt.JaccardIndex(num_classes=12, device=device),
+            "mcc": mt.MatthewsCorrCoef(num_classes=12, device=device), "kappa": mt.CohenKappa(num_classes=12, device=device),
+            "ce": mt.CalibrationError(device=device), "hinge": mt.HingeLoss(multiclass_mode="one-vs-all", device=device),
+        }, device=device)
+
+    card, cpu = family(cuda), family("cpu")
+    before = ops.fused_stat_scores_logits.launches, ops.fused_stat_scores.launches
+    for part in (slice(0, 256), slice(256, 512), slice(512, 600)):
+        card.update(probs[part].to(cuda), labels[part].to(cuda))
+        cpu.update(probs[part], labels[part])
+    assert (ops.fused_stat_scores_logits.launches, ops.fused_stat_scores.launches) == before
+    assert sorted(sorted(g) for g in card.compute_groups.values()) == sorted(sorted(g) for g in cpu.compute_groups.values())
+    assert torch.equal(card["cm"].confmat.cpu(), cpu["cm"].confmat)
+    got, want = card.compute(), cpu.compute()
+    for key in want:
+        assert_close_on_card(got[key], want[key])

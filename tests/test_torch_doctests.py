@@ -28,3 +28,16 @@ CURVE_SLICE = [
 @pytest.mark.parametrize("name", CURVE_SLICE)
 def test_each_public_name_of_the_curve_slice_has_an_example(name):
     assert ">>>" in (getattr(metrics_tpu_torch, name).__doc__ or "")
+
+
+REST_OF_CLASSIFICATION = [
+    "CalibrationError", "CohenKappa", "CoverageError", "HingeLoss", "JaccardIndex", "KLDivergence",
+    "LabelRankingAveragePrecision", "LabelRankingLoss", "MatthewsCorrCoef",
+    "calibration_error", "cohen_kappa", "coverage_error", "hinge_loss", "jaccard_index", "kl_divergence",
+    "label_ranking_average_precision", "label_ranking_loss", "matthews_corrcoef", "precision_recall",
+]
+
+
+@pytest.mark.parametrize("name", REST_OF_CLASSIFICATION)
+def test_each_public_name_of_the_rest_of_classification_has_an_example(name):
+    assert ">>>" in (getattr(metrics_tpu_torch, name).__doc__ or "")

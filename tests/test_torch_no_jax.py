@@ -38,6 +38,16 @@ def test_the_walk_covers_the_curve_and_stat_derivative_modules():
     assert expected <= walked
 
 
+REST_OF_CLASSIFICATION = ("jaccard", "matthews_corrcoef", "cohen_kappa", "hinge", "kl_divergence", "calibration_error", "ranking")
+
+
+def test_the_walk_covers_the_rest_of_classification():
+    walked = {p.relative_to(ROOT).as_posix() for p in _port_sources()}
+    expected = {f"metrics_tpu_torch/{layer}/{name}.py" for name in REST_OF_CLASSIFICATION
+                for layer in ("classification", "functional/classification")}
+    assert len(expected) == 14 and expected <= walked
+
+
 def _imported_roots(path: Path):
     for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
         if isinstance(node, ast.Import):
