@@ -60,7 +60,25 @@ Phases (each passes or raises; any failure exits non-zero):
      an independent numpy/scipy float64 computation (integer counts bitwise);
      the card's ranking, calibration and hinge functionals against the plain
      CPU path on tied, signed-zero, NaN and infinite inputs; update and
-     compute times; neither stat-scores entry point may launch.
+     compute times; neither stat-scores entry point may launch;
+  9. regression: (a) a dense-depth pass shaped like the NYU-Depth-v2 test split
+     (654 maps of 480 x 640, batches of 8) through one ``MetricCollection`` of
+     RMSE, MAE, MSLE, MAPE (AbsRel), SMAPE, WMAPE, the gamma deviance, R²,
+     explained variance and Pearson; (b) a rating pass shaped like a 10 %
+     hold-out of MovieLens-25M (2,500,000 half-star ratings, batches of 65,536)
+     through MSE, MAE, R², Pearson and Spearman, then again with NaN
+     predictions; (c) BERT-base-shaped distillation embeddings (50,000 x 768)
+     through a cosine similarity, a 768-output variance-weighted R² and a
+     raw explained variance; (d) CLIP-shaped pairwise products (50,000 x 512
+     against 1,000 x 512, and the 1,000 x 1,000 self-similarity) through all
+     four pairwise functionals, manhattan in row chunks, and the error with
+     TF32 on; each against numpy float64 within a bound derived from float32
+     rounding (ranks and counts bitwise); (e) pass (b) and the cosine
+     similarity synced over two gloo ranks on ``cuda:0``: counts and the
+     buffer metrics bitwise equal to one process, Pearson merged by
+     ``_final_aggregation``, and three Pearson delta rounds equal to a twin
+     that gathers in full; update, compute and call times, peak memory;
+     neither stat-scores entry point may launch.
 The last line is ``{"ok": true, "device": {...}}``.
 
 The sync phases run this script again as their ranks
@@ -89,6 +107,7 @@ SEED = 0
 DEVICE = "cuda"  # where the data lives and the metrics keep their state
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 INT32_OPS_PER_S = 67e12  # the 32-bit non-tensor-core rate from the same sheet
+FP32_OPS_PER_S = 67e12  # float32 outside the tensor cores, the same sheet
 KERNEL_SHAPES = [(1024, 1000), (848, 1000), (3, 5), (0, 4), (4096, 4097)]
 LOGIT_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 NAN_BITS = {torch.bfloat16: (0x7FC0, -0x40), torch.float16: (0x7E00, -0x200)}  # (+NaN, -NaN) as int16
@@ -594,12 +613,15 @@ def sync_rank(scenario: str, rank: int, where: Path) -> int:
     store = dist.FileStore(str(where / "store"), SYNC_WORLD)
     dist.init_process_group("gloo", store=store, rank=rank, world_size=SYNC_WORLD,
                             timeout=timedelta(seconds=SYNC_LIMIT))
-    _, _, batches = _imagenet_pass()
-    if scenario == "stall":
-        _rank_stall(mt, rank, batches, where, store)
-    {"main": lambda: _rank_main(mt, ops, rank, batches, where),
-     "desync": lambda: _rank_desync(mt, rank, batches, where),
-     "curves": lambda: _rank_curves(mt, ops, rank, batches, where)}[scenario]()
+    if scenario == "regression":
+        _rank_regression(mt, rank, where)
+    else:
+        _, _, batches = _imagenet_pass()
+        if scenario == "stall":
+            _rank_stall(mt, rank, batches, where, store)
+        {"main": lambda: _rank_main(mt, ops, rank, batches, where),
+         "desync": lambda: _rank_desync(mt, rank, batches, where),
+         "curves": lambda: _rank_curves(mt, ops, rank, batches, where)}[scenario]()
     dist.barrier()
     dist.destroy_process_group()
     return 0
@@ -1527,6 +1549,562 @@ def phase_rest(mt, ops, logits: torch.Tensor, labels: torch.Tensor, card: str) -
     return launches, line
 
 
+# ---------------------------------------------------------------- regression
+U32 = 2.0**-24  # float32 unit roundoff
+NYU_MAPS, NYU_H, NYU_W, NYU_BATCH = 654, 480, 640, 8  # NYU-Depth-v2 test split: 654 depth maps of 480 x 640
+ML_RATINGS, ML_BATCH, ML_NANS = 2_500_000, 65_536, 7  # a 10 % hold-out of MovieLens-25M
+# MovieLens-25M's share of each half-star rating, 0.5 to 5.0 (skewed toward 3.5-4.0)
+ML_SHARES = (0.016, 0.031, 0.016, 0.066, 0.050, 0.196, 0.126, 0.266, 0.086, 0.147)
+DISTIL_N, DISTIL_D, DISTIL_BATCH = 50_000, 768, 1024  # BERT-base student and teacher embeddings
+CLIP_N, CLIP_CLASSES, CLIP_D = 50_000, 1000, 512  # CLIP ViT-B/32 zero-shot on ImageNet: images x class prompts
+MANHATTAN_SAMPLE = 1000  # rows of the manhattan matrix checked against float64
+REG_SYNC_SHARDS = ((0, 20), (20, None))  # MovieLens batch ranges of the two ranks: 20 and 19 batches
+DISTIL_SYNC_SHARDS = ((0, 25), (25, None))  # distillation batch ranges of the two ranks: 25 and 24 batches
+# The depth of a float32 sum, in additions on one chain, bounds its rounding: |error| <= depth x U x
+# sum |terms|.  A reduction of n terms has a chain of at most n - 1 in any order.  Over millions of
+# terms the card's chain is far shorter: PyTorch's CUDA reduction (ATen Reduce.cuh) gives a thread
+# at most 256 values (max_values_per_thread), and warps, blocks and blocks of blocks add at most
+# 64 levels above that.  A stream of batches adds one addition per batch.
+SUM_DEPTH = 256 + 64
+
+
+def _propagated(f, sums: dict, errs: dict):
+    """First-order bound on |f(the float32 sums) - f(the exact sums)|, f applied elementwise: each
+    sum moved by its own bound in turn, float64."""
+    base = f(**sums)
+    return sum(np.abs(f(**{**sums, k: sums[k] + errs[k]}) - base) for k in sums)
+
+
+def _check_bound(name: str, got, want, bound, checks: dict) -> None:
+    """|got - want| <= bound elementwise (float64 reference, derived bound); records the worst ratio."""
+    got = np.asarray(got.detach().cpu() if isinstance(got, torch.Tensor) else got, dtype=np.float64)
+    diff = np.abs(got - want)
+    ratio = float(np.max(diff / np.maximum(bound, 1e-300))) if diff.size else 0.0
+    if not np.all(np.isfinite(got)) or not np.all(diff <= bound):
+        raise AssertionError(f"{name}: {got.ravel()[:4]!r} against numpy float64 {np.ravel(want)[:4]!r}, "
+                             f"bound {np.ravel(bound)[:4]!r}, worst ratio {ratio!r}")
+    shown = float(got) if got.size == 1 else f"{got.size} values"
+    print(f"check regression {name}: {shown!r} (numpy float64 {float(np.ravel(want)[0]) if np.size(want) == 1 else '...'!r}), "
+          f"largest difference {float(diff.max())!r} = {ratio:.3g} of its float32 bound")
+    checks[name] = {"value": got.tolist() if got.size == 1 else None, "worst_share_of_bound": ratio}
+
+
+def _regression_collection_a(mt):
+    return mt.MetricCollection({
+        "rmse": mt.MeanSquaredError(squared=False, device=DEVICE),
+        "mae": mt.MeanAbsoluteError(device=DEVICE),
+        "msle": mt.MeanSquaredLogError(device=DEVICE),
+        "absrel": mt.MeanAbsolutePercentageError(device=DEVICE),
+        "smape": mt.SymmetricMeanAbsolutePercentageError(device=DEVICE),
+        "wmape": mt.WeightedMeanAbsolutePercentageError(device=DEVICE),
+        "gamma_deviance": mt.TweedieDevianceScore(power=2, device=DEVICE),
+        "r2": mt.R2Score(device=DEVICE),
+        "explained_variance": mt.ExplainedVariance(device=DEVICE),
+        "pearson": mt.PearsonCorrCoef(device=DEVICE),
+    }, device=DEVICE)
+
+
+def _regression_collection_b(mt, **kwargs):
+    return mt.MetricCollection({
+        "mse": mt.MeanSquaredError(device=DEVICE, **kwargs),
+        "mae": mt.MeanAbsoluteError(device=DEVICE, **kwargs),
+        "r2": mt.R2Score(device=DEVICE, **kwargs),
+        "pearson": mt.PearsonCorrCoef(device=DEVICE, **kwargs),
+        "spearman": mt.SpearmanCorrCoef(device=DEVICE, **kwargs),
+    }, device=DEVICE)
+
+
+def _nyu_pass() -> list:
+    """654 depth maps in metres (0.5-10.0) and predictions target x exp(eps), eps ~ N(0, 0.1^2),
+    made on the card from the seed, as batches of 8 flattened maps (the last of 6)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 9)
+    n, per = NYU_MAPS * NYU_H * NYU_W, NYU_BATCH * NYU_H * NYU_W
+    target = torch.rand(n, generator=gen, device=DEVICE).mul_(10.0 - 0.5).add_(0.5)
+    preds = torch.randn(n, generator=gen, device=DEVICE).mul_(0.1).exp_().mul_(target)
+    return [(preds[i : i + per], target[i : i + per]) for i in range(0, n, per)]
+
+
+def _movielens_pass() -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Half-star ratings with MovieLens-25M's shares, predictions target + N(0, 0.8^2) clipped to
+    [0.5, 5.0], and the positions of the NaN predictions of the second pass, all from the seed."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 10)
+    shares = torch.tensor(ML_SHARES, device=DEVICE, dtype=torch.float64)
+    target = (torch.multinomial(shares, ML_RATINGS, replacement=True, generator=gen) + 1).to(torch.float32) * 0.5
+    preds = (target + 0.8 * torch.randn(ML_RATINGS, generator=gen, device=DEVICE)).clamp_(0.5, 5.0)
+    nan_at = torch.randperm(ML_RATINGS, generator=gen, device=DEVICE)[:ML_NANS]
+    return preds, target, nan_at
+
+
+def _distil_pass() -> Tuple[torch.Tensor, torch.Tensor]:
+    """Teacher embeddings with a scale per dimension, and a student's: teacher + N(0, 0.5^2) noise."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 11)
+    scale = torch.randn(DISTIL_D, generator=gen, device=DEVICE).mul_(0.5).exp_()
+    teacher = torch.randn(DISTIL_N, DISTIL_D, generator=gen, device=DEVICE) * scale
+    student = teacher + 0.5 * torch.randn(DISTIL_N, DISTIL_D, generator=gen, device=DEVICE)
+    return student, teacher
+
+
+def _batched(preds: torch.Tensor, target: torch.Tensor, size: int) -> list:
+    return [(preds[i : i + size], target[i : i + size]) for i in range(0, preds.shape[0], size)]
+
+
+def _stream_moments(batches) -> dict:
+    """Everything pass (a)'s references and bounds need, summed batch by batch in numpy float64."""
+    acc: dict = {}
+    for preds, target in batches:
+        p = preds.cpu().numpy().astype(np.float64)
+        t = target.cpu().numpy().astype(np.float64)
+        d = t - p
+        ad = np.abs(d)
+        lp, lt = np.log1p(p), np.log1p(t)
+        ld = lp - lt
+        ratio = t / p
+        dev = 2 * (np.log(p / t) + ratio - 1)
+        terms = dict(
+            n=float(t.size), sd=d.sum(), sd2=d @ d, sad=ad.sum(), st=t.sum(), st2=t @ t, sp=p.sum(), sp2=p @ p, spt=p @ t,
+            sld2=ld @ ld, ape=(ad / t).sum(), sape=(2 * ad / (t + p)).sum(), dev=dev.sum(),
+            # the rounding each term brings before it is summed, where its operations cancel
+            msle_terms=(2 * np.abs(ld) * (2 * (lp + lt) + np.abs(ld)) + ld * ld).sum(),
+            dev_terms=(2 * (1 + 2 * np.abs(np.log(p / t)) + ratio + np.abs(ratio - 1) + np.abs(dev) / 2)).sum(),
+        )
+        for key, value in terms.items():
+            acc[key] = acc.get(key, 0.0) + value
+    return acc
+
+
+def _pearson_reference(m: dict, depth: float) -> Tuple[float, float]:
+    """Pearson's float64 value from the moments, and the bound on its float32 streaming value: its
+    variances and covariance are sums of products of centred terms (<= depth x U of their magnitude,
+    by Cauchy-Schwarz at most sqrt(vx vy) for the covariance), off by what the running means carry."""
+    n = m["n"]
+    vx, vy = m["sp2"] - m["sp"] ** 2 / n, m["st2"] - m["st"] ** 2 / n
+    cov = m["spt"] - m["sp"] * m["st"] / n
+    e_mx, e_my = (depth + 4) * U32 * abs(m["sp"]) / n, (depth + 4) * U32 * abs(m["st"]) / n
+    errs = {
+        "vx": depth * U32 * vx + 2 * e_mx * np.sqrt(n * vx),
+        "vy": depth * U32 * vy + 2 * e_my * np.sqrt(n * vy),
+        "cov": depth * U32 * np.sqrt(vx * vy) + e_mx * np.sqrt(n * vy) + e_my * np.sqrt(n * vx),
+    }
+    f = lambda vx, vy, cov: cov / np.sqrt(vx * vy)  # noqa: E731
+    value = f(vx, vy, cov)
+    return value, _propagated(f, {"vx": vx, "vy": vy, "cov": cov}, errs) + 8 * U32 * abs(value)
+
+
+def _r2_reference(st2, st, rss, n, depth: float, st_abs=None, final_units: float = 8):
+    """R² = 1 - rss / (st2 - st^2 / n) in float64 and its float32 bound (elementwise over outputs)."""
+    st_abs = np.abs(st) if st_abs is None else st_abs
+    f = lambda st2, st, rss: 1 - rss / (st2 - st * (st / n))  # noqa: E731
+    sums = {"st2": st2, "st": st, "rss": rss}
+    errs = {"st2": (depth + 1) * U32 * st2, "st": depth * U32 * st_abs, "rss": (depth + 2) * U32 * rss}
+    value = f(**sums)
+    return value, _propagated(f, sums, errs) + final_units * U32 * np.abs(value)
+
+
+def _ev_reference(sd, sd2, st, st2, n, depth: float, sad, st_abs):
+    """Explained variance 1 - var(error) / var(target) in float64 and its float32 bound (elementwise)."""
+    def f(sd, sd2, st, st2):
+        return 1 - (sd2 / n - (sd / n) ** 2) / (st2 / n - (st / n) ** 2)
+
+    sums = {"sd": sd, "sd2": sd2, "st": st, "st2": st2}
+    errs = {"sd": (depth + 1) * U32 * sad, "sd2": (depth + 2) * U32 * sd2, "st": depth * U32 * st_abs, "st2": (depth + 1) * U32 * st2}
+    value = f(**sums)
+    return value, _propagated(f, sums, errs) + 8 * U32 * np.abs(value)
+
+
+def _spearman_reference(ranks_p: np.ndarray, ranks_t: np.ndarray, depth: float) -> Tuple[float, float]:
+    """Spearman from exact float64 ranks, and the float32 bound of the port's value: its rank means
+    are sums of n ranks, its covariance and variances sums of n centred products."""
+    n = float(ranks_p.size)
+    pd, td = ranks_p - ranks_p.mean(), ranks_t - ranks_t.mean()
+    c, vp, vt = pd @ td, pd @ pd, td @ td
+    e_mp, e_mt = (depth + 1) * U32 * ranks_p.mean(), (depth + 1) * U32 * ranks_t.mean()
+    errs = {"c": depth * U32 * np.sqrt(vp * vt) + e_mp * np.sqrt(n * vt) + e_mt * np.sqrt(n * vp),
+            "vp": depth * U32 * vp + 2 * e_mp * np.sqrt(n * vp), "vt": depth * U32 * vt + 2 * e_mt * np.sqrt(n * vt)}
+    f = lambda c, vp, vt: (c / n) / (np.sqrt(vp / n) * np.sqrt(vt / n) + 1e-6)  # noqa: E731
+    value = f(c, vp, vt)
+    return value, _propagated(f, {"c": c, "vp": vp, "vt": vt}, errs) + 8 * U32 * abs(value)
+
+
+def _average_ranks(x: np.ndarray) -> np.ndarray:
+    """scipy's average ranks with NaN last and tied (the order jnp gives); x holds no infinity."""
+    from scipy.stats import rankdata
+
+    if np.isinf(x).any():
+        raise AssertionError("the reference ranks stand NaN in for +inf: the scores must hold no infinity")
+    return rankdata(np.where(np.isnan(x), np.inf, x), method="average")
+
+
+def _pairwise_reference(name: str, x: np.ndarray, y: np.ndarray, zero_diagonal: bool) -> Tuple[np.ndarray, np.ndarray]:
+    """A pairwise matrix in float64 and the bound on its float32 entries, for any order of the
+    d-term sums: a dot product <= d U sum |x_k y_k|; a euclidean distance, whose Gram form cancels,
+    <= sqrt((d + 3) U (|x|² + |y|² + 2 sum |x_k y_k|)) + U d; unit rows' dot product <= (2d + 8) U."""
+    d = x.shape[1]
+    if name == "linear":
+        value, bound = x @ y.T, d * U32 * (np.abs(x) @ np.abs(y).T)
+    elif name == "cosine":
+        xu = x / np.linalg.norm(x, axis=1, keepdims=True)
+        yu = y / np.linalg.norm(y, axis=1, keepdims=True)
+        value = xu @ yu.T
+        bound = np.full(value.shape, (2 * d + 8) * U32)
+    else:
+        xn, yn = (x * x).sum(1)[:, None], (y * y).sum(1)[None, :]
+        value = np.sqrt(np.maximum(xn + yn - 2 * (x @ y.T), 0.0))
+        bound = np.sqrt((d + 3) * U32 * (xn + yn + 2 * (np.abs(x) @ np.abs(y).T))) + U32 * value
+    if zero_diagonal:
+        np.fill_diagonal(value, 0.0)
+        np.fill_diagonal(bound, 0.0)
+    return value, bound
+
+
+def _peak_bytes(fn) -> Tuple[object, int]:
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - base
+
+
+def _regression_pass(col, batches) -> Tuple[dict, float, int]:
+    """One update per batch and the final compute: results, samples per second, peak device bytes."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out, secs = _timed_pass(col, batches)
+    samples = sum(b[0].shape[0] for b in batches)
+    return out, samples / secs, torch.cuda.max_memory_allocated()
+
+
+def phase_regression(mt, ops, card: str) -> Tuple[dict, dict]:
+    """Regression and the pairwise functionals at full width: (a) NYU-Depth-v2-shaped dense depth,
+    (b) a MovieLens-25M-shaped rating hold-out, then with NaN predictions, (c) BERT-base-shaped
+    multi-output distillation, (d) CLIP-shaped pairwise products, (e) pass (b) synced over two
+    ranks; each against numpy float64 within a bound derived from float32 rounding."""
+    from metrics_tpu_torch.functional.pairwise.manhattan import _CHUNK_ELEMENTS
+    from metrics_tpu_torch.functional.regression.spearman import _rank_data
+
+    phase_start = time.perf_counter()
+    for fn in _counters(ops).values():
+        fn.launches = 0
+    checks, passes = {}, {}
+
+    # (a) dense depth prediction, NYU-Depth-v2-shaped
+    batches_a = _nyu_pass()
+    warm = _regression_collection_a(mt)
+    warm.update(*batches_a[0])
+    warm.compute()
+    col_a = _regression_collection_a(mt)
+    out_a, rate_a, peak_a = _regression_pass(col_a, batches_a)
+    m = _stream_moments(batches_a)
+    depth_a = SUM_DEPTH + len(batches_a)
+    n = m["n"]
+    if int(col_a["rmse"].total) != n or float(col_a["explained_variance"].n_obs) != n:
+        raise AssertionError(f"pass (a) counted {int(col_a['rmse'].total)} pixels, not {int(n)}")
+    refs_a = {
+        # name: (float64 value, bound of the float32 value)
+        "rmse": (np.sqrt(m["sd2"] / n), (depth_a + 4) * U32 * np.sqrt(m["sd2"] / n)),
+        "mae": (m["sad"] / n, (depth_a + 3) * U32 * m["sad"] / n),
+        "msle": (m["sld2"] / n, ((depth_a + 1) * m["sld2"] + m["msle_terms"]) * U32 / n),
+        "absrel": (m["ape"] / n, (depth_a + 5) * U32 * m["ape"] / n),
+        "smape": (m["sape"] / n, (depth_a + 7) * U32 * m["sape"] / n),
+        "wmape": (m["sad"] / m["st"], (2 * depth_a + 5) * U32 * m["sad"] / m["st"]),
+        "gamma_deviance": (m["dev"] / n, (depth_a * m["dev"] + m["dev_terms"]) * U32 / n),
+        "r2": _r2_reference(m["st2"], m["st"], m["sd2"], n, depth_a),
+        "explained_variance": _ev_reference(m["sd"], m["sd2"], m["st"], m["st2"], n, depth_a, m["sad"], m["st"]),
+        "pearson": _pearson_reference(m, depth_a),
+    }
+    for name, (want, bound) in refs_a.items():
+        _check_bound(f"(a) {name}", out_a[name], want, bound, checks)
+
+    # (b) rating regression, MovieLens-25M-shaped; then the same pass with NaN predictions
+    preds_b, target_b, nan_at = _movielens_pass()
+    batches_b = _batched(preds_b, target_b, ML_BATCH)
+    warm = _regression_collection_b(mt)
+    warm.update(*batches_b[0])
+    warm.compute()
+    col_b = _regression_collection_b(mt)
+    out_b, rate_b, peak_b = _regression_pass(col_b, batches_b)
+    p_host, t_host = preds_b.cpu().numpy().astype(np.float64), target_b.cpu().numpy().astype(np.float64)
+    mb = {"n": float(p_host.size), "sp": p_host.sum(), "st": t_host.sum(), "sp2": p_host @ p_host,
+          "st2": t_host @ t_host, "spt": p_host @ t_host}
+    d_host = t_host - p_host
+    depth_b = SUM_DEPTH + len(batches_b)
+    nb = mb["n"]
+    refs_b = {
+        "mse": (d_host @ d_host / nb, (depth_b + 3) * U32 * (d_host @ d_host) / nb),
+        "mae": (np.abs(d_host).sum() / nb, (depth_b + 3) * U32 * np.abs(d_host).sum() / nb),
+        "r2": _r2_reference(mb["st2"], mb["st"], d_host @ d_host, nb, depth_b),
+        "pearson": _pearson_reference(mb, depth_b),
+    }
+    ranks_p, ranks_t = _average_ranks(p_host.astype(np.float32)), _average_ranks(t_host.astype(np.float32))
+    refs_b["spearman"] = _spearman_reference(ranks_p, ranks_t, SUM_DEPTH)
+    for name, (want, bound) in refs_b.items():
+        _check_bound(f"(b) {name}", out_b[name], want, bound, checks)
+    if col_b["mse"].total.dtype != torch.int32 or int(col_b["mse"].total) != ML_RATINGS:
+        raise AssertionError(f"pass (b): MSE counted {col_b['mse'].total!r}, not int32 {ML_RATINGS}")
+    card_ranks = _rank_data(col_b["spearman"].buffer_values("target"))
+    if not np.array_equal(card_ranks.cpu().numpy(), ranks_t.astype(np.float32)):
+        raise AssertionError("pass (b): the card's ranks of the tied ratings differ from scipy's average ranks")
+    tie_groups = int(np.unique(t_host).size)
+    print(f"check regression (b) ranks: {ML_RATINGS:,} ratings in {tie_groups} tie groups, the card's average ranks "
+          "bitwise equal to scipy's")
+
+    preds_nan = preds_b.clone()
+    preds_nan[nan_at] = float("nan")
+    col_nan = _regression_collection_b(mt)
+    out_nan, rate_nan, _ = _regression_pass(col_nan, _batched(preds_nan, target_b, ML_BATCH))
+    nan_host = preds_nan.cpu().numpy()
+    card_ranks = _rank_data(col_nan["spearman"].buffer_values("preds"))
+    cpu_ranks = _rank_data(col_nan["spearman"].buffer_values("preds").cpu())
+    ranks_nan = _average_ranks(nan_host)
+    if not (torch.equal(card_ranks.cpu(), cpu_ranks) and np.array_equal(cpu_ranks.numpy(), ranks_nan.astype(np.float32))):
+        raise AssertionError("pass (b) with NaN: the card's ranks differ from the CPU path's or scipy's (NaN last)")
+    want, bound = _spearman_reference(ranks_nan, ranks_t, SUM_DEPTH)
+    _check_bound("(b NaN) spearman", out_nan["spearman"], want, bound, checks)
+    cpu_value = mt.functional.spearman_corrcoef(preds_nan.cpu(), target_b.cpu())
+    _check_bound("(b NaN) spearman, card against the CPU path", out_nan["spearman"], float(cpu_value), 2 * bound, checks)
+    for name in ("mse", "mae", "r2", "pearson"):
+        if not torch.isnan(out_nan[name]):
+            raise AssertionError(f"pass (b) with NaN: {name} is {out_nan[name]!r}, not NaN as numpy gives")
+    print(f"check regression (b NaN): {ML_NANS} NaN predictions rank last and tied; the card's ranks bitwise equal "
+          "to the CPU path's and scipy's; mse, mae, r2 and pearson are NaN as in numpy")
+
+    # (c) multi-output distillation, BERT-base-shaped
+    student, teacher = _distil_pass()
+    batches_c = _batched(student, teacher, DISTIL_BATCH)
+    members_c = lambda: {  # noqa: E731
+        "cosine": mt.CosineSimilarity(reduction="mean", device=DEVICE),
+        "r2": mt.R2Score(num_outputs=DISTIL_D, multioutput="variance_weighted", device=DEVICE),
+        "explained_variance": mt.ExplainedVariance(multioutput="raw_values", device=DEVICE),
+    }
+    warm = mt.MetricCollection(members_c(), device=DEVICE)
+    warm.update(*batches_c[0])
+    warm.compute()
+    col_c = mt.MetricCollection(members_c(), device=DEVICE)
+    out_c, rate_c, peak_c = _regression_pass(col_c, batches_c)
+    s_host, t_host = student.cpu().numpy().astype(np.float64), teacher.cpu().numpy().astype(np.float64)
+    dot, sn, tn = (s_host * t_host).sum(1), np.linalg.norm(s_host, axis=1), np.linalg.norm(t_host, axis=1)
+    sims = dot / (sn * tn)
+    row_depth = DISTIL_D + 8  # a row's dot product and norms: DISTIL_D terms each, then the quotient
+    e_rows = row_depth * U32 * ((np.abs(s_host) * np.abs(t_host)).sum(1) / (sn * tn) + 2 * np.abs(sims))
+    _check_bound("(c) cosine (mean)", out_c["cosine"], sims.mean(),
+                 e_rows.mean() + (SUM_DEPTH + 2) * U32 * np.abs(sims).mean(), checks)
+    depth_c = DISTIL_BATCH + len(batches_c)  # column sums of a batch, then one addition per batch
+    d_c = t_host - s_host
+    st, st2, rss = t_host.sum(0), (t_host * t_host).sum(0), (d_c * d_c).sum(0)
+    st_abs = np.abs(t_host).sum(0)
+    tss = st2 - st * st / DISTIL_N
+    e_tss = (depth_c + 3) * U32 * st2 + 2 * np.abs(st) / DISTIL_N * depth_c * U32 * st_abs
+    e_rss = (depth_c + 2) * U32 * rss
+    want = 1 - rss.sum() / tss.sum()  # variance-weighted R² = sum(tss / sum(tss) x (1 - rss / tss)) = 1 - sum(rss) / sum(tss)
+    # ... which the port sums over the outputs as 768 weighted scores, a few roundings each
+    weighted = np.abs(tss / tss.sum() * (1 - rss / tss)).sum()
+    bound = (e_rss.sum() + rss.sum() / tss.sum() * e_tss.sum()) / tss.sum() + (DISTIL_D + 8) * U32 * weighted
+    _check_bound("(c) r2 (768 outputs, variance-weighted)", out_c["r2"], want, bound, checks)
+    want, bound = _ev_reference(d_c.sum(0), rss, st, st2, float(DISTIL_N), depth_c, np.abs(d_c).sum(0), st_abs)
+    if tuple(out_c["explained_variance"].shape) != (DISTIL_D,):
+        raise AssertionError(f"(c) explained variance raw_values has shape {tuple(out_c['explained_variance'].shape)}")
+    _check_bound("(c) explained variance (raw, 768 outputs)", out_c["explained_variance"], want, bound, checks)
+
+    # (d) pairwise, CLIP ViT-B/32 zero-shot-shaped
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 12)
+    images = torch.randn(CLIP_N, CLIP_D, generator=gen, device=DEVICE)
+    classes = torch.randn(CLIP_CLASSES, CLIP_D, generator=gen, device=DEVICE)
+    img_host, cls_host = images.cpu().numpy().astype(np.float64), classes.cpu().numpy().astype(np.float64)
+    f = mt.functional
+    calls = {"linear": f.pairwise_linear_similarity, "cosine": f.pairwise_cosine_similarity,
+             "euclidean": f.pairwise_euclidean_distance}
+    pairwise_ms, pairwise_refs = {}, {}
+    for name, fn in calls.items():
+        want, bound = _pairwise_reference(name, img_host, cls_host, False)
+        pairwise_refs[name] = want
+        got = fn(images, classes)
+        _check_bound(f"(d) pairwise {name} {CLIP_N}x{CLIP_CLASSES}", got, want, bound, checks)
+        mean = fn(images, classes, reduction="mean")
+        _check_bound(f"(d) pairwise {name} {CLIP_N}x{CLIP_CLASSES} mean", mean, want.mean(1),
+                     bound.mean(1) + (CLIP_CLASSES + 1) * U32 * np.abs(want).mean(1), checks)
+        want, bound = _pairwise_reference(name, cls_host, cls_host, True)
+        _check_bound(f"(d) pairwise {name} {CLIP_CLASSES}x{CLIP_CLASSES} self, zero diagonal", fn(classes), want, bound, checks)
+        pairwise_ms[name] = _call_ms(lambda: fn(images, classes), reps=5, warmup=1)
+        pairwise_ms[f"{name} mean"] = _call_ms(lambda: fn(images, classes, reduction="mean"), reps=5, warmup=1)
+        del got, mean
+    manhattan, manhattan_peak = _peak_bytes(lambda: f.pairwise_manhattan_distance(images, classes))
+    rows = np.sort(np.random.default_rng(SEED + 12).choice(CLIP_N, MANHATTAN_SAMPLE, replace=False))
+    from scipy.spatial.distance import cdist
+
+    want = cdist(img_host[rows], cls_host, "cityblock")
+    _check_bound(f"(d) pairwise manhattan, {MANHATTAN_SAMPLE} seeded rows of {CLIP_N}x{CLIP_CLASSES}",
+                 manhattan[torch.from_numpy(rows).to(DEVICE)], want, (CLIP_D + 1) * U32 * want, checks)
+    want = cdist(cls_host, cls_host, "cityblock")
+    _check_bound(f"(d) pairwise manhattan {CLIP_CLASSES}x{CLIP_CLASSES} self, zero diagonal",
+                 f.pairwise_manhattan_distance(classes), want, (CLIP_D + 1) * U32 * want, checks)
+    pairwise_ms["manhattan"] = _call_ms(lambda: f.pairwise_manhattan_distance(images, classes), reps=3, warmup=1)
+    # timed for comparison only: one PyTorch call for the same distances, which the port does not use
+    pairwise_ms["torch.cdist p=1 (library)"] = _call_ms(lambda: torch.cdist(images, classes, p=1), reps=3, warmup=1)
+    # the least time for each: its inputs read and its matrix written once at the HBM rate, or its
+    # float32 operations (a multiply-add per term for the products; a subtract, an absolute value and
+    # an add for manhattan) at the rate outside the tensor cores, whichever is longer
+    moved = (CLIP_N + CLIP_CLASSES) * CLIP_D * 4 + CLIP_N * CLIP_CLASSES * 4
+    terms = CLIP_N * CLIP_CLASSES * CLIP_D
+    pairwise_bound = {name: _bound_ms(moved, ops_per_term * terms, FP32_OPS_PER_S)
+                      for name, ops_per_term in (("linear", 2), ("cosine", 2), ("euclidean", 2), ("manhattan", 3))}
+    print(f"regression (d) pairwise bound (ms, by): {pairwise_bound!r}")
+    chunk_rows = max(1, _CHUNK_ELEMENTS // (CLIP_CLASSES * CLIP_D))
+    print(f"regression (d) manhattan {CLIP_N}x{CLIP_CLASSES}x{CLIP_D}: peak device memory {manhattan_peak:,} bytes "
+          f"above its inputs, in row chunks of {chunk_rows} ({_CHUNK_ELEMENTS:,} elements); the whole difference "
+          f"would take {CLIP_N * CLIP_CLASSES * CLIP_D * 4:,} bytes")
+    del manhattan
+    tf32 = {}
+    saved = torch.backends.cuda.matmul.allow_tf32
+    if saved:
+        raise AssertionError("torch.backends.cuda.matmul.allow_tf32 is on: the float32 checks above assume torch's default")
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        for name, fn in calls.items():
+            got = fn(images, classes).cpu().numpy().astype(np.float64)
+            tf32[name] = float(np.max(np.abs(got - pairwise_refs[name])))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    print(f"regression (d) with allow_tf32 = True (restored to {saved} after): largest difference from float64 {tf32!r}")
+
+    # timings: each metric alone at full width
+    first_a, first_b, first_c = batches_a[0], batches_b[0], batches_c[0]
+    members = {f"(a) {k}": (m_, first_a) for k, m_ in _regression_collection_a(mt).items()}
+    members.update({f"(b) {k}": (m_, first_b) for k, m_ in _regression_collection_b(mt).items()})
+    members.update({f"(c) {k}": (m_, first_c) for k, m_ in members_c().items()})
+    updates = _member_timings(members)
+    compute_ms = {"(a)": _timed_compute(col_a), "(b)": _timed_compute(col_b), "(c)": _timed_compute(col_c)}
+    print(f"regression compute() ms per collection, 3 calls: {compute_ms!r}")
+    launches = {route: fn.launches for route, fn in _counters(ops).items()}
+    if any(launches.values()):
+        raise AssertionError(f"the regression phase launched the stat-scores kernel: {launches}")
+    print(f"regression launches per entry point: {launches} (no regression or pairwise function goes through the "
+          "stat-scores kernel)")
+
+    # (e) pass (b) and the cosine similarity of pass (c) over two ranks on cuda:0
+    sync = phase_regression_sync(out_b, col_b, out_c["cosine"], refs_b)
+    secs = time.perf_counter() - phase_start
+    passes = {
+        "(a) nyu_depth_v2": {"samples_per_s": rate_a, "samples": int(n), "batches": len(batches_a), "peak_bytes": peak_a},
+        "(b) movielens": {"samples_per_s": rate_b, "samples": ML_RATINGS, "batches": len(batches_b), "peak_bytes": peak_b},
+        "(b) movielens with NaN": {"samples_per_s": rate_nan},
+        "(c) distillation": {"samples_per_s": rate_c, "samples": DISTIL_N, "batches": len(batches_c), "peak_bytes": peak_c},
+    }
+    for name, info in passes.items():
+        print(f"regression pass {name}: {info!r}")
+    print(f"regression (d) pairwise ms per call: {pairwise_ms!r}")
+    print(f"regression phase took {secs:.1f} s")
+    line = {"regression": {
+        "card": card,
+        "passes": passes,
+        "updates": updates,
+        "compute_ms": compute_ms,
+        "pairwise_ms": pairwise_ms,
+        "pairwise_bound_ms": pairwise_bound,
+        "manhattan_peak_bytes": manhattan_peak,
+        "tf32_max_abs_err": tf32,
+        "checks": checks,
+        "sync": sync,
+        "launches": launches,
+        "phase_s": secs,
+    }}
+    return launches, line
+
+
+def _rank_regression(mt, rank: int, out: Path) -> None:
+    """This rank's MovieLens batches and distillation batches, then synced computes; Pearson's
+    delta rounds against a twin that always gathers in full."""
+    preds, target, _ = _movielens_pass()
+    batches = _batched(preds, target, ML_BATCH)
+    student, teacher = _distil_pass()
+    col = _regression_collection_b(mt)
+    cos = mt.CosineSimilarity(reduction="mean", device=DEVICE)
+    first, stop = REG_SYNC_SHARDS[rank]
+    for p, t in batches[first:stop]:
+        col.update(p, t)
+    first_c, stop_c = DISTIL_SYNC_SHARDS[rank]
+    for p, t in _batched(student, teacher, DISTIL_BATCH)[first_c:stop_c]:
+        cos.update(p, t)
+    rows = {n: getattr(col["pearson"], n).cpu() for n in ("mean_x", "mean_y", "var_x", "var_y", "corr_xy", "n_total")}
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    results = {f"col.{k}": v.cpu() for k, v in col.compute().items()}
+    torch.cuda.synchronize()
+    compute_ms = (time.perf_counter() - start) * 1e3
+    results["cos"] = cos.compute().cpu()
+    with col["mse"].sync_context():
+        results.update({"mse.total": col["mse"].total.cpu(), "mse.sum": col["mse"].sum_squared_error.cpu()})
+    with col["r2"].sync_context():
+        results["r2.total"] = col["r2"].total.cpu()
+    with col["spearman"].sync_context():
+        rows_equal = bool(torch.equal(col["spearman"].buffer_values("preds"), preds))
+    with cos.sync_context():
+        rows_equal = rows_equal and bool(torch.equal(cos.buffer_values("preds"), student))
+    deltas = []
+    metric, twin = mt.PearsonCorrCoef(device=DEVICE), mt.PearsonCorrCoef(device=DEVICE, delta_sync=False)
+    for p, t in batches[first : first + 3]:
+        metric.update(p, t)
+        twin.update(p, t)
+        value, twin_value = metric.compute(), twin.compute()
+        deltas.append({"equal": bool(torch.equal(value, twin_value)), "delta": metric.last_sync_report["delta"],
+                       "value": float(value)})
+    torch.save({**results, **{f"row.{k}": v for k, v in rows.items()}}, out / f"rank{rank}.pt")
+    (out / f"rank{rank}.json").write_text(json.dumps({
+        "rows_equal": rows_equal, "deltas": deltas, "compute_ms": compute_ms,
+        "local": not any(m._is_synced for m in col.values()),
+        "bytes_gathered": col.aggregate_sync_report()["bytes_gathered"],
+    }))
+
+
+def phase_regression_sync(single: dict, col_b, single_cos: torch.Tensor, refs_b: dict) -> dict:
+    """Two ranks on ``cuda:0`` sync pass (b) and the distillation cosine similarity: integer states
+    and the buffer metrics bitwise equal to the single-process pass, Pearson (through
+    ``_final_aggregation``) and the float sums within their bounds of it and of numpy's."""
+    from metrics_tpu_torch.functional.regression.pearson import _pearson_corrcoef_compute
+    from metrics_tpu_torch.regression.pearson import _final_aggregation
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_regression_") as tmp:
+        tmp = Path(tmp)
+        start = time.perf_counter()
+        seen = _wait_ranks("regression", _start_ranks("regression", tmp / "regression"), tmp / "regression")
+        took = time.perf_counter() - start
+        got = [torch.load(tmp / "regression" / f"rank{rank}.pt") for rank in range(SYNC_WORLD)]
+    print(f"regression sync: two ranks took {took:.1f} s (start-up included)")
+    single_sum = col_b["mse"].sum_squared_error.cpu()
+    for rank, (info, res) in enumerate(zip(seen, got)):
+        if not (info["rows_equal"] and info["local"]):
+            raise AssertionError(f"regression sync rank {rank}: gathered rows out of rank order, or state left synced")
+        for key, want in (("mse.total", col_b["mse"].total), ("r2.total", col_b["r2"].total)):
+            if res[key].dtype != torch.int32 or not torch.equal(res[key], want.cpu()):
+                raise AssertionError(f"regression sync rank {rank}: {key} {res[key]!r} differs from the single pass")
+        for key, want in (("col.spearman", single["spearman"]), ("cos", single_cos)):
+            if not torch.equal(res[key], want.cpu()):
+                raise AssertionError(f"regression sync rank {rank}: {key} {res[key]!r} is not the single pass's {want!r}")
+        rows = [torch.cat([got[r][f"row.{n}"] for r in range(SYNC_WORLD)])
+                for n in ("mean_x", "mean_y", "var_x", "var_y", "corr_xy", "n_total")]
+        merged = float(_pearson_corrcoef_compute(*_final_aggregation(*rows)))
+        want, bound = refs_b["pearson"]
+        _check_bound(f"(e) rank {rank} pearson", res["col.pearson"], want, bound, {})
+        _check_bound(f"(e) rank {rank} pearson against one process", res["col.pearson"], float(single["pearson"]), 2 * bound, {})
+        if abs(float(res["col.pearson"]) - merged) > 8 * U32:
+            raise AssertionError(f"regression sync rank {rank}: pearson {res['col.pearson']!r} is not the merge of the rows {merged!r}")
+        for key in ("mse", "mae", "r2"):
+            want, bound = refs_b[key]
+            _check_bound(f"(e) rank {rank} {key}", res[f"col.{key}"], want, bound, {})
+        # the synced sum is the two ranks' sums added once more
+        _check_bound(f"(e) rank {rank} mse sum against one process", res["mse.sum"], float(single_sum),
+                     2 * (SUM_DEPTH + 40) * U32 * float(single_sum), {})
+        if not all(d["equal"] and d["delta"] is False for d in info["deltas"]) or len({d["value"] for d in info["deltas"]}) != 3:
+            raise AssertionError(f"regression sync rank {rank}: Pearson's delta rounds {info['deltas']!r}")
+        for key in res:
+            if not key.startswith("row.") and not torch.equal(res[key], got[0][key]):
+                raise AssertionError(f"regression sync: {key} differs between the ranks")
+    print("check regression (e): both ranks' int32 counts, Spearman and cosine similarity bitwise equal to the "
+          "single-process pass; Pearson merged by _final_aggregation and the float sums within their bounds; "
+          "three Pearson delta rounds equal a delta_sync=False twin, none of them a delta")
+    return {"ranks_s": took, "synced_compute_ms_per_rank": [info["compute_ms"] for info in seen],
+            "bytes_gathered_per_rank": [info["bytes_gathered"] for info in seen]}
+
+
 def _device_ops(fn, calls: int = 1) -> Optional[list]:
     """(name, device ms) of each device operation that ``calls`` calls of ``fn`` issue, as
     torch.profiler records them; None where the profiler records no device activity on this machine."""
@@ -1558,10 +2136,14 @@ def _in_turns(fns: dict, order: list) -> dict:
     return {name: statistics.mean(values) for name, values in turns.items()}
 
 
-def _bound(bytes_moved: int, operations: int) -> Tuple[float, str]:
+def _bound_ms(bytes_moved: int, operations: int, ops_per_s: float) -> Tuple[float, str]:
     bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    ops_ms = operations / INT32_OPS_PER_S * 1e3
+    ops_ms = operations / ops_per_s * 1e3
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def _bound(bytes_moved: int, operations: int) -> Tuple[float, str]:
+    return _bound_ms(bytes_moved, operations, INT32_OPS_PER_S)
 
 
 def _one_launch(name: str, fn, calls: int = 20) -> Optional[float]:
@@ -1699,14 +2281,17 @@ def main() -> int:
     curve_launches, curve_line = phase_curves(mt, ops, logits, labels, card)
     rest_launches, rest_line = phase_rest(mt, ops, logits, labels, card)
     del logits, labels
+    torch.cuda.empty_cache()
+    regression_launches, regression_line = phase_regression(mt, ops, card)
     print(f"launches per entry point: main path {launches}, curve phase {curve_launches}, "
-          f"rest of classification {rest_launches}")
+          f"rest of classification {rest_launches}, regression {regression_launches}")
     for entry in kernels:
         route = "canonical" if entry["name"] == "stat_scores" else "logits"
-        entry["launches"] += curve_launches[route] + rest_launches[route]
+        entry["launches"] += curve_launches[route] + rest_launches[route] + regression_launches[route]
     print(json.dumps(sync_line))
     print(json.dumps(curve_line))
     print(json.dumps(rest_line))
+    print(json.dumps(regression_line))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -44,7 +44,7 @@ class HingeLoss(Metric):
             raise ValueError(f"{_MODE_ERROR} got {multiclass_mode}.")
         self.squared = squared
         self.multiclass_mode = multiclass_mode
-        self.add_state("measure", default=torch.tensor(0.0), dist_reduce_fx="sum")
+        self.add_state("measure", default=torch.tensor(0.0), dist_reduce_fx="sum", widen_ndim=1)
         self.add_state("total", default=torch.tensor(0, dtype=torch.int32), dist_reduce_fx="sum")
 
     def update(self, preds: torch.Tensor, target: torch.Tensor) -> None:

@@ -13,16 +13,19 @@ import numpy as np
 from metrics_tpu_torch.metric import Metric
 
 
-def _as_numpy(value: Any, name: str, default: Any) -> Any:
+def _as_numpy(value: Any, name: str, metric: Optional[Metric]) -> Any:
+    """A host copy of one state's value; with ``metric``, checked against what that tensor state may hold."""
     if isinstance(value, (list, tuple)):
         return [_as_numpy(v, name, None) for v in value]
     array = np.array(value)  # a writable host copy
-    if default is not None and not isinstance(default, list):
+    if metric is not None:
+        default = metric._defaults[name]
         expected = str(default.dtype).replace("torch.", "")
-        if array.dtype.name != expected or tuple(array.shape) != tuple(default.shape):
+        if array.dtype.name != expected or not metric._holds_shape(name, array.shape):
+            widened = " or a shape its update widens it to" if metric._widen_ndim.get(name, 0) != 0 else ""
             raise ValueError(
                 f"state {name!r}: got {array.dtype.name}{list(array.shape)}, "
-                f"the metric holds {expected}{list(default.shape)}"
+                f"the metric holds {expected}{list(default.shape)}{widened}"
             )
     return array
 
@@ -31,7 +34,9 @@ def load_jax_state(metric: Metric, state: Dict[str, Any], extra: Optional[Dict[s
     """Load a JAX metric's state (and its checkpoint extras) into ``metric``.
 
     Every state lands on ``metric.device`` with its dtype kept; a tensor
-    state whose dtype or shape differs from the metric's own raises.  A
+    state whose dtype differs from the metric's own raises, and so does one
+    of a shape the metric could never hold (its default's shape, or one its
+    update may widen a scalar to: ``Metric.add_state(widen_ndim=)``).  A
     buffer state's ``<name>__buf`` may hold any number of rows (trimmed, as
     ``state_pytree`` gives it, or padded, as ``state_dict`` does) and any
     dtype; its ``<name>__len`` says how many are valid.
@@ -45,9 +50,10 @@ def load_jax_state(metric: Metric, state: Dict[str, Any], extra: Optional[Dict[s
             continue
         if name not in metric._defaults:
             raise KeyError(f"{type(metric).__name__} has no state {name!r}")
-        # a buffer's rows grow with the stream: its placeholder default fixes no shape
-        default = None if name in metric._buffer_keys() else metric._defaults[name]
-        tree[name] = _as_numpy(value, name, default)
+        # a buffer's rows grow with the stream, and a list state's entries with it:
+        # neither has a default that fixes a shape
+        checked = name not in metric._buffer_keys() and not isinstance(metric._defaults[name], list)
+        tree[name] = _as_numpy(value, name, metric if checked else None)
     if "_update_count" not in tree:
         tree["_update_count"] = metric._update_count
     metric.load_state_pytree(tree)

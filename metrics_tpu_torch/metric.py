@@ -95,11 +95,15 @@ class _DeltaCache:
     def __init__(self) -> None:
         self.prefixes: Dict[str, Optional[torch.Tensor]] = {}
         self.watermarks: Dict[str, int] = {}
+        # each tensor state's local value as the last sync saw it: rows under the
+        # watermark that an update rewrote (not appended to) void the prefix
+        self.locals: Dict[str, Any] = {}
         self.round = 0
 
     def clear(self) -> None:
         self.prefixes.clear()
         self.watermarks.clear()
+        self.locals.clear()
         self.round = 0
 
     def token(self, names: Sequence[str]) -> Tuple[int, int, int]:
@@ -182,6 +186,17 @@ def _merge_tensor_state(fx: Any, global_val: torch.Tensor, local_val: torch.Tens
     if fx == "min":
         return torch.minimum(global_val, local_val)
     raise MetricsTPUUserError(f"cannot fast-merge a state with reduce {fx!r}")
+
+
+def _rows_unchanged(value: torch.Tensor, seen: Any, rows: int) -> bool:
+    """Whether the first ``rows`` rows of tensor state ``value`` are those of ``seen``,
+    its value at the last sync (one device read unless it is the same tensor)."""
+    if value is seen:
+        return True
+    if not isinstance(seen, torch.Tensor):
+        return False
+    now, then = torch.atleast_1d(value)[:rows], torch.atleast_1d(seen)[:rows]
+    return now.shape == then.shape and now.dtype == then.dtype and bool(torch.equal(now, then))
 
 
 def _grown_capacity(capacity: int, rows: int) -> int:
@@ -295,6 +310,7 @@ class Metric(nn.Module, ABC):
         if kwargs:
             raise ValueError(f"Unexpected keyword arguments: {sorted(kwargs)}")
         self._defaults: Dict[str, Any] = {}
+        self._widen_ndim: Dict[str, Optional[int]] = {}
         self._reduce_fns: Dict[str, Any] = {}
         self._persistent: Dict[str, bool] = {}
         self._buffer_states: Dict[str, Dict[str, Any]] = {}
@@ -325,12 +341,20 @@ class Metric(nn.Module, ABC):
         default: Any,
         dist_reduce_fx: Optional[Union[str, Callable]] = None,
         persistent: bool = False,
+        widen_ndim: Optional[int] = 0,
     ) -> None:
         """Register a streaming state.
 
         ``default`` is a tensor, numpy array or number (tensor state, fixed
         shape) or an empty Python list (list state, gathered with ``cat``
         semantics).
+
+        ``widen_ndim`` declares a scalar state that an update may widen to one
+        entry per class or output, its shape set by the data (a one-vs-all
+        hinge loss, a multi-output explained variance): the most dimensions it
+        may take, ``None`` for any.  Such a state loads (:func:`load_jax_state`)
+        as a scalar or with any shape of that many dimensions or fewer; every
+        other tensor state keeps its default's shape.
         """
         if isinstance(dist_reduce_fx, str):
             if dist_reduce_fx not in _ALLOWED_REDUCE:
@@ -346,10 +370,23 @@ class Metric(nn.Module, ABC):
             raise ValueError("state default must be a tensor, an array, a number, or an empty list")
         if not name.isidentifier():
             raise ValueError(f"state name must be a valid identifier, got {name!r}")
+        if widen_ndim != 0 and (isinstance(default, list) or default.ndim != 0):
+            raise ValueError(f"state {name!r}: only a scalar tensor state may widen")
         self._defaults[name] = default
         self._reduce_fns[name] = dist_reduce_fx
         self._persistent[name] = persistent
+        self._widen_ndim[name] = widen_ndim
         setattr(self, name, [] if isinstance(default, list) else default.clone())
+
+    def _holds_shape(self, name: str, shape: Tuple[int, ...]) -> bool:
+        """Whether tensor state ``name`` may hold a value of ``shape``: its
+        default's shape, or, for a state declared with ``widen_ndim``, any
+        shape of at most that many dimensions."""
+        shape = tuple(shape)
+        if shape == tuple(self._defaults[name].shape):
+            return True
+        widen = self._widen_ndim.get(name, 0)
+        return widen is None or len(shape) <= widen
 
     # ---------------------------------------------------------- buffer states
     def add_buffer_state(
@@ -848,6 +885,8 @@ class Metric(nn.Module, ABC):
                 arr = torch.atleast_1d(value)
                 if _rows_of(arr) < wm:
                     return None
+                if wm and not _rows_unchanged(value, dc.locals.get(name), wm):
+                    return None  # an update rewrote gathered rows (Pearson's running moments)
                 if prefix is not None and (
                     tuple(arr.shape[1:]) != tuple(prefix.shape[1:]) or arr.dtype != prefix.dtype
                 ):
@@ -885,6 +924,7 @@ class Metric(nn.Module, ABC):
         local = self._cache or {}
         prefixes: Dict[str, Optional[torch.Tensor]] = {}
         watermarks: Dict[str, int] = {}
+        dc.locals.clear()
         for name in self._delta_state_names():
             gv = new_state.get(name, getattr(self, name))
             if isinstance(gv, list):
@@ -899,6 +939,7 @@ class Metric(nn.Module, ABC):
                 watermarks[name] = sum(_rows_of(x) for x in lv)
             else:
                 watermarks[name] = _rows_of(lv) if lv is not None else 0
+                dc.locals[name] = lv
         dc.prefixes.clear()
         dc.prefixes.update(prefixes)
         dc.watermarks.clear()
@@ -942,6 +983,8 @@ class Metric(nn.Module, ABC):
                 else:
                     advanced_prefixes[name] = self._splice_prefix(name, gathered)
                 advanced_wms[name] = total_rows
+                if not isinstance(total, list):
+                    dc.locals[name] = total
             if not names:
                 return
             dc.prefixes.clear()

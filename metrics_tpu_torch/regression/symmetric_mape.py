@@ -1,0 +1,38 @@
+"""SymmetricMeanAbsolutePercentageError module metric (counterpart of ``metrics_tpu/regression/symmetric_mape.py``)."""
+
+from typing import Any
+
+import torch
+
+from metrics_tpu_torch.functional.regression.symmetric_mape import _symmetric_mean_absolute_percentage_error_compute, _symmetric_mean_absolute_percentage_error_update
+from metrics_tpu_torch.metric import Metric
+
+
+class SymmetricMeanAbsolutePercentageError(Metric):
+    """Symmetric mean absolute percentage error over the stream: a float32 sum and an int32 element count.
+
+    Example:
+        >>> import torch
+        >>> from metrics_tpu_torch import SymmetricMeanAbsolutePercentageError
+        >>> metric = SymmetricMeanAbsolutePercentageError(device='cpu')
+        >>> metric.update(torch.tensor([0.9, 15.0, 1.2e6]), torch.tensor([1.0, 10.0, 1e6]))
+        >>> round(float(metric.compute()), 6)
+        0.229027
+    """
+
+    is_differentiable = True
+    higher_is_better = False
+    full_state_update = False
+
+    def __init__(self, **kwargs: Any) -> None:
+        super().__init__(**kwargs)
+        self.add_state("sum_abs_per_error", default=torch.tensor(0.0), dist_reduce_fx="sum")
+        self.add_state("total", default=torch.tensor(0, dtype=torch.int32), dist_reduce_fx="sum")
+
+    def update(self, preds: torch.Tensor, target: torch.Tensor) -> None:
+        sum_abs_per_error, n_obs = _symmetric_mean_absolute_percentage_error_update(preds, target)
+        self.sum_abs_per_error = self.sum_abs_per_error + sum_abs_per_error
+        self.total = self.total + n_obs
+
+    def compute(self) -> torch.Tensor:
+        return _symmetric_mean_absolute_percentage_error_compute(self.sum_abs_per_error, self.total)

@@ -369,16 +369,25 @@ def _rank(rank: int, store_path: str, out: Path) -> None:
     dist.destroy_process_group()
 
 
-def test_two_gloo_ranks_equal_the_single_process_value(tmp_path):
-    import metrics_tpu_torch as mt
-
+@pytest.fixture(scope="module", autouse=True)
+def gloo_ranks(tmp_path_factory):
+    """The two ranks, started when this module's first test runs: they run beside its other tests."""
+    where = tmp_path_factory.mktemp("gloo")
     env = {**os.environ, "PYTHONPATH": str(ROOT), "OMP_NUM_THREADS": "1"}
     procs = [
-        subprocess.Popen([sys.executable, __file__, str(rank), str(tmp_path / "store"), str(tmp_path)],
+        subprocess.Popen([sys.executable, __file__, str(rank), str(where / "store"), str(where)],
                          env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for rank in range(2)
     ]
-    deadline = time.monotonic() + LAUNCH_LIMIT
+    yield where, procs, time.monotonic() + LAUNCH_LIMIT
+    for p in procs:
+        p.kill()
+
+
+def test_two_gloo_ranks_equal_the_single_process_value(gloo_ranks):
+    import metrics_tpu_torch as mt
+
+    tmp_path, procs, deadline = gloo_ranks
     try:
         logs = [p.communicate(timeout=max(deadline - time.monotonic(), 1.0))[0] for p in procs]
     finally:

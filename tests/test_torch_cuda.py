@@ -332,3 +332,132 @@ def test_rest_of_classification_modules_on_cuda_match_the_cpu_and_skip_the_kerne
     got, want = card.compute(), cpu.compute()
     for key in want:
         assert_close_on_card(got[key], want[key])
+
+
+# ---------------------------------------------------------- regression, pairwise
+def regression_inputs(n=3000, d=5, seed=11):
+    """Positive float32 targets and predictions (every regression functional's domain), 1-D and (n, d),
+    and 1-D scores with ties, signed zeros, infinities and NaN for the ranks."""
+    rng = np.random.default_rng(seed)
+    target = np.exp(rng.standard_normal((n, d)) * 0.5).astype(np.float32)
+    preds = (target * np.exp(rng.standard_normal((n, d)) * 0.1)).astype(np.float32)
+    tricky = np.round(rng.standard_normal(n) * 2, 1).astype(np.float32)
+    tricky[rng.integers(0, n, 40)] = np.array([np.nan, -np.nan, -0.0, 0.0, np.inf, -np.inf, 1.0, 1.0] * 5, np.float32)
+    return {"preds": preds, "target": target, "tricky": tricky}
+
+
+def _regression_calls():
+    f = mt.functional
+    one = lambda fn, **kw: (lambda p, t: fn(p[:, 0], t[:, 0], **kw))  # noqa: E731
+    return {
+        "mean_squared_error": one(f.mean_squared_error),
+        "rmse": one(f.mean_squared_error, squared=False),
+        "mean_absolute_error": one(f.mean_absolute_error),
+        "mean_squared_log_error": one(f.mean_squared_log_error),
+        "mean_absolute_percentage_error": one(f.mean_absolute_percentage_error),
+        "symmetric_mean_absolute_percentage_error": one(f.symmetric_mean_absolute_percentage_error),
+        "weighted_mean_absolute_percentage_error": one(f.weighted_mean_absolute_percentage_error),
+        "tweedie_1": one(f.tweedie_deviance_score, power=1),
+        "tweedie_1.5": one(f.tweedie_deviance_score, power=1.5),
+        "tweedie_2": one(f.tweedie_deviance_score, power=2),
+        "tweedie_3": one(f.tweedie_deviance_score, power=3),
+        "explained_variance_raw": lambda p, t: f.explained_variance(p, t, multioutput="raw_values"),
+        "explained_variance_weighted": lambda p, t: f.explained_variance(p, t, multioutput="variance_weighted"),
+        "r2_raw": lambda p, t: f.r2_score(p, t, multioutput="raw_values"),
+        "r2_adjusted": one(f.r2_score, adjusted=4),
+        "pearson": one(f.pearson_corrcoef),
+        "spearman": one(f.spearman_corrcoef),
+        "cosine_similarity_none": lambda p, t: f.cosine_similarity(p, t, reduction="none"),
+        "cosine_similarity_mean": lambda p, t: f.cosine_similarity(p, t, reduction="mean"),
+    }
+
+
+def _close_in_units(card, cpu, rtol=2.0**-24 * 3000 * 5, atol=0.0):
+    """A float32 sum of at most 3000 x 5 terms added in another order on the card: n U relative;
+    scores that cancel (R², explained variance, correlations) get the same bound as an absolute one."""
+    assert card.device.type == "cuda" and card.dtype == cpu.dtype and card.shape == cpu.shape
+    torch.testing.assert_close(card.cpu(), cpu, rtol=rtol, atol=atol, equal_nan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(_regression_calls()))
+def test_regression_functionals_on_cuda_equal_the_plain_cpu_path(cuda, name):
+    x = regression_inputs()
+    p, t = torch.from_numpy(x["preds"]), torch.from_numpy(x["target"])
+    call = _regression_calls()[name]
+    want, got = call(p, t), call(p.to(cuda), t.to(cuda))
+    cancels = name.startswith(("explained", "r2", "pearson", "spearman", "cosine"))
+    _close_in_units(got, want, atol=8 * 2.0**-24 * 3000 * 5 if cancels else 0.0)
+
+
+@pytest.mark.cuda
+def test_ranks_and_tweedie_checks_on_cuda_equal_the_cpu_path(cuda):
+    from metrics_tpu_torch.functional.regression.spearman import _rank_data
+
+    tricky = torch.from_numpy(regression_inputs()["tricky"])
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        assert_same_curves(_rank_data(tricky.to(cuda, dtype)), _rank_data(tricky.to(dtype)))
+    ones = torch.ones(8, device=cuda)
+    for power, preds, target in ((1, -ones, ones), (1.5, ones, -ones), (2, ones, 0 * ones), (-1, 0 * ones, ones)):
+        with pytest.raises(ValueError):
+            mt.functional.tweedie_deviance_score(preds, target, power=power)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["pairwise_linear_similarity", "pairwise_cosine_similarity",
+                                  "pairwise_euclidean_distance", "pairwise_manhattan_distance"])
+def test_pairwise_on_cuda_equal_the_plain_cpu_path(cuda, name):
+    """With TF32 off (torch's default, which the port leaves to the caller) a d-term dot product differs
+    by at most d U of the sum of |terms|; a euclidean distance by the square root of that, its squares
+    cancelling; a manhattan distance (one sign) by d U relative."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    rng = np.random.default_rng(12)
+    x, y = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)) for s in ((700, 64), (90, 64)))
+    fn = getattr(mt.functional, name)
+    for second in (y, None):
+        want = fn(x, second)
+        got = fn(x.to(cuda), None if second is None else second.to(cuda))
+        other = x if second is None else second
+        scale = (x.abs() @ other.abs().T).double()
+        if name == "pairwise_euclidean_distance":
+            sq = (x * x).sum(1, keepdim=True).double() + (other * other).sum(1).double() + 2 * scale
+            bound = torch.sqrt(68 * 2.0**-24 * sq)
+        elif name == "pairwise_cosine_similarity":
+            bound = torch.full_like(scale, 72 * 2.0**-24)
+        elif name == "pairwise_linear_similarity":
+            bound = 64 * 2.0**-24 * scale
+        else:
+            bound = 64 * 2.0**-24 * want.double()
+        assert got.device.type == "cuda" and got.shape == want.shape and got.dtype == want.dtype
+        assert bool(((got.cpu().double() - want.double()).abs() <= bound + 1e-30).all())
+
+
+@pytest.mark.cuda
+def test_regression_modules_on_cuda_match_the_cpu_and_skip_the_kernel(cuda):
+    x = regression_inputs()
+    p, t = torch.from_numpy(x["preds"]), torch.from_numpy(x["target"])
+
+    def collection(device):
+        return mt.MetricCollection({
+            "mse": mt.MeanSquaredError(device=device), "mae": mt.MeanAbsoluteError(device=device),
+            "msle": mt.MeanSquaredLogError(device=device), "tweedie": mt.TweedieDevianceScore(power=2, device=device),
+            "r2": mt.R2Score(device=device), "ev": mt.ExplainedVariance(device=device),
+            "pearson": mt.PearsonCorrCoef(device=device), "spearman": mt.SpearmanCorrCoef(device=device),
+        }, device=device)
+
+    card, cpu = collection(cuda), collection("cpu")
+    cos_card, cos_cpu = mt.CosineSimilarity(reduction="mean", device=cuda), mt.CosineSimilarity(reduction="mean", device="cpu")
+    before = ops.fused_stat_scores_logits.launches, ops.fused_stat_scores.launches
+    for part in (slice(0, 1024), slice(1024, 2048), slice(2048, 3000)):
+        card.update(p[part, 0].to(cuda), t[part, 0].to(cuda))
+        cpu.update(p[part, 0], t[part, 0])
+        cos_card.update(p[part].to(cuda), t[part].to(cuda))
+        cos_cpu.update(p[part], t[part])
+    assert (ops.fused_stat_scores_logits.launches, ops.fused_stat_scores.launches) == before
+    assert torch.equal(card["mse"].total.cpu(), cpu["mse"].total) and card["mse"].total.dtype == torch.int32
+    assert torch.equal(card["spearman"].buffer_values("preds").cpu(), cpu["spearman"].buffer_values("preds"))
+    got, want = card.compute(), cpu.compute()
+    for key in want:
+        cancels = key in ("r2", "ev", "pearson", "spearman")
+        _close_in_units(got[key], want[key], rtol=2.0**-24 * 3000, atol=8 * 2.0**-24 * 3000 if cancels else 0.0)
+    _close_in_units(cos_card.compute(), cos_cpu.compute(), rtol=0.0, atol=(3000 + 32) * 2.0**-24)

@@ -41,3 +41,19 @@ REST_OF_CLASSIFICATION = [
 @pytest.mark.parametrize("name", REST_OF_CLASSIFICATION)
 def test_each_public_name_of_the_rest_of_classification_has_an_example(name):
     assert ">>>" in (getattr(metrics_tpu_torch, name).__doc__ or "")
+
+
+REGRESSION_AND_PAIRWISE = [
+    "CosineSimilarity", "ExplainedVariance", "MeanAbsoluteError", "MeanAbsolutePercentageError", "MeanSquaredError",
+    "MeanSquaredLogError", "PearsonCorrCoef", "R2Score", "SpearmanCorrCoef", "SymmetricMeanAbsolutePercentageError",
+    "TweedieDevianceScore", "WeightedMeanAbsolutePercentageError",
+    "cosine_similarity", "explained_variance", "mean_absolute_error", "mean_absolute_percentage_error",
+    "mean_squared_error", "mean_squared_log_error", "pearson_corrcoef", "r2_score", "spearman_corrcoef",
+    "symmetric_mean_absolute_percentage_error", "tweedie_deviance_score", "weighted_mean_absolute_percentage_error",
+    "pairwise_cosine_similarity", "pairwise_euclidean_distance", "pairwise_linear_similarity", "pairwise_manhattan_distance",
+]
+
+
+@pytest.mark.parametrize("name", REGRESSION_AND_PAIRWISE)
+def test_each_public_name_of_regression_and_pairwise_has_an_example(name):
+    assert ">>>" in (getattr(metrics_tpu_torch, name).__doc__ or "")

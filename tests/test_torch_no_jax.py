@@ -48,6 +48,18 @@ def test_the_walk_covers_the_rest_of_classification():
     assert len(expected) == 14 and expected <= walked
 
 
+REGRESSION = ("mse", "mae", "log_mse", "mape", "symmetric_mape", "wmape", "tweedie_deviance", "explained_variance",
+              "r2", "pearson", "cosine_similarity", "spearman")
+PAIRWISE = ("helpers", "linear", "cosine", "euclidean", "manhattan")
+
+
+def test_the_walk_covers_regression_and_pairwise():
+    walked = {p.relative_to(ROOT).as_posix() for p in _port_sources()}
+    expected = {f"metrics_tpu_torch/{layer}/{name}.py" for name in REGRESSION for layer in ("regression", "functional/regression")}
+    expected |= {f"metrics_tpu_torch/functional/pairwise/{name}.py" for name in PAIRWISE}
+    assert len(expected) == 29 and expected <= walked
+
+
 def _imported_roots(path: Path):
     for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
         if isinstance(node, ast.Import):
@@ -79,4 +91,7 @@ def test_construction_without_device_raises_when_cuda_is_absent(monkeypatch):
         mt.Accuracy(num_classes=3)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         mt.MetricCollection([mt.Accuracy(num_classes=3, device="cpu")])
+    for make in (mt.MeanSquaredError, mt.PearsonCorrCoef, mt.SpearmanCorrCoef, mt.R2Score):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
     assert mt.Accuracy(num_classes=3, device="cpu").device == torch.device("cpu")
