@@ -78,7 +78,25 @@ Phases (each passes or raises; any failure exits non-zero):
      buffer metrics bitwise equal to one process, Pearson merged by
      ``_final_aggregation``, and three Pearson delta rounds equal to a twin
      that gathers in full; update, compute and call times, peak memory;
-     neither stat-scores entry point may launch.
+     neither stat-scores entry point may launch;
+ 10. wrappers and retrieval: (a) the ImageNet pass of phases 4-8 through
+     ``ClasswiseWrapper(Accuracy(average=None))``, ``MinMaxMetric(Accuracy)``
+     with ``forward`` per batch, ``BootStrapper(Accuracy)`` with 100 copies
+     (poisson, then multinomial; each copy's counts bitwise against a twin
+     generator's draws) and a ``MetricTracker`` over configuration 2 for three
+     epochs (the confusion matrix has no best value), with the logits entry
+     point's launches checked against what the wrappers imply; (b)
+     ``MultioutputWrapper(MeanAbsoluteError, 12 outputs)`` on a QM9-shaped
+     regression (130,831 x 12, 1 % of the targets NaN); (c) one
+     ``MetricCollection`` of the eleven retrieval metrics on an MS MARCO
+     passage dev (small)-shaped re-ranking (6,980 queries x 1,000
+     candidates, batches of 64 queries), per query and on average against
+     numpy (order, ranks and counts bitwise), nDCG@10 on a TREC DL
+     2019-shaped graded pass, the engine on the card against the CPU path
+     on tied, signed-zero and NaN scores, two card ``compute()`` calls
+     bitwise equal, and the collection synced over two gloo ranks on
+     ``cuda:0`` bitwise equal to one process; pass rates, update and
+     compute times, device operations and copies per update, peak memory.
 The last line is ``{"ok": true, "device": {...}}``.
 
 The sync phases run this script again as their ranks
@@ -93,6 +111,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from datetime import timedelta
 from pathlib import Path
 from typing import Optional, Tuple
@@ -615,6 +634,8 @@ def sync_rank(scenario: str, rank: int, where: Path) -> int:
                             timeout=timedelta(seconds=SYNC_LIMIT))
     if scenario == "regression":
         _rank_regression(mt, rank, where)
+    elif scenario == "retrieval":
+        _rank_retrieval(mt, rank, where)
     else:
         _, _, batches = _imagenet_pass()
         if scenario == "stall":
@@ -1575,7 +1596,7 @@ def _propagated(f, sums: dict, errs: dict):
     return sum(np.abs(f(**{**sums, k: sums[k] + errs[k]}) - base) for k in sums)
 
 
-def _check_bound(name: str, got, want, bound, checks: dict) -> None:
+def _check_bound(name: str, got, want, bound, checks: dict, phase: str = "regression") -> None:
     """|got - want| <= bound elementwise (float64 reference, derived bound); records the worst ratio."""
     got = np.asarray(got.detach().cpu() if isinstance(got, torch.Tensor) else got, dtype=np.float64)
     diff = np.abs(got - want)
@@ -1584,7 +1605,7 @@ def _check_bound(name: str, got, want, bound, checks: dict) -> None:
         raise AssertionError(f"{name}: {got.ravel()[:4]!r} against numpy float64 {np.ravel(want)[:4]!r}, "
                              f"bound {np.ravel(bound)[:4]!r}, worst ratio {ratio!r}")
     shown = float(got) if got.size == 1 else f"{got.size} values"
-    print(f"check regression {name}: {shown!r} (numpy float64 {float(np.ravel(want)[0]) if np.size(want) == 1 else '...'!r}), "
+    print(f"check {phase} {name}: {shown!r} (numpy float64 {float(np.ravel(want)[0]) if np.size(want) == 1 else '...'!r}), "
           f"largest difference {float(diff.max())!r} = {ratio:.3g} of its float32 bound")
     checks[name] = {"value": got.tolist() if got.size == 1 else None, "worst_share_of_bound": ratio}
 
@@ -2105,6 +2126,559 @@ def phase_regression_sync(single: dict, col_b, single_cos: torch.Tensor, refs_b:
             "bytes_gathered_per_rank": [info["bytes_gathered"] for info in seen]}
 
 
+# ------------------------------------------------------------------ wrappers and retrieval (phase 10)
+BOOT_COPIES = 100
+BOOT_QUANTILES = (0.025, 0.975)
+TRACKER_EPOCHS = 3
+# QM9 (130,831 molecules after the standard filtering) and its twelve regression targets (mu, alpha, homo,
+# lumo, gap, r2, zpve, U0, U, H, G, Cv) at about their standard deviations in the dataset's units
+QM9_MOLECULES, QM9_TARGETS, QM9_BATCH, QM9_NAN_SHARE = 130_831, 12, 1024, 0.01
+QM9_SCALES = (1.50, 8.19, 0.022, 0.047, 0.048, 280.5, 0.033, 10.3, 10.3, 10.3, 10.3, 4.07)
+# MS MARCO passage dev (small): 6,980 queries, each re-ranking BM25's top 1000; about 1.07 judged relevant
+# passages a query, and none among the 1000 for about 14 % of queries (BM25's recall@1000 is about 0.857)
+MSMARCO_QUERIES, MSMARCO_CANDIDATES, MSMARCO_BATCH = 6_980, 1_000, 64
+MSMARCO_NO_RELEVANT, MSMARCO_TWO_RELEVANT = 0.143, 0.075
+SCORE_GRID = 64  # scores are multiples of 1/64, so ties occur inside queries
+RETRIEVAL_SYNC_SHARDS = ((0, 55), (55, None))  # batch ranges of the two ranks: 55 and 55 batches
+# TREC DL 2019 passage judgments: 43 queries, 9,260 judged passages, graded 0-3 in about these shares
+TREC_QUERIES, TREC_JUDGED, TREC_GRADE_SHARES = 43, 9_260, (0.557, 0.173, 0.195, 0.075)
+PER_QUERY_UNITS = 32  # AP and nDCG per query: a few float32 roundings (and log2's last bit) in units of U32
+
+
+def _stacked_draws(rng: np.random.Generator, size: int, copies: int, strategy: str) -> Tuple[np.ndarray, np.ndarray]:
+    """The JAX package's draws for the copies of a base it stacks (``wrappers/bootstrapping.py:218-293``),
+    written out here for the numpy reference: copy i takes the rows ``idx[i, :counts[i]]``."""
+    if strategy == "multinomial":
+        return np.full(copies, size), rng.integers(0, size, size=(copies, size))
+    chunk = min(8, size)
+    cap = size + 5 * int(np.ceil(np.sqrt(size))) + 10
+    cap = ((cap + chunk - 1) // chunk) * chunk
+    counts = np.minimum(rng.poisson(size, copies), cap)
+    return counts, rng.integers(0, size, size=(copies, cap))
+
+
+def _bootstrap_pass(mt, ops, batches, correct: list, strategy: str, checks: dict) -> dict:
+    """``BootStrapper(Accuracy)`` over the pass; each copy's counts against the twin draws, bitwise."""
+    boot = mt.BootStrapper(mt.Accuracy(num_classes=N_CLASSES, device=DEVICE), num_bootstraps=BOOT_COPIES,
+                           quantile=list(BOOT_QUANTILES), raw=True, sampling_strategy=strategy, seed=SEED,
+                           device=DEVICE)
+    twin = np.random.default_rng(SEED)
+    hits, rows, fed = np.zeros(BOOT_COPIES, np.int64), np.zeros(BOOT_COPIES, np.int64), 0
+    for (preds, _), ok in zip(batches, correct):
+        counts, idx = _stacked_draws(twin, preds.shape[0], BOOT_COPIES, strategy)
+        for i in range(BOOT_COPIES):
+            hits[i] += ok[idx[i, : counts[i]]].sum()
+        rows += counts
+        fed += int((counts > 0).sum())
+
+    def run():
+        for preds, target in batches:
+            boot.update(preds, target)
+        return boot.compute()
+
+    out, secs, counts = _driven(ops, f"bootstrap ({strategy})", run, lambda: {"logits": fed, "canonical": 0})
+    if not boot._stacked:
+        raise AssertionError("BootStrapper(Accuracy) did not take the stacked draws the JAX package takes")
+    got_hits = np.array([int(m.tp.sum()) for m in boot.metrics])
+    got_rows = np.array([int((m.tp + m.fn).sum()) for m in boot.metrics])
+    if not (np.array_equal(got_hits, hits) and np.array_equal(got_rows, rows)):
+        raise AssertionError(f"bootstrap ({strategy}): the copies' counts differ from the twin draws'")
+    exact = hits / rows
+    raw = out["raw"].cpu().numpy().astype(np.float64)
+    _check_bound(f"bootstrap {strategy} raw", raw, exact, 2 * U32 * exact, checks, "wrappers/retrieval")
+    n = len(exact)
+    _check_bound(f"bootstrap {strategy} mean", out["mean"], exact.mean(), (SUM_DEPTH + 4) * U32 * exact.mean(), checks, "wrappers/retrieval")
+    spread = 4 * U32 * exact.max()  # each copy's value within 2 units; a difference of two within 4
+    _check_bound(f"bootstrap {strategy} std", out["std"], exact.std(ddof=1), spread + (n + 8) * U32 * exact.std(ddof=1), checks, "wrappers/retrieval")
+    _check_bound(f"bootstrap {strategy} quantile", out["quantile"], np.quantile(exact, BOOT_QUANTILES), spread, checks, "wrappers/retrieval")
+    print(f"check bootstrap ({strategy}): {BOOT_COPIES} copies' hit and row counts bitwise equal to the twin "
+          f"generator's draws; {fed} copy updates launched the logits route once each")
+    return {"samples_per_s": N_SAMPLES / secs, "copy_updates": fed, "launches": counts}
+
+
+def _qm9_pass() -> Tuple[torch.Tensor, torch.Tensor]:
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 10)
+    scales = torch.tensor(QM9_SCALES, device=DEVICE)
+    target = torch.randn((QM9_MOLECULES, QM9_TARGETS), generator=gen, device=DEVICE) * scales
+    preds = target + 0.1 * scales * torch.randn((QM9_MOLECULES, QM9_TARGETS), generator=gen, device=DEVICE)
+    gaps = torch.rand((QM9_MOLECULES, QM9_TARGETS), generator=gen, device=DEVICE) < QM9_NAN_SHARE
+    return preds, torch.where(gaps, torch.full_like(target, float("nan")), target)
+
+
+def _msmarco_pass() -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(query id per row, score, relevance), queries contiguous in the stream and ids not in order."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 11)
+    q, c = MSMARCO_QUERIES, MSMARCO_CANDIDATES
+    ids = torch.randperm(q, generator=gen, device=DEVICE) * 97 + 1185
+    u = torch.rand(q, generator=gen, device=DEVICE)
+    n_rel = (u >= MSMARCO_NO_RELEVANT).to(torch.int64) + (u >= 1 - MSMARCO_TWO_RELEVANT).to(torch.int64)
+    # the relevant passages sit at random places among a query's candidates
+    place = torch.rand((q, c), generator=gen, device=DEVICE).argsort(dim=1)
+    target = (place < n_rel[:, None]).to(torch.int64)
+    # a relevant passage scores 2.1 above the others' N(0, 1): an MRR@10 of about 0.19, BM25's on the dev set
+    scores = torch.randn((q, c), generator=gen, device=DEVICE) + 2.1 * target
+    scores = torch.round(scores * SCORE_GRID) / SCORE_GRID
+    return ids.repeat_interleave(c), scores.reshape(-1), target.reshape(-1)
+
+
+def _trec_pass() -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 12)
+    weight = torch.rand(TREC_QUERIES, generator=gen, device=DEVICE) + 0.5
+    sizes = (weight / weight.sum() * TREC_JUDGED).floor().to(torch.int64)
+    sizes[-1] += TREC_JUDGED - sizes.sum()
+    ids = torch.repeat_interleave(torch.arange(TREC_QUERIES, device=DEVICE) * 11 + 19_000, sizes)
+    grades = torch.multinomial(torch.tensor(TREC_GRADE_SHARES, device=DEVICE), TREC_JUDGED, replacement=True, generator=gen)
+    scores = torch.randn(TREC_JUDGED, generator=gen, device=DEVICE) + 0.7 * grades
+    return ids, torch.round(scores * SCORE_GRID) / SCORE_GRID, grades
+
+
+def _retrieval_collection(mt):
+    return mt.MetricCollection({
+        "mrr": mt.RetrievalMRR(device=DEVICE),
+        "ndcg@10": mt.RetrievalNormalizedDCG(k=10, device=DEVICE),
+        "map": mt.RetrievalMAP(device=DEVICE),
+        "recall@100": mt.RetrievalRecall(k=100, device=DEVICE),
+        "recall@1000": mt.RetrievalRecall(k=1000, device=DEVICE),
+        "precision@10": mt.RetrievalPrecision(k=10, device=DEVICE),
+        "hit_rate@10": mt.RetrievalHitRate(k=10, device=DEVICE),
+        "r_precision": mt.RetrievalRPrecision(device=DEVICE),
+        "fall_out@10": mt.RetrievalFallOut(k=10, device=DEVICE),
+        "pr_curve": mt.RetrievalPrecisionRecallCurve(max_k=100, device=DEVICE),
+        "recall@prec_0_1": mt.RetrievalRecallAtFixedPrecision(min_precision=0.1, max_k=100, device=DEVICE),
+    }, device=DEVICE)
+
+
+def _flat_outputs(out: dict) -> dict:
+    """A collection's values with each tuple's parts under ``name.i``."""
+    flat = {}
+    for key, value in out.items():
+        if isinstance(value, tuple):
+            flat.update({f"{key}.{i}": part for i, part in enumerate(value)})
+        else:
+            flat[key] = value
+    return flat
+
+
+def _retrieval_batches(ids, scores, target) -> list:
+    """Batches of ``MSMARCO_BATCH`` whole queries."""
+    rows = MSMARCO_BATCH * MSMARCO_CANDIDATES
+    return [(scores[i : i + rows], target[i : i + rows], ids[i : i + rows]) for i in range(0, ids.shape[0], rows)]
+
+
+def _retrieval_reference(scores: np.ndarray, target: np.ndarray) -> dict:
+    """Per query (a row each), numpy: the stable order of -score, exact counts, float64 scores."""
+    q, c = scores.shape
+    order = np.argsort(-scores, axis=1, kind="stable")
+    t = np.take_along_axis(target, order, axis=1).astype(np.int64)
+    cum = np.cumsum(t, axis=1)
+    n_rel = cum[:, -1]
+    rows = np.arange(q)
+    first = np.argmax(t > 0, axis=1) + 1
+    disc = 1.0 / np.log2(np.arange(c) + 2.0)
+    ideal = -np.sort(-target.astype(np.float64), axis=1)
+    idcg = ideal[:, :10] @ disc[:10]
+    k = np.arange(1, 101)
+    return {
+        "order": order, "n_rel": n_rel, "first": np.where(n_rel > 0, first, 0), "hits@10": cum[:, 9],
+        "hits@100": cum[:, 99], "hits@R": np.where(n_rel > 0, cum[rows, np.maximum(n_rel, 1) - 1], 0), "cum100": cum[:, :100],
+        "ap": np.where(n_rel > 0, (t * cum / np.arange(1, c + 1)).sum(axis=1) / np.maximum(n_rel, 1), 0.0),
+        "ndcg@10": np.where(idcg > 0, (t[:, :10] @ disc[:10]) / np.where(idcg > 0, idcg, 1.0), 0.0),
+        "curve_p": cum[:, :100] / k, "curve_r": np.where(n_rel[:, None] > 0, cum[:, :100] / np.maximum(n_rel, 1)[:, None], 0.0),
+    }
+
+
+def _ratio32(num, den) -> np.ndarray:
+    """float32 num / den of exact counts, each rounded once, as the engine divides them."""
+    return np.asarray(num, np.float32) / np.asarray(den, np.float32)
+
+
+def _check_per_query(engine, preds, target, group, n_groups, ref: dict, by_group: np.ndarray) -> dict:
+    """The engine's per-query order, ranks and ratios of counts against numpy, bitwise; AP and nDCG
+    within ``PER_QUERY_UNITS`` units."""
+    c = MSMARCO_CANDIDATES
+    order, _, rank, counts, _ = engine._group_layout(preds, group, n_groups)
+    want_order = (ref["order"] + np.arange(len(by_group))[:, None] * c)[by_group].reshape(-1)
+    if not np.array_equal(order.cpu().numpy(), want_order) or not torch.equal(counts.cpu(), torch.full((n_groups,), c)):
+        raise AssertionError("retrieval: the engine's order differs from numpy's stable per-query argsort")
+    if not np.array_equal(rank.cpu().numpy(), np.tile(np.arange(c), n_groups)):
+        raise AssertionError("retrieval: the engine's ranks are not 0..999 in every query")
+    r = {key: value[by_group] for key, value in ref.items() if key != "order"}
+    has = r["n_rel"] > 0
+    exact = {
+        "reciprocal_rank": (engine.reciprocal_rank_per_group(preds, target, group, n_groups),
+                            np.where(has, _ratio32(1, np.maximum(r["first"], 1)), np.float32(0))),
+        "precision@10": (engine.precision_per_group(preds, target, group, n_groups, k=10), _ratio32(r["hits@10"], 10)),
+        "recall@100": (engine.recall_per_group(preds, target, group, n_groups, k=100),
+                       _ratio32(r["hits@100"], np.maximum(r["n_rel"], 1))),
+        "hit_rate@10": (engine.hit_rate_per_group(preds, target, group, n_groups, k=10), (r["hits@10"] > 0).astype(np.float32)),
+        "fall_out@10": (engine.fall_out_per_group(preds, target, group, n_groups, k=10), _ratio32(10 - r["hits@10"], c - r["n_rel"])),
+        "r_precision": (engine.r_precision_per_group(preds, target, group, n_groups),
+                        _ratio32(r["hits@R"], np.maximum(r["n_rel"], 1))),
+    }
+    curve_p, curve_r = engine.precision_recall_curve_per_group(preds, target, group, n_groups, max_k=100)
+    exact["curve precision"] = (curve_p, _ratio32(r["cum100"], np.arange(1, 101)))
+    exact["curve recall"] = (curve_r, _ratio32(r["cum100"], np.maximum(r["n_rel"], 1)[:, None]))
+    for name, (got, want) in exact.items():
+        if got.cpu().numpy().tobytes() != want.tobytes():
+            raise AssertionError(f"retrieval per query {name}: not bitwise equal to numpy's float32 ratio of exact counts")
+    worst = {}
+    for name, got, want in (("ap", engine.average_precision_per_group(preds, target, group, n_groups), r["ap"]),
+                            ("ndcg@10", engine.ndcg_per_group(preds, target, group, n_groups, k=10), r["ndcg@10"])):
+        diff = np.abs(got.cpu().numpy().astype(np.float64) - want)
+        worst[name] = float(diff.max() / (PER_QUERY_UNITS * U32))
+        if worst[name] > 1:
+            raise AssertionError(f"retrieval per query {name}: off numpy float64 by {diff.max()!r}")
+    print(f"check retrieval per query ({n_groups} queries): order, ranks and counts bitwise; reciprocal rank, "
+          f"precision@10, recall@100, hit rate@10, fall-out@10, R-precision and the 100-point curves bitwise equal to "
+          f"numpy's float32 ratios of exact counts; AP and nDCG@10 within {worst} of {PER_QUERY_UNITS} units")
+    return worst
+
+
+def _mean_bound(values: np.ndarray) -> float:
+    """A float32 mean over queries: PyTorch's reduction depth, one division, and each query's own rounding."""
+    return (SUM_DEPTH + PER_QUERY_UNITS + 2) * U32 * float(np.abs(values).mean())
+
+
+def _retrieval_means(out: dict, ref: dict, checks: dict) -> None:
+    n_rel, has = ref["n_rel"], ref["n_rel"] > 0
+    c = MSMARCO_CANDIDATES
+    per_query = {
+        "mrr": np.where(has, 1.0 / np.maximum(ref["first"], 1), 0.0),
+        "ndcg@10": ref["ndcg@10"],
+        "map": ref["ap"],
+        "recall@100": np.where(has, ref["hits@100"] / np.maximum(n_rel, 1), 0.0),
+        "recall@1000": has.astype(np.float64),
+        "precision@10": ref["hits@10"] / 10,
+        "hit_rate@10": (ref["hits@10"] > 0).astype(np.float64),
+        "r_precision": np.where(has, ref["hits@R"] / np.maximum(n_rel, 1), 0.0),
+        "fall_out@10": (10 - ref["hits@10"]) / (c - n_rel),
+    }
+    for name, values in per_query.items():
+        _check_bound(f"retrieval {name}", out[name], values.mean(), _mean_bound(values), checks, "wrappers/retrieval")
+    curve_p, curve_r = ref["curve_p"].mean(axis=0), ref["curve_r"].mean(axis=0)
+    _check_bound("retrieval curve precision", out["pr_curve.0"], curve_p, _mean_bound(ref["curve_p"]), checks, "wrappers/retrieval")
+    _check_bound("retrieval curve recall", out["pr_curve.1"], curve_r, _mean_bound(ref["curve_r"]), checks, "wrappers/retrieval")
+    if not torch.equal(out["pr_curve.2"].cpu(), torch.arange(1, 101, dtype=torch.int32)):
+        raise AssertionError("retrieval curve: top_k is not 1..100")
+    # recall at precision >= 0.1: the largest (recall, k) among the ks that reach it; (0, max_k) without one
+    reach = [(r, k) for r, k, p in zip(curve_r, range(1, 101), curve_p) if p >= 0.1]
+    r_want, k_want = max(reach) if reach else (0.0, 100)
+    k_want = 100 if r_want == 0.0 else k_want
+    near = np.abs(curve_p - 0.1) <= _mean_bound(ref["curve_p"])
+    recall, k_got = out["recall@prec_0_1.0"], int(out["recall@prec_0_1.1"])
+    if k_got != k_want and not near.any():
+        raise AssertionError(f"retrieval recall@prec_0_1: k {k_got} where numpy's curve gives {k_want}")
+    _check_bound("retrieval recall@prec_0_1", recall, r_want if k_got == k_want else curve_r[k_got - 1],
+                 _mean_bound(ref["curve_r"]), checks, "wrappers/retrieval")
+    print(f"check retrieval recall@prec_0_1: k {k_got} (numpy's curve gives {k_want})")
+
+
+def _rank_retrieval(mt, rank: int, out: Path) -> None:
+    """This rank's share of the MS MARCO batches, then a synced compute of the collection."""
+    batches = _retrieval_batches(*_msmarco_pass())
+    first, stop = RETRIEVAL_SYNC_SHARDS[rank]
+    col = _retrieval_collection(mt)
+    for preds, target, ids in batches[first:stop]:
+        col.update(preds, target, indexes=ids)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    results = {k: v.cpu() for k, v in _flat_outputs(col.compute()).items()}
+    torch.cuda.synchronize()
+    compute_ms = (time.perf_counter() - start) * 1e3
+    torch.save(results, out / f"rank{rank}.pt")
+    (out / f"rank{rank}.json").write_text(json.dumps({
+        "compute_ms": compute_ms, "groups": list(col.compute_groups.values()),
+        "local": not any(m._is_synced for m in col.values()),
+        "bytes_gathered": col.aggregate_sync_report()["bytes_gathered"],
+    }))
+
+
+def phase_retrieval_sync(single: dict) -> dict:
+    """Two ranks on ``cuda:0`` sync the MS MARCO collection; both must equal the single-process pass bitwise."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_retrieval_") as tmp:
+        where = Path(tmp) / "retrieval"
+        start = time.perf_counter()
+        seen = _wait_ranks("retrieval", _start_ranks("retrieval", where), where)
+        took = time.perf_counter() - start
+        got = [torch.load(where / f"rank{rank}.pt") for rank in range(SYNC_WORLD)]
+    for rank, (info, res) in enumerate(zip(seen, got)):
+        if not info["local"] or len(info["groups"]) != 1:
+            raise AssertionError(f"retrieval sync rank {rank}: {info}")
+        for key, value in single.items():
+            if not _same_values(res[key], value.cpu()):
+                raise AssertionError(f"retrieval sync rank {rank}: {key} differs from the single-process pass")
+    print(f"check retrieval sync: both ranks' eleven values bitwise equal to the single-process pass "
+          f"({took:.1f} s with start-up; synced compute() ms per rank {[i['compute_ms'] for i in seen]!r}, "
+          f"bytes gathered {[i['bytes_gathered'] for i in seen]!r})")
+    return {"ranks_s": took, "synced_compute_ms_per_rank": [i["compute_ms"] for i in seen],
+            "bytes_gathered_per_rank": [i["bytes_gathered"] for i in seen]}
+
+
+def _card_vs_cpu_retrieval(engine) -> dict:
+    """The engine on the card against the plain CPU path on tied, signed-zero and NaN scores."""
+    gen = np.random.default_rng(SEED + 13)
+    ids = np.repeat(gen.permutation(300) * 7 + 5, 40)
+    scores = (gen.integers(-8, 9, ids.size) / 8).astype(np.float32)
+    scores[gen.random(ids.size) < 0.05] = -0.0
+    scores[gen.random(ids.size) < 0.03] = np.nan
+    target = (gen.random(ids.size) < 0.2).astype(np.int32)
+    target[ids == ids[0]] = 0
+    host = [torch.from_numpy(a) for a in (scores, target)]
+    card = [t.to(DEVICE) for t in host]
+    group, n = engine.contiguous_groups(torch.from_numpy(ids))
+    group_card, n_card = engine.contiguous_groups(torch.from_numpy(ids).to(DEVICE))
+    if n_card != n or not torch.equal(group_card.cpu(), group):
+        raise AssertionError("card vs CPU: the query groupings differ")
+    for a, b in zip(engine._group_layout(card[0], group_card, n), engine._group_layout(host[0], group, n)):
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError("card vs CPU: the order or the ranks differ")
+    worst = 0.0
+    for name in ("reciprocal_rank_per_group", "precision_per_group", "recall_per_group", "fall_out_per_group",
+                 "hit_rate_per_group", "r_precision_per_group", "average_precision_per_group", "ndcg_per_group"):
+        fn = getattr(engine, name)
+        got, again, want = fn(*card, group_card, n), fn(*card, group_card, n), fn(*host, group, n)
+        if got.cpu().numpy().tobytes() != again.cpu().numpy().tobytes():
+            raise AssertionError(f"card vs CPU: two card runs of {name} differ")
+        diff = float((got.cpu() - want).abs().max())
+        if name in ("average_precision_per_group", "ndcg_per_group"):
+            worst = max(worst, diff / (PER_QUERY_UNITS * U32))
+            if diff > PER_QUERY_UNITS * U32:
+                raise AssertionError(f"card vs CPU: {name} off by {diff!r}")
+        elif got.cpu().numpy().tobytes() != want.numpy().tobytes():
+            raise AssertionError(f"card vs CPU: {name} differs")
+    print(f"check retrieval card vs CPU (300 queries of 40, ties, +-0.0, NaN): groupings, order and ranks bitwise, "
+          f"ratio scores bitwise, AP and nDCG within {worst:.3g} of {PER_QUERY_UNITS} units, two card runs bitwise")
+    return {"ap_ndcg_worst_share": worst}
+
+
+def phase_wrappers_retrieval(mt, ops, card: str) -> Tuple[dict, dict]:
+    """(a) the wrappers on the ImageNet pass, (b) a multi-output wrapper on a QM9-shaped regression,
+    (c) retrieval on MS MARCO-shaped re-ranking and a TREC-DL-shaped graded pass, the card against the
+    CPU, and a two-rank sync; each against numpy."""
+    from metrics_tpu_torch.functional.retrieval import engine
+
+    phase_start = time.perf_counter()
+    checks, passes, launches = {}, {}, {route: 0 for route in _counters(ops)}
+
+    def add(counts):
+        for route, n in counts.items():
+            launches[route] += n
+
+    # (a) the wrappers on the ImageNet-1k pass
+    logits, labels, batches = _imagenet_pass()
+    ref = _reference(logits, labels)
+    pred_host, label_host = logits.argmax(dim=1).cpu().numpy(), labels.cpu().numpy()
+    correct = [pred_host[i : i + BATCH] == label_host[i : i + BATCH] for i in range(0, N_SAMPLES, BATCH)]
+    n_batches = len(batches)
+
+    cw = mt.ClasswiseWrapper(mt.Accuracy(num_classes=N_CLASSES, average=None, device=DEVICE), device=DEVICE)
+
+    def run_cw():
+        for preds, target in batches:
+            cw.update(preds, target)
+        return cw.compute()
+
+    out_cw, secs, counts = _driven(ops, "classwise", run_cw, lambda: {"logits": n_batches, "canonical": 0})
+    add(counts)
+    cm = ref["cm"]
+    per_class = np.diag(cm) / cm.sum(axis=1)
+    if list(out_cw) != [f"accuracy_{i}" for i in range(N_CLASSES)]:
+        raise AssertionError("classwise: the keys are not accuracy_0..accuracy_999")
+    _check_bound("classwise accuracy", torch.stack(list(out_cw.values())), per_class, 2 * U32 * per_class, checks, "wrappers/retrieval")
+    passes["(a) classwise"] = {"samples_per_s": N_SAMPLES / secs}
+
+    mm = mt.MinMaxMetric(mt.Accuracy(num_classes=N_CLASSES, device=DEVICE), device=DEVICE)
+
+    def run_mm():
+        return [mm(preds, target) for preds, target in batches], mm.compute()
+
+    (steps, out_mm), secs, counts = _driven(ops, "minmax", run_mm, lambda: {"logits": n_batches, "canonical": 0})
+    add(counts)
+    batch_acc = np.array([ok.mean() for ok in correct])
+    _check_bound("minmax batch values", torch.stack([s["raw"] for s in steps]), batch_acc, 2 * U32 * batch_acc, checks, "wrappers/retrieval")
+    _check_bound("minmax min", out_mm["min"], batch_acc.min(), 2 * U32 * batch_acc.min(), checks, "wrappers/retrieval")
+    _check_bound("minmax max", out_mm["max"], batch_acc.max(), 2 * U32 * batch_acc.max(), checks, "wrappers/retrieval")
+    _check_bound("minmax raw", out_mm["raw"], ref["micro_acc"], 2 * U32 * ref["micro_acc"], checks, "wrappers/retrieval")
+    passes["(a) minmax"] = {"samples_per_s": N_SAMPLES / secs}
+
+    for strategy in ("poisson", "multinomial"):
+        info = _bootstrap_pass(mt, ops, batches, correct, strategy, checks)
+        add(info.pop("launches"))
+        passes[f"(a) bootstrap {strategy}"] = info
+
+    tracker = mt.MetricTracker(_config2(mt), maximize=[True, True, True, True])
+
+    def run_tracker():
+        for _ in range(TRACKER_EPOCHS):
+            tracker.increment()
+            for preds, target in batches:
+                tracker.update(preds, target)
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            best = tracker.best_metric(return_step=True)
+        return best, tracker.compute_all(), seen
+
+    def implied_tracker():
+        total = {route: 0 for route in _counters(ops)}
+        for step in tracker:
+            for route, n in _implied_config2(ops, step, n_batches).items():
+                total[route] += n
+        return total
+
+    (best, all_steps, seen), secs, counts = _driven(ops, "tracker", run_tracker, implied_tracker)
+    add(counts)
+    value, step = best
+    if value["cm"] is not None or step["cm"] is not None or not any("not a scalar" in str(w.message) for w in seen):
+        raise AssertionError("tracker: the confusion matrix has no best value; expected None with a warning")
+    for key, want in (("acc", ref["macro_acc"]), ("f1", ref["macro_f1"]), ("prec", ref["macro_precision"])):
+        if step[key] != 0:
+            raise AssertionError(f"tracker: equal epochs must give step 0 as the best {key}, got {step[key]}")
+        _check_close(f"tracker best {key}", torch.tensor(value[key]), want)
+    for epoch in range(TRACKER_EPOCHS):
+        if not np.array_equal(all_steps["cm"][epoch].cpu().numpy(), cm):
+            raise AssertionError(f"tracker: epoch {epoch}'s confusion matrix differs from numpy's bincount")
+    passes["(a) tracker"] = {"samples_per_s": TRACKER_EPOCHS * N_SAMPLES / secs, "epochs": TRACKER_EPOCHS}
+    fresh_tracker = mt.MetricTracker(_config2(mt), maximize=True)
+    fresh_tracker.increment()
+    update_a = _member_timings({
+        "classwise": (mt.ClasswiseWrapper(mt.Accuracy(num_classes=N_CLASSES, average=None, device=DEVICE), device=DEVICE),
+                      batches[0]),
+        "minmax": (mt.MinMaxMetric(mt.Accuracy(num_classes=N_CLASSES, device=DEVICE), device=DEVICE), batches[0]),
+        f"bootstrap poisson ({BOOT_COPIES} copies)": (
+            mt.BootStrapper(mt.Accuracy(num_classes=N_CLASSES, device=DEVICE), num_bootstraps=BOOT_COPIES, device=DEVICE),
+            batches[0]),
+        "tracker (config 2)": (fresh_tracker, batches[0]),
+    })
+    del logits, labels, batches
+
+    # (b) a multi-output wrapper on a QM9-shaped regression with missing targets
+    preds_b, target_b = _qm9_pass()
+    batches_b = _batched(preds_b, target_b, QM9_BATCH)
+    mo = mt.MultioutputWrapper(mt.MeanAbsoluteError(device=DEVICE), num_outputs=QM9_TARGETS, device=DEVICE)
+    out_b, rate_b, peak_b = _regression_pass(mo, batches_b)
+    p_host, t_host = preds_b.cpu().numpy().astype(np.float64), target_b.cpu().numpy().astype(np.float64)
+    keep = ~np.isnan(t_host)
+    depth_b = SUM_DEPTH + len(batches_b) + 1
+    for j in range(QM9_TARGETS):
+        err = np.abs(p_host[keep[:, j], j] - t_host[keep[:, j], j])
+        if int(mo.metrics[j].total) != int(keep[:, j].sum()):
+            raise AssertionError(f"multioutput target {j}: counted {int(mo.metrics[j].total)} rows, not {int(keep[:, j].sum())}")
+        _check_bound(f"multioutput target {j} MAE", out_b[j], err.mean(), (depth_b + 2) * U32 * err.mean(), checks, "wrappers/retrieval")
+    fresh = mt.MultioutputWrapper(mt.MeanAbsoluteError(device=DEVICE), num_outputs=QM9_TARGETS, device=DEVICE)
+    update_b = _member_timings({"multioutput (12 MAE)": (fresh, batches_b[0])})
+    passes["(b) qm9 multioutput"] = {"samples_per_s": rate_b, "samples": QM9_MOLECULES, "batches": len(batches_b),
+                                     "peak_bytes": peak_b, "nan_targets": int((~keep).sum())}
+    del preds_b, target_b, batches_b
+
+    # (c) retrieval: MS MARCO passage dev (small) re-ranking
+    ids, scores, target = _msmarco_pass()
+    batches_c = _retrieval_batches(ids, scores, target)
+    warm = _retrieval_collection(mt)
+    warm.update(*batches_c[0][:2], indexes=batches_c[0][2])
+    warm.compute()
+    col = _retrieval_collection(mt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = time.perf_counter()
+    for preds, tgt, idx in batches_c:
+        col.update(preds, tgt, indexes=idx)
+    out_c = _flat_outputs(col.compute())
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - start
+    peak_c = torch.cuda.max_memory_allocated()
+    if len(col.compute_groups) != 1:
+        raise AssertionError(f"retrieval: the eleven members share one buffer set; groups {col.compute_groups}")
+    for m in col.values():
+        m._computed = None
+    again = _flat_outputs(col.compute())
+    for key, value in out_c.items():
+        if value.cpu().numpy().tobytes() != again[key].cpu().numpy().tobytes():
+            raise AssertionError(f"retrieval: two card compute() calls of {key} differ")
+    print("check retrieval: two compute() calls on the card bitwise equal")
+    q, c = MSMARCO_QUERIES, MSMARCO_CANDIDATES
+    s_host, t_host = scores.cpu().numpy().reshape(q, c), target.cpu().numpy().reshape(q, c)
+    ids_host = ids.cpu().numpy()[::c]
+    ref_c = _retrieval_reference(s_host, t_host)
+    _retrieval_means(out_c, ref_c, checks)
+    group, n_groups = engine.contiguous_groups(col["map"].buffer_values("indexes"))
+    per_query = _check_per_query(engine, col["map"].buffer_values("preds"), col["map"].buffer_values("target"),
+                                 group, n_groups, ref_c, np.argsort(ids_host))
+    compute_c = _timed_compute(col)
+    member_ms = {}
+    for name, m in col.items():
+        times = []
+        for _ in range(3):
+            m._computed = None
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m.compute()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        member_ms[name] = statistics.median(times)
+    print(f"retrieval compute() ms per member (median of 3): {member_ms!r}")
+    def map_compute():
+        col["map"]._computed = None  # a cached value would skip the work
+        return col["map"].compute()
+
+    map_ops = max(((_device_ops(map_compute) or []) for _ in range(PROFILER_ATTEMPTS)), key=len)
+    by_op: dict = {}
+    for op, ms in map_ops:
+        name = op.split("<")[0].split("(")[0][-60:]
+        by_op[name] = by_op.get(name, 0.0) + ms
+    top_ops = sorted(by_op.items(), key=lambda kv: -kv[1])[:6]
+    print(f"RetrievalMAP.compute() on the card: {len(map_ops)} device operations, {sum(by_op.values())!r} ms of their "
+          f"own time; the largest: {top_ops!r}")
+    update_c = _member_timings({"retrieval collection (11 members, one group)": (_retrieval_collection(mt), batches_c[0])})
+    passes["(c) msmarco"] = {"samples_per_s": q * c / secs, "queries_per_s": q / secs, "rows": q * c,
+                             "batches": len(batches_c), "peak_bytes": peak_c, "per_query_worst_share": per_query}
+
+    # TREC DL 2019-shaped graded judgments: nDCG@10
+    ids_t, scores_t, grades = _trec_pass()
+    ndcg = mt.RetrievalNormalizedDCG(k=10, device=DEVICE)
+    for qid in torch.unique_consecutive(ids_t):
+        rows = ids_t == qid
+        ndcg.update(scores_t[rows], grades[rows], indexes=ids_t[rows])
+    ids_h, s_h, g_h = (x.cpu().numpy() for x in (ids_t, scores_t, grades))
+    per_q = []
+    for qid in np.unique(ids_h):
+        rows = ids_h == qid
+        t_sorted = g_h[rows][np.argsort(-s_h[rows], kind="stable")].astype(np.float64)[:10]
+        ideal = -np.sort(-g_h[rows].astype(np.float64))[:10]
+        disc = 1.0 / np.log2(np.arange(len(t_sorted)) + 2.0)
+        idcg = ideal @ disc[: len(ideal)]
+        per_q.append(t_sorted @ disc / idcg if idcg > 0 else 0.0)
+    per_q = np.array(per_q)
+    _check_bound("retrieval TREC DL nDCG@10", ndcg.compute(), per_q.mean(), _mean_bound(per_q), checks, "wrappers/retrieval")
+    got_q = engine.ndcg_per_group(ndcg.buffer_values("preds"), ndcg.buffer_values("target"),
+                                  *engine.contiguous_groups(ndcg.buffer_values("indexes")), k=10)
+    _check_bound("retrieval TREC DL nDCG@10 per query", got_q, per_q, PER_QUERY_UNITS * U32 * np.maximum(per_q, 1e-30), checks, "wrappers/retrieval")
+
+    card_cpu = _card_vs_cpu_retrieval(engine)
+    single = {k: v for k, v in out_c.items()}
+    del ids, scores, target, batches_c, col, warm
+    torch.cuda.empty_cache()
+    sync = phase_retrieval_sync(single)
+
+    secs = time.perf_counter() - phase_start
+    for name, info in passes.items():
+        print(f"wrappers/retrieval pass {name}: {info!r}")
+    print(f"wrappers/retrieval launches per entry point: {launches}")
+    print(f"wrappers/retrieval phase took {secs:.1f} s")
+    line = {"wrappers_retrieval": {
+        "card": card,
+        "passes": passes,
+        "updates": {**update_a, **update_b, **update_c},
+        "compute_ms": {"(c) collection, 3 calls": compute_c, "(c) per member": member_ms},
+        "map_compute_top_device_ops_ms": top_ops,
+        "checks": checks,
+        "card_vs_cpu": card_cpu,
+        "sync": sync,
+        "launches": launches,
+        "phase_s": secs,
+    }}
+    return launches, line
+
+
 def _device_ops(fn, calls: int = 1) -> Optional[list]:
     """(name, device ms) of each device operation that ``calls`` calls of ``fn`` issue, as
     torch.profiler records them; None where the profiler records no device activity on this machine."""
@@ -2283,15 +2857,20 @@ def main() -> int:
     del logits, labels
     torch.cuda.empty_cache()
     regression_launches, regression_line = phase_regression(mt, ops, card)
+    torch.cuda.empty_cache()
+    wrapper_launches, wrapper_line = phase_wrappers_retrieval(mt, ops, card)
     print(f"launches per entry point: main path {launches}, curve phase {curve_launches}, "
-          f"rest of classification {rest_launches}, regression {regression_launches}")
+          f"rest of classification {rest_launches}, regression {regression_launches}, "
+          f"wrappers and retrieval {wrapper_launches}")
     for entry in kernels:
         route = "canonical" if entry["name"] == "stat_scores" else "logits"
-        entry["launches"] += curve_launches[route] + rest_launches[route] + regression_launches[route]
+        entry["launches"] += (curve_launches[route] + rest_launches[route] + regression_launches[route]
+                              + wrapper_launches[route])
     print(json.dumps(sync_line))
     print(json.dumps(curve_line))
     print(json.dumps(rest_line))
     print(json.dumps(regression_line))
+    print(json.dumps(wrapper_line))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

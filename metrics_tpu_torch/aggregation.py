@@ -39,6 +39,8 @@ class BaseAggregator(Metric):
             )
         self.nan_strategy = nan_strategy
         self.state_name = state_name
+        if nan_strategy in ("error", "warn"):
+            self.traced_update = False  # the NaN check reads the batch on the host
         self.add_state(state_name, default=default_value, dist_reduce_fx=fn)
 
     def _as_float(self, x: Any) -> torch.Tensor:

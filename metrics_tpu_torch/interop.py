@@ -4,13 +4,18 @@
 ``.state_dict()`` returns (arrays, read here through ``numpy.asarray``) and
 what ``._ckpt_extra_state()`` returns (plain JSON), and loads them into the
 matching metric of this package.  It needs neither JAX nor the JAX package.
+The two wrappers that carry more than their base metric's state,
+``BootStrapper`` and ``MinMaxMetric``, take a dict of their parts (see
+:func:`load_jax_state`).
 """
 
 from typing import Any, Dict, Optional
 
 import numpy as np
+import torch
 
 from metrics_tpu_torch.metric import Metric
+from metrics_tpu_torch.wrappers import BootStrapper, MinMaxMetric
 
 
 def _as_numpy(value: Any, name: str, metric: Optional[Metric]) -> Any:
@@ -42,7 +47,28 @@ def load_jax_state(metric: Metric, state: Dict[str, Any], extra: Optional[Dict[s
     dtype; its ``<name>__len`` says how many are valid.
     ``_update_count``, where ``state`` carries it, and the attributes in
     ``extra`` (such as the locked classification ``mode``) are restored too.
+
+    A ``BootStrapper``'s ``state`` holds ``_update_count``, ``rng`` (the JAX
+    wrapper's ``_rng.bit_generator.state``: the draws continue where its
+    draws stopped), ``_replica_rows`` (or None), and its copies' states:
+    ``_stacked_state`` (each state stacked along a leading copy axis, as the
+    JAX package holds the copies it updates as one) where that is not None,
+    else ``replicas``, each copy's ``state_pytree()``.  Its ``extra`` is a
+    list of the copies' ``_ckpt_extra_state()`` or one dict for all.  A
+    ``MinMaxMetric``'s ``state`` holds ``_update_count``, ``min_val``,
+    ``max_val`` and ``base``, the base metric's ``state_pytree()``; its
+    ``extra`` is the base metric's.
     """
+    if isinstance(metric, BootStrapper):
+        _load_bootstrapper(metric, state, extra)
+        return
+    if isinstance(metric, MinMaxMetric):
+        metric._update_count = int(state["_update_count"])
+        metric._computed = None
+        metric.min_val = torch.as_tensor(np.array(state["min_val"]), dtype=torch.float32, device=metric.device)
+        metric.max_val = torch.as_tensor(np.array(state["max_val"]), dtype=torch.float32, device=metric.device)
+        load_jax_state(metric._base_metric, state["base"], extra)
+        return
     tree: Dict[str, Any] = {}
     for name, value in state.items():
         if name == "_update_count":
@@ -59,3 +85,25 @@ def load_jax_state(metric: Metric, state: Dict[str, Any], extra: Optional[Dict[s
     metric.load_state_pytree(tree)
     if extra:
         metric._ckpt_load_extra_state(extra)
+
+
+def _load_bootstrapper(metric: BootStrapper, state: Dict[str, Any], extra: Any) -> None:
+    count = int(state["_update_count"])
+    rows = state.get("_replica_rows")
+    rows = None if rows is None else np.array(rows, dtype=np.int64)
+    stacked = state.get("_stacked_state")
+    extras = extra if isinstance(extra, list) else [extra] * metric.num_bootstraps
+    for i, copy in enumerate(metric.metrics):
+        if stacked is not None:
+            fed = rows is None or rows[i] > 0
+            tree = {name: np.asarray(value)[i] for name, value in stacked.items()}
+            tree["_update_count"] = count if fed else 0
+        else:
+            tree = state["replicas"][i]
+        load_jax_state(copy, tree, extras[i])
+    metric._update_count = count
+    metric._computed = None
+    metric._replica_rows = rows
+    metric._stacked = True if stacked is not None else None
+    metric._rng = np.random.default_rng()
+    metric._rng.bit_generator.state = state["rng"]

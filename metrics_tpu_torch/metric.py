@@ -281,6 +281,11 @@ class Metric(nn.Module, ABC):
     # dist_sync_on_step batch gather advance the delta cache for free
     _forward_delta_advance = False
 
+    # False where an update needs concrete values on the host (the JAX package's
+    # ``jit_update=False``): the JAX package's BootStrapper then draws its
+    # resamples per copy, and the port's draws as it does
+    traced_update = True
+
     def __init__(self, **kwargs: Any) -> None:
         super().__init__()
         self.device = _resolve_device(kwargs.pop("device", "cuda"))
@@ -497,6 +502,54 @@ class Metric(nn.Module, ABC):
         for bname in self._buffer_states:
             if bname + "__buf" in cache:
                 self._refresh_buffer_meta(bname)
+
+    # ----------------------------------------------------------- pure state API
+    def init_state(self) -> Dict[str, Any]:
+        """A fresh state dict of the defaults; buffer-state row counts stay Python ints."""
+        return {
+            name: [] if isinstance(default, list) else default if isinstance(default, int) else default.clone()
+            for name, default in self._defaults.items()
+        }
+
+    def _run_with_state(self, state: Dict[str, Any], fn: Callable, args: tuple, kwargs: dict) -> Tuple[Any, Dict[str, Any]]:
+        """Run ``fn`` against ``state`` swapped in; the instance's own state (and buffer
+        bookkeeping) is swapped back in a ``finally``.  Returns ``fn``'s result and the new state."""
+        own = self._copy_state()
+        metas = {bname: dict(meta) for bname, meta in self._buffer_states.items()}
+        try:
+            self._restore_state({**self.init_state(), **state})
+            for meta in self._buffer_states.values():
+                meta["owned"] = None  # an append copies the given buffer, never writes into it
+            out = fn(*args, **kwargs)
+            return out, {name: getattr(self, name) for name in state}
+        finally:
+            self._restore_state(own)
+            for bname, meta in metas.items():
+                self._buffer_states[bname].update(meta)
+
+    def apply_update(self, state: Dict[str, Any], *args: Any, **kwargs: Any) -> Dict[str, Any]:
+        """Pure update: ``(state, batch) -> state``.  Neither ``state`` nor the instance's
+        own state changes; the update count is the caller's to keep."""
+        self._check_input_devices(args, kwargs)
+        _, new_state = self._run_with_state(state, self._update_impl, args, kwargs)
+        return new_state
+
+    def apply_compute(self, state: Dict[str, Any], axis_name: Optional[str] = None) -> Any:
+        """Pure compute: ``state -> value``, without a sync.
+
+        The JAX package syncs over a mesh axis when ``axis_name`` is given
+        (``AxisBackend``); PyTorch has no such axis.  Sync across processes
+        with ``torch.distributed`` instead: a metric's ``compute()`` syncs its
+        states over the process group (``DistBackend``).
+        """
+        if axis_name is not None:
+            raise NotImplementedError(
+                "apply_compute(axis_name=...) syncs over a JAX mesh axis, which PyTorch lacks; "
+                "sync across processes with torch.distributed (DDP): compute() syncs over the "
+                "process group through DistBackend"
+            )
+        value, _ = self._run_with_state(state, self._compute_impl, (), {})
+        return value
 
     # ----------------------------------------------------------------- update
     @abstractmethod

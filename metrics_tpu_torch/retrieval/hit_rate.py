@@ -1,0 +1,32 @@
+"""RetrievalHitRate (counterpart of ``metrics_tpu/retrieval/hit_rate.py``)."""
+
+from typing import Any, Optional, Tuple
+
+import torch
+
+from metrics_tpu_torch.functional.retrieval._rank import _check_k
+from metrics_tpu_torch.functional.retrieval.engine import hit_rate_per_group
+from metrics_tpu_torch.retrieval.base import RetrievalMetric
+
+
+class RetrievalHitRate(RetrievalMetric):
+    """HitRate@k averaged over queries."""
+
+    def __init__(
+        self,
+        empty_target_action: str = "neg",
+        ignore_index: Optional[int] = None,
+        k: Optional[int] = None,
+        **kwargs: Any,
+    ) -> None:
+        super().__init__(empty_target_action=empty_target_action, ignore_index=ignore_index, **kwargs)
+        _check_k(k)
+        self.k = k
+
+    def _group_scores(self, preds, target, group, n_groups) -> Tuple[torch.Tensor, torch.Tensor]:
+        return hit_rate_per_group(preds, target, group, n_groups, k=self.k), self._empty_mask(target, group, n_groups)
+
+    def _metric(self, preds: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+        from metrics_tpu_torch.functional.retrieval.hit_rate import retrieval_hit_rate
+
+        return retrieval_hit_rate(preds, target, k=self.k)

@@ -1,10 +1,11 @@
-"""Canonical input formatting for classification metrics
-(counterpart of ``metrics_tpu/utils/checks.py``).
+"""Canonical input formatting for classification metrics, and the retrieval
+input checks (counterpart of ``metrics_tpu/utils/checks.py``).
 
 :func:`_check_classification_inputs` does the value-dependent checks (label
 ranges) and :func:`_input_format_classification` turns any accepted
 ``(preds, target)`` pair into canonical binary int32 tensors, on the device
-the inputs lie on.
+the inputs lie on.  :func:`_check_retrieval_inputs` flattens a retrieval
+batch to int32 query ids, float32 scores and int32 or float32 targets.
 """
 
 from typing import Optional, Tuple
@@ -266,3 +267,74 @@ def _canonical_format(
     if case == DataType.MULTICLASS and target_c.ndim == 3 and target_c.shape[-1] == 1:
         preds_c, target_c = preds_c.squeeze(-1), target_c.squeeze(-1)
     return preds_c, target_c, case
+
+
+# --------------------------------------------------------------------- retrieval
+def _retrieval_dtypes(preds: torch.Tensor, target: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Flat float32 scores and flat float32 (floating targets) or int32 (bool and integer targets) targets."""
+    target = target.to(torch.float32) if target.is_floating_point() else target.to(torch.int32)
+    return preds.to(torch.float32).reshape(-1), target.reshape(-1)
+
+
+def _check_retrieval_target_and_prediction_types(
+    preds: torch.Tensor,
+    target: torch.Tensor,
+    allow_non_binary_target: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dtype and value checks for retrieval inputs; the range check is one device->host read."""
+    if target.is_complex():
+        raise ValueError("`target` must be a tensor of booleans, integers or floats")
+    if not preds.is_floating_point():
+        raise ValueError("`preds` must be a tensor of floats")
+    if not allow_non_binary_target and bool(((target > 1) | (target < 0)).any()):
+        raise ValueError("`target` must contain `binary` values")
+    return _retrieval_dtypes(preds, target)
+
+
+def _check_retrieval_functional_inputs(
+    preds: torch.Tensor,
+    target: torch.Tensor,
+    allow_non_binary_target: bool = False,
+    validate_args: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Shape and dtype checks for one query's ``(preds, target)``."""
+    preds, target = _as_tensor(preds), _as_tensor(target)
+    if not validate_args:
+        return _retrieval_dtypes(preds, target)
+    if preds.shape != target.shape:
+        raise ValueError("`preds` and `target` must be of the same shape")
+    if preds.numel() == 0 or preds.ndim == 0:
+        raise ValueError("`preds` and `target` must be non-empty and non-scalar tensors")
+    return _check_retrieval_target_and_prediction_types(preds, target, allow_non_binary_target=allow_non_binary_target)
+
+
+def _check_retrieval_inputs(
+    indexes: torch.Tensor,
+    preds: torch.Tensor,
+    target: torch.Tensor,
+    allow_non_binary_target: bool = False,
+    ignore_index: Optional[int] = None,
+    validate_args: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Shape and dtype checks for ``(indexes, preds, target)``, flattened; the
+    rows whose target equals ``ignore_index`` are dropped.  Query ids become int32."""
+    indexes, preds, target = _as_tensor(indexes), _as_tensor(preds), _as_tensor(target)
+    if validate_args:
+        if indexes.shape != preds.shape or preds.shape != target.shape:
+            raise ValueError("`indexes`, `preds` and `target` must be of the same shape")
+        if indexes.is_floating_point() or indexes.is_complex() or indexes.dtype == torch.bool:
+            raise ValueError("`indexes` must be a tensor of long integers")
+    if ignore_index is not None:
+        valid = (target != ignore_index).reshape(-1)
+        indexes = indexes.reshape(-1)[valid]
+        preds = preds.reshape(-1)[valid]
+        target = target.reshape(-1)[valid]
+    if validate_args:
+        if indexes.numel() == 0 or indexes.ndim == 0:
+            raise ValueError("`indexes`, `preds` and `target` must be non-empty and non-scalar tensors")
+        preds, target = _check_retrieval_target_and_prediction_types(
+            preds, target, allow_non_binary_target=allow_non_binary_target
+        )
+    else:
+        preds, target = _retrieval_dtypes(preds, target)
+    return indexes.to(torch.int32).reshape(-1), preds, target

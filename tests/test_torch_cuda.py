@@ -461,3 +461,67 @@ def test_regression_modules_on_cuda_match_the_cpu_and_skip_the_kernel(cuda):
         cancels = key in ("r2", "ev", "pearson", "spearman")
         _close_in_units(got[key], want[key], rtol=2.0**-24 * 3000, atol=8 * 2.0**-24 * 3000 if cancels else 0.0)
     _close_in_units(cos_card.compute(), cos_cpu.compute(), rtol=0.0, atol=(3000 + 32) * 2.0**-24)
+
+
+def retrieval_inputs(n_queries=40, docs=25, seed=31):
+    """Whole queries of eighths with ties, signed zeros and NaN; one query without a relevant document."""
+    rng = np.random.default_rng(seed)
+    ids = np.repeat(rng.permutation(n_queries) * 3 + 1, docs)
+    preds = (rng.integers(-8, 9, ids.size) / 8).astype(np.float32)
+    preds[rng.random(ids.size) < 0.05] = -0.0
+    preds[rng.random(ids.size) < 0.03] = np.nan
+    target = (rng.random(ids.size) < 0.2).astype(np.int32)
+    target[ids == ids[0]] = 0
+    return ids, preds, target
+
+
+@pytest.mark.cuda
+def test_retrieval_engine_on_cuda_orders_as_the_cpu_and_repeats_bitwise(cuda):
+    from metrics_tpu_torch.functional.retrieval import engine
+
+    ids, preds, target = (torch.from_numpy(a) for a in retrieval_inputs())
+    group, n = engine.contiguous_groups(ids)
+    group_card, n_card = engine.contiguous_groups(ids.to(cuda))
+    assert n_card == n and torch.equal(group_card.cpu(), group)
+    layout = engine._group_layout(preds, group, n)
+    layout_card = engine._group_layout(preds.to(cuda), group_card, n)
+    for a, b in zip(layout_card, layout):
+        assert torch.equal(a.cpu(), b)
+    longest = 25 * 2.0**-24
+    for name in ("average_precision_per_group", "reciprocal_rank_per_group", "precision_per_group",
+                 "recall_per_group", "fall_out_per_group", "hit_rate_per_group", "r_precision_per_group",
+                 "ndcg_per_group"):
+        fn = getattr(engine, name)
+        card = fn(preds.to(cuda), target.to(cuda), group_card, n)
+        again = fn(preds.to(cuda), target.to(cuda), group_card, n)
+        assert card.cpu().numpy().tobytes() == again.cpu().numpy().tobytes(), name
+        assert torch.allclose(card.cpu(), fn(preds, target, group, n), rtol=0, atol=4 * longest), name
+    p_card, r_card = engine.precision_recall_curve_per_group(preds.to(cuda), target.to(cuda), group_card, n, max_k=10)
+    p_cpu, r_cpu = engine.precision_recall_curve_per_group(preds, target, group, n, max_k=10)
+    assert torch.equal(p_card.cpu(), p_cpu) and torch.equal(r_card.cpu(), r_cpu)
+
+
+@pytest.mark.cuda
+def test_retrieval_and_bootstrap_modules_on_cuda_match_the_cpu(cuda):
+    ids, preds, target = (torch.from_numpy(a) for a in retrieval_inputs(seed=32))
+
+    def collection(device):
+        return mt.MetricCollection({
+            "map": mt.RetrievalMAP(device=device), "mrr": mt.RetrievalMRR(device=device),
+            "ndcg": mt.RetrievalNormalizedDCG(k=10, device=device),
+            "curve": mt.RetrievalPrecisionRecallCurve(max_k=10, device=device),
+        }, device=device)
+
+    card, cpu = collection(cuda), collection("cpu")
+    for part in (slice(0, 500), slice(500, None)):
+        card.update(preds[part].to(cuda), target[part].to(cuda), indexes=ids[part].to(cuda))
+        cpu.update(preds[part], target[part], indexes=ids[part])
+    got, want = card.compute(), cpu.compute()
+    for key, value in want.items():
+        for g, w in zip(got[key] if isinstance(got[key], tuple) else (got[key],), value if isinstance(value, tuple) else (value,)):
+            assert g.device.type == "cuda" and torch.allclose(g.cpu(), w, rtol=0, atol=65 * 2.0**-24), key
+    x = torch.from_numpy((np.random.default_rng(33).integers(-16, 17, (2, 300)) / 8).astype(np.float32))
+    boots = [mt.BootStrapper(mt.MeanSquaredError(device=d), num_bootstraps=8, raw=True, device=d) for d in (cuda, "cpu")]
+    for b in boots:
+        b.update(x[0].to(b.device), x[1].to(b.device))
+    assert torch.equal(boots[0].compute()["raw"].cpu(), boots[1].compute()["raw"])

@@ -57,3 +57,16 @@ REGRESSION_AND_PAIRWISE = [
 @pytest.mark.parametrize("name", REGRESSION_AND_PAIRWISE)
 def test_each_public_name_of_regression_and_pairwise_has_an_example(name):
     assert ">>>" in (getattr(metrics_tpu_torch, name).__doc__ or "")
+
+
+WRAPPERS_AND_RETRIEVAL = [
+    "BootStrapper", "ClasswiseWrapper", "MetricTracker", "MinMaxMetric", "MultioutputWrapper", "RetrievalMRR",
+    "retrieval_average_precision", "retrieval_fall_out", "retrieval_hit_rate", "retrieval_normalized_dcg",
+    "retrieval_precision", "retrieval_precision_recall_curve", "retrieval_r_precision", "retrieval_recall",
+    "retrieval_reciprocal_rank",
+]
+
+
+@pytest.mark.parametrize("name", WRAPPERS_AND_RETRIEVAL)
+def test_each_wrapper_and_retrieval_functional_has_an_example(name):
+    assert ">>>" in (getattr(metrics_tpu_torch, name).__doc__ or "")

@@ -60,6 +60,19 @@ def test_the_walk_covers_regression_and_pairwise():
     assert len(expected) == 29 and expected <= walked
 
 
+WRAPPERS = ("bootstrapping", "classwise", "minmax", "multioutput", "tracker", "_resample")
+RETRIEVAL = ("average_precision", "fall_out", "hit_rate", "ndcg", "precision", "precision_recall_curve",
+             "r_precision", "recall", "reciprocal_rank")
+
+
+def test_the_walk_covers_the_wrappers_and_retrieval():
+    walked = {p.relative_to(ROOT).as_posix() for p in _port_sources()}
+    expected = {f"metrics_tpu_torch/wrappers/{name}.py" for name in WRAPPERS}
+    expected |= {f"metrics_tpu_torch/{layer}/{name}.py" for name in RETRIEVAL for layer in ("retrieval", "functional/retrieval")}
+    expected |= {"metrics_tpu_torch/retrieval/base.py", "metrics_tpu_torch/functional/retrieval/engine.py"}
+    assert len(expected) == 26 and expected <= walked
+
+
 def _imported_roots(path: Path):
     for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
         if isinstance(node, ast.Import):
@@ -95,3 +108,14 @@ def test_construction_without_device_raises_when_cuda_is_absent(monkeypatch):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             make()
     assert mt.Accuracy(num_classes=3, device="cpu").device == torch.device("cpu")
+
+
+def test_wrappers_and_retrieval_without_device_raise_when_cuda_is_absent(monkeypatch):
+    base = mt.MeanSquaredError(device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (lambda: mt.BootStrapper(base), lambda: mt.MinMaxMetric(base), lambda: mt.ClasswiseWrapper(base),
+                 lambda: mt.MultioutputWrapper(base, num_outputs=2), mt.RetrievalMAP, mt.RetrievalMRR,
+                 mt.RetrievalNormalizedDCG, mt.RetrievalPrecisionRecallCurve):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+    assert mt.BootStrapper(base, device="cpu").device == torch.device("cpu")
