@@ -96,7 +96,34 @@ Phases (each passes or raises; any failure exits non-zero):
      on tied, signed-zero and NaN scores, two card ``compute()`` calls
      bitwise equal, and the collection synced over two gloo ranks on
      ``cuda:0`` bitwise equal to one process; pass rates, update and
-     compute times, device operations and copies per update, peak memory.
+     compute times, device operations and copies per update, peak memory;
+ 11. streaming: (a) the per-pixel absolute relative error of the NYU-Depth
+     pass of phase 9 (200,908,800 values, batches of 8 maps) through a
+     ``StreamingQuantile`` (q 0.5, 0.9, 0.95, 0.99; capacity 2048, 18 levels)
+     and a ``StreamingHistogram`` (20 bins, capacity 256), one ``kll_fold``
+     launch per update, each estimate's normalized rank error within
+     ``kll_rank_error_bound`` of the exact ranks (numpy on the host), the
+     histogram's edges exact and its counts within the bound of
+     ``np.histogram``'s; (b) the ``kll_fold`` kernel bitwise against its
+     plain version, every leaf and the key included, on each sketch's
+     main-path update on the last full batch (2,400 chunks of 1024 and
+     19,200 of 128 folded into the deep states 80 batches left), on
+     prefixes of that stream, on signed zeros, NaN, infinities and chunks
+     of padding at capacities 8, 256 and 2048, on merges with empty states,
+     and on a batch of 8 sketches in one launch, and the CPU's plain path
+     on the prefixes;
+     (c) ``WindowedMetric(Accuracy)`` (10 buckets of 5 batches) over two
+     passes of the ImageNet data, each window's top-1 bitwise against numpy's
+     integer counts, ``WindowedMetric(StreamingQuantile(q=0.99))`` (8 buckets)
+     of the per-sample cross-entropy within the bound of each window's exact
+     p99, and ``TimeDecayedMetric(MeanSquaredError, half_life=100)`` over
+     the MovieLens-shaped pass against a numpy float64 EMA; (d) uneven shares
+     of the NYU stream on two gloo ranks on ``cuda:0``, a sketch and a ring of
+     sketches synced through the packed blob and leaf by leaf, both ranks
+     bitwise equal to this process's ``kll_merge`` of the two local states;
+     the fold's values/s, the kernel's own time per launch and per chunk, the
+     plain version's time, update times and device operations, compactions,
+     peak memory and synced bytes.
 The last line is ``{"ok": true, "device": {...}}``.
 
 The sync phases run this script again as their ranks
@@ -224,13 +251,17 @@ def _call_ms(fn, reps: int = 100, warmup: int = 10) -> float:
 
 
 def phase_build(ops) -> None:
+    from metrics_tpu_torch.ops import _build, kll
+
     start = time.perf_counter()
-    path, log = ops.build()
+    built = _build.build(ops._SOURCE, kll._SOURCE)  # one nvcc per source, all started together
     ops._library()
-    print(f"build: {path.relative_to(ROOT)} in {time.perf_counter() - start:.3f} s")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+    kll._library()
+    print(f"build: {[str(path.relative_to(ROOT)) for path, _ in built]} in {time.perf_counter() - start:.3f} s")
+    for _, log in built:
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas: {line.strip()}")
 
 
 def _compare(name: str, got, expected, case: str) -> int:
@@ -636,6 +667,8 @@ def sync_rank(scenario: str, rank: int, where: Path) -> int:
         _rank_regression(mt, rank, where)
     elif scenario == "retrieval":
         _rank_retrieval(mt, rank, where)
+    elif scenario == "streaming":
+        _rank_streaming(mt, rank, where)
     else:
         _, _, batches = _imagenet_pass()
         if scenario == "stall":
@@ -2679,6 +2712,479 @@ def phase_wrappers_retrieval(mt, ops, card: str) -> Tuple[dict, dict]:
     return launches, line
 
 
+# ---------------------------------------------------------------- streaming
+SKETCH_Q = (0.5, 0.9, 0.95, 0.99)
+SKETCH_CAPACITY, SKETCH_MAX_ITEMS = 2048, 1 << 28  # the quantiles' sketch: 18 levels
+HIST_BINS = 20  # StreamingHistogram at the default capacity 256 (21 levels at max_items 2**28)
+PREFIX_CHUNKS = 300  # chunks of the NYU stream that the kernel and its plain version both fold
+EDGE_CAPACITIES = (8, 256, 2048)  # the card against the plain version on tricky values
+BATCHED_SKETCHES = 8  # sketches folded in one launch
+WINDOW_BUCKET = 5  # ImageNet batches per window bucket
+WINDOW_EPOCHS = 2  # passes through the windows, so that full windows evict buckets
+ACC_WINDOW, CE_WINDOW = 10, 8
+ML_HALF_LIFE = 100.0
+STREAM_SYNC_SHARDS = ((0, 30), (30, None))  # NYU batch ranges of the two ranks: 30 and 52 batches
+RING_WINDOW, RING_ADVANCES = 4, 3  # the synced ring: buckets, and the advances each rank makes in its share
+
+
+def _absrel_stream() -> torch.Tensor:
+    """The NYU pass's per-pixel absolute relative error |p - t| / t, all of it, on the card (float32)."""
+    return torch.cat([(p - t).abs_().div_(t) for p, t in _nyu_pass()])
+
+
+def _stream_batches(err: torch.Tensor) -> list:
+    per = NYU_BATCH * NYU_H * NYU_W
+    return [err[i : i + per] for i in range(0, err.numel(), per)]
+
+
+def _exact_counts(ordered: np.ndarray, points: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """For each point x: #(data < x) and #(data <= x), exact, from the data sorted once (numpy on the host)."""
+    return np.searchsorted(ordered, points, side="left"), np.searchsorted(ordered, points, side="right")
+
+
+def _rank_errors(estimates: np.ndarray, qs, data: np.ndarray) -> np.ndarray:
+    """Normalized rank error of each estimate of quantile q: how far q n lies outside the estimate's
+    exact rank interval [#(< x), #(<= x)], over n; ``data`` sorted."""
+    lt, le = _exact_counts(data, estimates.astype(np.float32))
+    target = np.asarray(qs, np.float64) * data.size
+    return np.maximum(0.0, np.maximum(lt - target, target - le)) / data.size
+
+
+def _round32(exact) -> np.float32:
+    """A Fraction rounded once to float32 (to nearest, ties to even)."""
+    from fractions import Fraction
+
+    guess = np.float32(float(exact))
+    cands = [np.nextafter(guess, np.float32(-np.inf)), guess, np.nextafter(guess, np.float32(np.inf))]
+    return min(cands, key=lambda c: (abs(Fraction(float(c)) - exact), int(c.view(np.uint32)) & 1))
+
+
+def _histogram_check(out: dict, data: np.ndarray, eps: float, checks: dict) -> None:
+    """Edges: the data's min and max, each inner edge lo + (hi - lo) x grid rounded once (float32);
+    counts within eps n of np.histogram's over those edges, and their sum within eps n of n;
+    ``data`` sorted."""
+    from fractions import Fraction
+
+    from metrics_tpu_torch.utils.data import _linspace_thresholds
+
+    edges = out["edges"].cpu().numpy()
+    lo, hi = data.min(), data.max()
+    span = np.float32(hi - lo)
+    want = [_round32(Fraction(float(span)) * Fraction(float(g)) + Fraction(float(lo)))
+            for g in _linspace_thresholds(HIST_BINS + 1)]
+    if edges[0] != lo or edges[-1] != hi or edges.tobytes() != np.array(want, np.float32).tobytes():
+        raise AssertionError(f"histogram edges {edges!r} are not the data's range cut at the exact grid {want!r}")
+    lt, le = _exact_counts(data, edges)
+    exact = np.diff(lt).astype(np.float64)  # np.histogram's bins: [e_i, e_{i+1}), the last one closed
+    exact[-1] += le[-1] - lt[-1]
+    got = out["counts"].cpu().numpy().astype(np.float64)
+    worst = np.abs(got - exact).max() / data.size
+    checks["(a) histogram counts"] = {"worst_rank_error": worst, "bound": eps, "total": float(got.sum())}
+    print(f"check streaming histogram: {HIST_BINS} bins over [{lo!r}, {hi!r}], worst |count - np.histogram| / n "
+          f"{worst!r} (bound {eps!r}), counts sum {got.sum()!r} of {data.size}")
+    if worst > eps or abs(got.sum() - data.size) > eps * data.size:
+        raise AssertionError("streaming histogram counts outside the sketch's bound")
+
+
+def _with_plain_fold(fn):
+    """``fn()`` with the sketch functions folding through the plain version (comparisons only)."""
+    import metrics_tpu_torch.streaming.sketches as sk
+    from metrics_tpu_torch.ops import kll
+
+    sk.kll_fold = kll.kll_fold_plain
+    try:
+        return fn()
+    finally:
+        sk.kll_fold = kll.kll_fold
+
+
+def _same_leaves(name: str, a: dict, b: dict) -> int:
+    if sorted(a) != sorted(b):
+        raise AssertionError(f"{name}: leaves {sorted(a)} and {sorted(b)}")
+    for k in a:
+        x, y = a[k].cpu(), b[k].cpu()
+        if x.dtype != y.dtype or x.shape != y.shape or x.numpy().tobytes() != y.numpy().tobytes():
+            raise AssertionError(f"{name}: leaf {k!r} differs")
+    return len(a)
+
+
+def _tricky_stream(seed: int, size: int) -> torch.Tensor:
+    """Values on a grid of hundredths (ties), both signed zeros, NaN, both infinities, and a tail of NaN
+    long enough to make whole chunks of padding."""
+    rng = np.random.default_rng(seed)
+    v = np.round(rng.normal(size=size), 2).astype(np.float32)
+    v[::7], v[3::11] = 0.0, -0.0
+    v[[1, 2, 4, 5]] = [np.nan, np.inf, -np.inf, -np.nan]
+    v[-(size // 8):] = np.nan
+    return torch.from_numpy(v)
+
+
+def _card_vs_plain_sketches(sk, err: torch.Tensor, last: torch.Tensor, deep: dict) -> dict:
+    """Every leaf of the kernel's folds bitwise against the plain version on the card and on the CPU.
+
+    ``deep`` holds, for each metric of (a), its sketch before and after the main path's launch on
+    ``last``, a full batch late in the stream: the plain version folds it into the same deep state."""
+    compared, cases = 0, 0
+    deep_ms = {}
+    for name, (before, after) in deep.items():
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        plain = _with_plain_fold(lambda: sk.kll_update(before, last))
+        torch.cuda.synchronize()
+        deep_ms[name] = (time.perf_counter() - start) * 1e3
+        levels, capacity = before["buf"].shape
+        compared += _same_leaves(f"the {name}'s main-path update on a full batch (capacity {capacity}, {levels} levels, "
+                                 f"n {int(before['n'])} before it)", after, plain)
+        cases += 1
+    print(f"check kll_fold: the main path's update on the last full batch, for each sketch of (a), from the same deep state, "
+          f"bitwise equal to the plain version; the plain version took {deep_ms!r} ms")
+    for capacity, max_items in ((SKETCH_CAPACITY, SKETCH_MAX_ITEMS), (256, SKETCH_MAX_ITEMS), (8, 1 << 20)):
+        prefix = err[: PREFIX_CHUNKS * capacity // 2]
+        empty = sk.kll_init(capacity, max_items=max_items, device=DEVICE)
+        card = sk.kll_update(empty, prefix)
+        plain = _with_plain_fold(lambda: sk.kll_update(empty, prefix))
+        cpu = sk.kll_update(sk.kll_init(capacity, max_items=max_items, device="cpu"), prefix.cpu())
+        compared += _same_leaves(f"prefix at capacity {capacity}, plain", card, plain)
+        compared += _same_leaves(f"prefix at capacity {capacity}, cpu", card, cpu)
+        cases += 1
+    for capacity in EDGE_CAPACITIES:
+        max_items = 1 << 20
+        a = b = sk.kll_init(capacity, seed=3, max_items=max_items, device=DEVICE)
+        for step in range(3):
+            v = _tricky_stream(step, capacity * 37 + 5).to(DEVICE)
+            a = sk.kll_update(a, v)
+            b = _with_plain_fold(lambda: sk.kll_update(b, v))
+        compared += _same_leaves(f"tricky values at capacity {capacity}", a, b)
+        empty = sk.kll_init(capacity, seed=5, max_items=max_items, device=DEVICE)
+        for order in ([a, empty, a], [empty, a], [empty, empty]):
+            compared += _same_leaves(f"merge at capacity {capacity}", sk.kll_merge(order),
+                                     _with_plain_fold(lambda: sk.kll_merge(order)))
+        cases += 4
+    inits = [sk.kll_init(256, seed=i, max_items=SKETCH_MAX_ITEMS, device=DEVICE) for i in range(BATCHED_SKETCHES)]
+    batch = {k: torch.stack([s[k] for s in inits]) for k in inits[0]}
+    values = torch.stack([_tricky_stream(10 + i, 6000) for i in range(BATCHED_SKETCHES)]).to(DEVICE)
+    card = sk.kll_update(batch, values)
+    compared += _same_leaves("a batch of 8 sketches", card, _with_plain_fold(lambda: sk.kll_update(batch, values)))
+    compared += _same_leaves("a batch of 8 merges", sk.kll_merge([card, batch, card]),
+                             _with_plain_fold(lambda: sk.kll_merge([card, batch, card])))
+    cases += 2
+    print(f"check kll_fold: {compared} leaves over {cases} cases bitwise equal to the plain version (on the card, and "
+          f"on the CPU for the NYU prefixes of {PREFIX_CHUNKS} chunks at capacities {SKETCH_CAPACITY}, 256 and 8)")
+    return {"cases": cases, "leaves": compared, "deep_plain_ms": deep_ms}
+
+
+def _kll_timings(sk, kll, err: torch.Tensor) -> dict:
+    """The kernel's own device time per launch (profiler) on the NYU prefix and on one main-path update,
+    the plain version's time on the prefix, and the bound of the prefix's fold."""
+    prefix = err[: PREFIX_CHUNKS * SKETCH_CAPACITY // 2]
+    empty = sk.kll_init(SKETCH_CAPACITY, max_items=SKETCH_MAX_ITEMS, device=DEVICE)
+
+    def own_ms(fn) -> Optional[float]:
+        seen = max(((_device_ops(fn, 5) or []) for _ in range(PROFILER_ATTEMPTS)), key=len)
+        times = [ms for op, ms in seen if "kll_fold" in op]
+        return statistics.median(times) if times else None
+
+    prefix_ms = own_ms(lambda: sk.kll_update(empty, prefix))
+    update_ms = own_ms(lambda: sk.kll_update(empty, _stream_batches(err)[0]))
+    narrow = sk.kll_init(sk.DEFAULT_CAPACITY, max_items=SKETCH_MAX_ITEMS, device=DEVICE)
+    narrow_update_ms = own_ms(lambda: sk.kll_update(narrow, _stream_batches(err)[0]))
+    call_ms = _call_ms(lambda: sk.kll_update(empty, prefix), reps=10, warmup=2)
+    plain_times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        _with_plain_fold(lambda: sk.kll_update(empty, prefix))
+        torch.cuda.synchronize()
+        plain_times.append((time.perf_counter() - start) * 1e3)
+    folded = sk.kll_update(empty, prefix)
+    levels, k = folded["buf"].shape
+    chunks, compactions = PREFIX_CHUNKS, int(folded["nc"])
+    # bytes: each chunk and its valid count read once, the state read and written once; operations:
+    # each compaction's K order keys and its merge's K binary searches of log2 K steps, each chunk's
+    # K/2 slot writes, and the key's threefry chain (3 hashes of 20 rounds of 3 operations)
+    moved = chunks * (k // 2 * 4 + 4) + 2 * (levels * k * 4 + levels * 4 + 8 + 4)
+    operations = compactions * k * (1 + int(np.log2(k))) + chunks * (k // 2 + 3 * 60)
+    bound_ms, bound_by = _bound(moved, operations)
+    per_chunk_us = prefix_ms / chunks * 1e3 if prefix_ms else None
+    print(f"kll_fold on the NYU prefix ({chunks} chunks of {k // 2} at capacity {k}, {compactions} compactions): "
+          f"its own device time {prefix_ms!r} ms ({per_chunk_us!r} us per chunk), one call on an idle card "
+          f"{call_ms!r} ms, plain version {plain_times!r} ms, bound {bound_ms!r} ms ({bound_by}); one main-path "
+          f"update (8 maps, {NYU_BATCH * NYU_H * NYU_W // (k // 2)} chunks): {update_ms!r} ms of its own device time, "
+          f"{narrow_update_ms!r} ms at capacity {sk.DEFAULT_CAPACITY} ({NYU_BATCH * NYU_H * NYU_W // (sk.DEFAULT_CAPACITY // 2)} chunks)")
+    return {"prefix_ms": prefix_ms, "per_chunk_us": per_chunk_us, "call_ms": call_ms,
+            "plain_ms": statistics.median(plain_times), "update_ms": update_ms, "narrow_update_ms": narrow_update_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "prefix_compactions": compactions}
+
+
+def _window_reference_ok(name: str, got, want_num: int, want_den: int) -> None:
+    want = np.float32(want_num) / np.float32(want_den)
+    if got.dtype != torch.float32 or got.cpu().numpy().tobytes() != np.float32(want).tobytes():
+        raise AssertionError(f"{name}: {float(got)!r}, numpy's integer counts give {want!r}")
+
+
+def _phase_windows(mt, ops, kll, checks: dict) -> Tuple[dict, dict, dict]:
+    """(c) the windows: rolling top-1 and p99 cross-entropy over the ImageNet pass, and a time-decayed
+    MSE over the MovieLens-shaped pass, each against numpy.  Returns launches, kll launches and timings."""
+    logits, labels, batches = _imagenet_pass()
+    correct = (logits.argmax(dim=1) == labels).cpu().numpy()
+    ce = (torch.logsumexp(logits, dim=1) - logits.gather(1, labels[:, None])[:, 0]).contiguous()
+    ce_host = ce.cpu().numpy()
+    acc = mt.WindowedMetric(mt.Accuracy(num_classes=N_CLASSES, device=DEVICE), window_size=ACC_WINDOW, device=DEVICE)
+    p99 = mt.WindowedMetric(mt.StreamingQuantile(q=0.99, device=DEVICE), window_size=CE_WINDOW, device=DEVICE)
+    bucket_rows: list = []  # the sample rows of each bucket, oldest first
+    acc_values, p99_errors, evicted = [], [], 0
+    for fn in (*_counters(ops).values(), kll.kll_fold):
+        fn.launches = 0
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    updates = computes = 0
+    for epoch in range(WINDOW_EPOCHS):
+        for b, (x, y) in enumerate(batches):
+            rows = np.arange(b * BATCH, b * BATCH + x.shape[0])
+            acc.update(x, y)
+            p99.update(ce[rows[0] : rows[-1] + 1])
+            updates += 1
+            if not bucket_rows or updates % WINDOW_BUCKET == 1:
+                bucket_rows.append(rows)
+            else:
+                bucket_rows[-1] = np.concatenate([bucket_rows[-1], rows])
+            if updates % WINDOW_BUCKET:
+                continue
+            live = np.concatenate(bucket_rows[-ACC_WINDOW:])
+            _window_reference_ok(f"window top-1 after update {updates}", acc.compute(), int(correct[live].sum()), live.size)
+            acc_values.append(float(acc.compute()))
+            ce_live = ce_host[np.concatenate(bucket_rows[-CE_WINDOW:])]
+            est = p99.compute()
+            computes += 1
+            err_q = _rank_errors(np.array([float(est)], np.float32), [0.99], np.sort(ce_live))[0]
+            bound = mt.kll_rank_error_bound(ce_live.size, mt.DEFAULT_CAPACITY)
+            p99_errors.append(err_q)
+            if err_q > bound:
+                raise AssertionError(f"window p99 after update {updates}: rank error {err_q!r} over its bound {bound!r}")
+            evicted += (acc.advance() > 0) + (p99.advance() > 0)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - start
+    launches = {route: fn.launches for route, fn in _counters(ops).items()}
+    kll_launches = kll.kll_fold.launches
+    implied = {"logits": updates, "canonical": 0}
+    print(f"windows: {updates} updates, {computes} computes, {evicted} evictions in {secs:.2f} s; stat-scores launches "
+          f"{launches} (updates imply {implied}); kll_fold launches {kll_launches} (updates and compute merges imply "
+          f"{updates + computes})")
+    if launches != implied or kll_launches != updates + computes or not evicted:
+        raise AssertionError("windows: the launches are not what the updates and computes imply, or nothing was evicted")
+    checks["(c) window top-1"] = {"windows": len(acc_values), "bitwise": True, "last": acc_values[-1]}
+    checks["(c) window p99 cross-entropy"] = {"windows": len(p99_errors), "worst_rank_error": max(p99_errors)}
+    print(f"check windows: {len(acc_values)} rolling top-1 values bitwise equal to numpy's integer counts; "
+          f"{len(p99_errors)} rolling p99 cross-entropies, worst rank error {max(p99_errors)!r}")
+
+    preds, target, _ = _movielens_pass()
+    ema = mt.TimeDecayedMetric(mt.MeanSquaredError(device=DEVICE), half_life=ML_HALF_LIFE, device=DEVICE)
+    ml_batches = _batched(preds, target, ML_BATCH)
+    for p, t in ml_batches:
+        ema.update(p, t)
+    p_host, t_host = preds.cpu().numpy().astype(np.float64), target.cpu().numpy().astype(np.float64)
+    decay = 0.5 ** (1.0 / ML_HALF_LIFE)
+    num = den = 0.0
+    for i in range(0, p_host.size, ML_BATCH):
+        num = num * decay + np.mean((p_host[i : i + ML_BATCH] - t_host[i : i + ML_BATCH]) ** 2)
+        den = den * decay + 1.0
+    # each batch's float32 MSE within SUM_DEPTH roundings, then two roundings per update of each EMA sum
+    rtol = (SUM_DEPTH + 2 + 4 * len(ml_batches)) * U32
+    _check_bound("(c) time-decayed MSE", ema.compute(), num / den, rtol * num / den, checks, "streaming")
+    return launches, {"kll": kll_launches}, {"windows_s": secs, "window_updates": updates, "window_computes": computes,
+                                               "evictions": evicted}
+
+
+def _rank_streaming(mt, rank: int, out: Path) -> None:
+    """This rank's share of the NYU stream into a StreamingQuantile and a ring of them, then each synced
+    through the packed blob and leaf by leaf."""
+    from metrics_tpu_torch.ops import kll
+    from metrics_tpu_torch.parallel import DistBackend
+
+    class PerLeaf(DistBackend):
+        supports_packed = False
+
+    first, stop = STREAM_SYNC_SHARDS[rank]
+    mine = _stream_batches(_absrel_stream())[first:stop]
+    q = mt.StreamingQuantile(q=SKETCH_Q, capacity=SKETCH_CAPACITY, max_items=SKETCH_MAX_ITEMS, device=DEVICE)
+    ring = mt.WindowedMetric(mt.StreamingQuantile(q=0.99, capacity=SKETCH_CAPACITY, max_items=SKETCH_MAX_ITEMS,
+                                                  device=DEVICE), window_size=RING_WINDOW, device=DEVICE)
+    advance_at = {len(mine) * (m + 1) // (RING_ADVANCES + 1) - 1 for m in range(RING_ADVANCES)}
+    for i, x in enumerate(mine):
+        q.update(x)
+        ring.update(x)
+        if i in advance_at:
+            ring.advance()
+    leaves = {f"local.q.{k}": v for k, v in q.sketch_tree("sketch").items()}
+    leaves.update({f"local.ring.{k}": v for k, v in ring.sketch_tree("wb_sketch").items()})
+    kll.kll_fold.launches = 0
+    report = {}
+    for path, backend in (("packed", None), ("pure", PerLeaf())):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        with q.sync_context(backend=backend):
+            torch.cuda.synchronize()
+            report[f"{path}_ms"] = (time.perf_counter() - start) * 1e3
+            leaves.update({f"{path}.q.{k}": v for k, v in q.sketch_tree("sketch").items()})
+        report[f"{path}_bytes"] = q.last_sync_report["bytes_gathered"]
+        with ring.sync_context(backend=backend):
+            leaves.update({f"{path}.ring.{k}": v for k, v in ring.sketch_tree("wb_sketch").items()})
+    report["sync_launches"] = kll.kll_fold.launches
+    report["estimates"] = q.compute().cpu().tolist()
+    report["local"] = not q._is_synced and all(
+        torch.equal(v.view(torch.int32) if v.dtype == torch.uint32 else v,
+                    leaves[f"local.q.{k}"].view(torch.int32) if v.dtype == torch.uint32 else leaves[f"local.q.{k}"])
+        for k, v in q.sketch_tree("sketch").items())
+    np.savez(out / f"rank{rank}.npz", **{k: v.cpu().numpy() for k, v in leaves.items()})
+    (out / f"rank{rank}.json").write_text(json.dumps(report))
+
+
+def phase_stream_sync(sk, data: np.ndarray) -> dict:
+    """Two ranks on ``cuda:0`` fold uneven shares of the NYU stream and sync: both paths, both ranks, bitwise
+    equal to each other and to this process's ``kll_merge`` of the two ranks' local states."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_streaming_") as tmp:
+        where = Path(tmp) / "streaming"
+        start = time.perf_counter()
+        seen = _wait_ranks("streaming", _start_ranks("streaming", where), where)
+        took = time.perf_counter() - start
+        got = [dict(np.load(where / f"rank{rank}.npz")) for rank in range(SYNC_WORLD)]
+
+    def tree(rank_leaves: dict, prefix: str) -> dict:
+        return {k[len(prefix):]: torch.from_numpy(v).to(DEVICE) for k, v in rank_leaves.items() if k.startswith(prefix)}
+
+    want_q = sk.kll_merge([tree(g, "local.q.") for g in got])
+    want_ring = sk.kll_merge([tree(g, "local.ring.") for g in got])
+    for rank, g in enumerate(got):
+        for path in ("packed", "pure"):
+            _same_leaves(f"sync rank {rank} {path} quantile sketch", tree(g, f"{path}.q."), want_q)
+            _same_leaves(f"sync rank {rank} {path} ring", tree(g, f"{path}.ring."), want_ring)
+        if not seen[rank]["local"]:
+            raise AssertionError(f"sync rank {rank}: the local sketch did not come back after compute()")
+        if seen[rank]["sync_launches"] != 4:
+            raise AssertionError(f"sync rank {rank}: {seen[rank]['sync_launches']} kll_fold launches for two syncs of a "
+                                 "sketch and two of a ring, not one each")
+    if seen[0]["estimates"] != seen[1]["estimates"]:
+        raise AssertionError("sync: the ranks' estimates differ")
+    n = int(want_q["n"])
+    eps = sk.kll_rank_error_bound(n, SKETCH_CAPACITY)
+    errs = _rank_errors(np.array(seen[0]["estimates"], np.float32), SKETCH_Q, data)
+    if n != data.size or errs.max() > eps:
+        raise AssertionError(f"sync: merged estimates' rank errors {errs!r} over the bound {eps!r} (n {n})")
+    print(f"check streaming sync: both ranks, packed and leaf by leaf, bitwise equal to kll_merge of the two local "
+          f"sketches and rings ({took:.1f} s with start-up); estimates' rank errors {errs.tolist()!r} (bound {eps!r}); "
+          f"sync ms per rank {[(s['packed_ms'], s['pure_ms']) for s in seen]!r}, bytes gathered "
+          f"{[(s['packed_bytes'], s['pure_bytes']) for s in seen]!r}, one kll_fold launch per merge")
+    return {"ranks_s": took, "rank_errors": errs.tolist(), "sync_ms_per_rank": [[s["packed_ms"], s["pure_ms"]] for s in seen],
+            "bytes_gathered_per_rank": [[s["packed_bytes"], s["pure_bytes"]] for s in seen],
+            "kll_launches_per_rank": [s["sync_launches"] for s in seen]}
+
+
+def phase_streaming(mt, ops, card: str) -> Tuple[dict, dict, dict]:
+    """(a) per-pixel error quantiles and a histogram over the NYU-Depth pass, (b) the kernel against its
+    plain version, (c) windows and a time-decayed metric, (d) a two-rank sketch sync; each against numpy.
+    Returns the stat-scores launches, the kll_fold entry of the kernels line, and the streaming line."""
+    from metrics_tpu_torch.ops import kll
+    from metrics_tpu_torch.streaming import sketches as sk
+
+    phase_start = time.perf_counter()
+    checks, passes = {}, {}
+    err = _absrel_stream()
+    batches = _stream_batches(err)
+    n = err.numel()
+
+    # (a) the main path: every batch into the quantiles and the histogram
+    q = mt.StreamingQuantile(q=SKETCH_Q, capacity=SKETCH_CAPACITY, max_items=SKETCH_MAX_ITEMS, device=DEVICE)
+    hist = mt.StreamingHistogram(bins=HIST_BINS, max_items=SKETCH_MAX_ITEMS, device=DEVICE)
+    launches_main = 0
+    results, deep = {}, {}  # deep: each sketch around its launch on the stream's last full batch, for (b)
+    deep_at = len(batches) - 2  # the last batch holds 6 maps; the one before it is 8 maps into a deep state
+    for name, metric in (("quantile", q), ("histogram", hist)):
+        kll.kll_fold.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        start = time.perf_counter()
+        for i, x in enumerate(batches):
+            if i == deep_at:
+                before = {k: v.clone() for k, v in metric.sketch_tree("sketch").items()}
+            metric.update(x)
+            if i == deep_at:
+                deep[name] = (before, {k: v.clone() for k, v in metric.sketch_tree("sketch").items()})
+        results[name] = metric.compute()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - start
+        launches = kll.kll_fold.launches
+        launches_main += launches
+        tree = metric.sketch_tree("sketch")
+        levels, capacity = tree["buf"].shape
+        passes[f"(a) {name}"] = {
+            "values_per_s": n / secs, "values": n, "batches": len(batches), "capacity": capacity, "levels": levels,
+            "chunks": sum(-(-x.numel() // (capacity // 2)) for x in batches), "compactions": int(tree["nc"]),
+            "launches": launches, "peak_bytes": torch.cuda.max_memory_allocated() - base, "secs": secs,
+        }
+        print(f"streaming (a) {name}: {passes[f'(a) {name}']!r}")
+        if launches != len(batches) or int(tree["n"]) != n:
+            raise AssertionError(f"{name}: {launches} kll_fold launches for {len(batches)} updates, n {int(tree['n'])} of {n}")
+    data = np.sort(err.cpu().numpy())  # the exact ranks of every check below come from one sort on the host
+    eps_q = sk.kll_rank_error_bound(n, SKETCH_CAPACITY)
+    errs = _rank_errors(results["quantile"].cpu().numpy(), SKETCH_Q, data)
+    checks["(a) quantiles"] = {"estimates": results["quantile"].cpu().tolist(), "rank_errors": errs.tolist(), "bound": eps_q}
+    print(f"check streaming quantiles {SKETCH_Q}: estimates {results['quantile'].cpu().tolist()!r}, normalized rank "
+          f"errors against the exact ranks {errs.tolist()!r} (bound {eps_q!r})")
+    if errs.max() > eps_q:
+        raise AssertionError("streaming quantiles outside the sketch's rank-error bound")
+    _histogram_check(results["histogram"], data, sk.kll_rank_error_bound(n, mt.DEFAULT_CAPACITY), checks)
+    updates = _member_timings({
+        "StreamingQuantile (capacity 2048)": (mt.StreamingQuantile(q=SKETCH_Q, capacity=SKETCH_CAPACITY,
+                                                                   max_items=SKETCH_MAX_ITEMS, device=DEVICE), (batches[0],)),
+        "StreamingHistogram (capacity 256)": (mt.StreamingHistogram(bins=HIST_BINS, max_items=SKETCH_MAX_ITEMS,
+                                                                    device=DEVICE), (batches[0],)),
+    })
+
+    # (b) the kernel against its plain version
+    compared = _card_vs_plain_sketches(sk, err, batches[deep_at], deep)
+    timing = _kll_timings(sk, kll, err)
+
+    # (c) windows
+    del batches
+    stat_launches, kll_c, window_info = _phase_windows(mt, ops, kll, checks)
+    passes["(c) windows"] = window_info
+
+    # (d) the sketch sync over two ranks
+    del err
+    torch.cuda.empty_cache()
+    sync = phase_stream_sync(sk, data)
+
+    secs = time.perf_counter() - phase_start
+    print(f"streaming phase took {secs:.1f} s")
+    entry = {
+        "name": "kll_fold",
+        "route": "cuda",
+        "source": "metrics_tpu_torch/ops/csrc/kll_fold.cu",
+        "replaces": "metrics_tpu/streaming/sketches.py:128",
+        "replaces_kind": "_fold_chunks, a lax.scan formulation (not a Pallas kernel)",
+        "launches": launches_main + kll_c["kll"],
+        "bitwise": True,
+        "max_abs_err": 0,
+        # the profiler's own device time of the launch; one call's time where the profiler saw no device activity
+        "ms": timing["prefix_ms"] if timing["prefix_ms"] is not None else timing["call_ms"],
+        "ms_shape": f"{PREFIX_CHUNKS} chunks of {SKETCH_CAPACITY // 2} at capacity {SKETCH_CAPACITY}, from empty",
+        "per_chunk_us": timing["per_chunk_us"],
+        "main_path_update_ms": timing["update_ms"],
+        "main_path_update_ms_capacity_256": timing["narrow_update_ms"],
+        "plain_ms": timing["plain_ms"],
+        "bound_ms": timing["bound_ms"],
+        "bound_by": timing["bound_by"],
+        "library_ms": None,
+        "library_note": "no PyTorch call folds chunks into a KLL sketch",
+    }
+    line = {"streaming": {
+        "card": card, "passes": passes, "updates": updates, "checks": checks, "card_vs_plain": compared,
+        "kll_timing": timing, "sync": sync, "launches": {**stat_launches, "kll_fold": entry["launches"]}, "phase_s": secs,
+    }}
+    return stat_launches, entry, line
+
+
 def _device_ops(fn, calls: int = 1) -> Optional[list]:
     """(name, device ms) of each device operation that ``calls`` calls of ``fn`` issue, as
     torch.profiler records them; None where the profiler records no device activity on this machine."""
@@ -2859,18 +3365,22 @@ def main() -> int:
     regression_launches, regression_line = phase_regression(mt, ops, card)
     torch.cuda.empty_cache()
     wrapper_launches, wrapper_line = phase_wrappers_retrieval(mt, ops, card)
+    torch.cuda.empty_cache()
+    streaming_launches, kll_entry, streaming_line = phase_streaming(mt, ops, card)
     print(f"launches per entry point: main path {launches}, curve phase {curve_launches}, "
           f"rest of classification {rest_launches}, regression {regression_launches}, "
-          f"wrappers and retrieval {wrapper_launches}")
+          f"wrappers and retrieval {wrapper_launches}, streaming {streaming_launches}")
     for entry in kernels:
         route = "canonical" if entry["name"] == "stat_scores" else "logits"
         entry["launches"] += (curve_launches[route] + rest_launches[route] + regression_launches[route]
-                              + wrapper_launches[route])
+                              + wrapper_launches[route] + streaming_launches[route])
+    kernels.append(kll_entry)
     print(json.dumps(sync_line))
     print(json.dumps(curve_line))
     print(json.dumps(rest_line))
     print(json.dumps(regression_line))
     print(json.dumps(wrapper_line))
+    print(json.dumps(streaming_line))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

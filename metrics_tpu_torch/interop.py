@@ -47,6 +47,10 @@ def load_jax_state(metric: Metric, state: Dict[str, Any], extra: Optional[Dict[s
     dtype; its ``<name>__len`` says how many are valid.
     ``_update_count``, where ``state`` carries it, and the attributes in
     ``extra`` (such as the locked classification ``mode``) are restored too.
+    Sketch leaves (``<name>__sk_<leaf>``, the PRNG key a ``uint32`` ``(2,)``)
+    and a ``WindowedMetric``'s rings (``wb_*``, ``w__ptr``, ``w__count``) load
+    as tensor states, so a sketch loaded mid-stream continues bit for bit as
+    it would have in the JAX package: its coin flips come from the key.
 
     A ``BootStrapper``'s ``state`` holds ``_update_count``, ``rng`` (the JAX
     wrapper's ``_rng.bit_generator.state``: the draws continue where its

@@ -226,6 +226,38 @@ def _to_state_tensor(value: Any, device: torch.device) -> torch.Tensor:
     return value.to(device)
 
 
+class _Uint32Words:
+    """A ``torch.uint32`` tensor (a sketch's PRNG key) inside a pickle.
+
+    PyTorch pickles that dtype's storage but cannot load it back, so it
+    travels as the int32 words of the same bits.
+    """
+
+    def __init__(self, tensor: torch.Tensor) -> None:
+        self.words = tensor.view(torch.int32)
+
+    def tensor(self) -> torch.Tensor:
+        return self.words.view(torch.uint32)
+
+
+def _picklable(value: Any) -> Any:
+    """``value`` (or a dict's values) with every ``torch.uint32`` tensor as :class:`_Uint32Words`."""
+    if isinstance(value, torch.Tensor) and value.dtype == torch.uint32:
+        return _Uint32Words(value)
+    if type(value) is dict:
+        return {k: _picklable(v) for k, v in value.items()}
+    return value
+
+
+def _unpickled(value: Any) -> Any:
+    """The inverse of :func:`_picklable`."""
+    if isinstance(value, _Uint32Words):
+        return value.tensor()
+    if type(value) is dict:
+        return {k: _unpickled(v) for k, v in value.items()}
+    return value
+
+
 class Metric(nn.Module, ABC):
     """Base class for all metrics.
 
@@ -319,6 +351,8 @@ class Metric(nn.Module, ABC):
         self._reduce_fns: Dict[str, Any] = {}
         self._persistent: Dict[str, bool] = {}
         self._buffer_states: Dict[str, Dict[str, Any]] = {}
+        # fixed-shape mergeable sketch states: name -> {"merge": fn([tree, ...]) -> tree, "leaves": [leaf, ...]}
+        self._sketch_states: Dict[str, Dict[str, Any]] = {}
         self._update_count = 0
         self._computed: Any = None
         self._is_synced = False
@@ -483,6 +517,91 @@ class Metric(nn.Module, ABC):
             meta["trail"] = tuple(buf.shape[1:])
             meta["dtype"] = buf.dtype
 
+    # ---------------------------------------------------------- sketch states
+    def add_sketch_state(self, name: str, default: Dict[str, Any], merge_fn: Callable, persistent: bool = False) -> None:
+        """Register a fixed-shape mergeable sketch state (:mod:`metrics_tpu_torch.streaming`).
+
+        ``default`` is a flat dict of fixed-shape tensors (a sketch's state,
+        e.g. :func:`metrics_tpu_torch.streaming.kll_init`); ``merge_fn`` folds
+        a sequence of such dicts into one (e.g. ``kll_merge``).  Each leaf
+        becomes a tensor state ``<name>__sk_<leaf>`` whose ``dist_reduce_fx``
+        is ``"sketch"``: a sync gathers every rank's leaves and folds the
+        per-rank trees through ``merge_fn`` in rank order, and
+        :meth:`merge_state` does the same.  A sketch is fixed-size, so it is
+        never delta-synced, and its leaves may hold ``±inf`` padding, which
+        the ``validate_sync`` checks let through.
+        """
+        if not isinstance(default, dict) or not default:
+            raise ValueError("sketch state default must be a non-empty dict of arrays")
+        if not callable(merge_fn):
+            raise ValueError("sketch merge_fn must be callable")
+        if not name.isidentifier():
+            raise ValueError(f"state name must be a valid identifier, got {name!r}")
+        if name in self._sketch_states:
+            raise ValueError(f"sketch state {name!r} already registered")
+        leaves = sorted(default)
+        for leaf in leaves:
+            if not leaf.isidentifier():
+                raise ValueError(f"sketch leaf name must be a valid identifier, got {leaf!r}")
+            key = f"{name}__sk_{leaf}"
+            self.add_state(key, default[leaf], dist_reduce_fx=None, persistent=persistent)
+            # "sketch" is not a reduce add_state takes: it needs the merge_fn registered below
+            self._reduce_fns[key] = "sketch"
+        self._sketch_states[name] = {"merge": merge_fn, "leaves": leaves}
+
+    def _sketch_leaf_keys(self, name: str) -> List[str]:
+        return [f"{name}__sk_{leaf}" for leaf in self._sketch_states[name]["leaves"]]
+
+    def sketch_tree(self, name: str, state: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+        """The sketch's state dict (leaf name -> tensor), from ``state`` or the live metric state."""
+        return {
+            leaf: getattr(self, f"{name}__sk_{leaf}") if state is None else state[f"{name}__sk_{leaf}"]
+            for leaf in self._sketch_states[name]["leaves"]
+        }
+
+    def _store_sketch_tree(self, name: str, tree: Dict[str, Any], state: Optional[Dict[str, Any]] = None) -> None:
+        """Write a sketch's state dict back into ``state`` (or the live state)."""
+        for leaf in self._sketch_states[name]["leaves"]:
+            if state is None:
+                setattr(self, f"{name}__sk_{leaf}", tree[leaf])
+            else:
+                state[f"{name}__sk_{leaf}"] = tree[leaf]
+
+    def _sketch_leaf_key_set(self) -> set:
+        return {k for name in self._sketch_states for k in self._sketch_leaf_keys(name)}
+
+    def _merge_sketches(self, name: str, states: Sequence[Dict[str, Any]]) -> Dict[str, Any]:
+        """Fold sketch ``name`` of each state dict (in order) through its ``merge_fn``."""
+        trees = [self.sketch_tree(name, state) for state in states]
+        return self._sketch_states[name]["merge"](trees) if len(trees) > 1 else trees[0]
+
+    def state_kinds(self) -> Dict[str, str]:
+        """Each logical state's kind: ``"tensor"``, ``"list"``, ``"buffer"`` (one entry for
+        ``<name>__buf`` and ``<name>__len``) or ``"sketch"`` (one entry for every
+        ``<name>__sk_<leaf>``), as the JAX package's checkpoint codec reads them."""
+        out: Dict[str, str] = {}
+        covered: set = set()
+        for name in self._sketch_states:
+            out[name] = "sketch"
+            covered.update(self._sketch_leaf_keys(name))
+        for name in self._buffer_states:
+            out[name] = "buffer"
+            covered.update((name + "__buf", name + "__len"))
+        for name, default in self._defaults.items():
+            if name not in covered:
+                out[name] = "list" if isinstance(default, list) else "tensor"
+        return out
+
+    def state_keys(self, name: str) -> List[str]:
+        """The flat :meth:`state_pytree` keys that make up logical state ``name``."""
+        if name in self._sketch_states:
+            return self._sketch_leaf_keys(name)
+        if name in self._buffer_states:
+            return [name + "__buf", name + "__len"]
+        if name in self._defaults:
+            return [name]
+        raise KeyError(f"unknown state {name!r}")
+
     @property
     def update_count(self) -> int:
         return self._update_count
@@ -621,10 +740,12 @@ class Metric(nn.Module, ABC):
         """
         if self._is_synced:
             raise MetricsTPUUserError("Calling forward while the metric is synced is forbidden.")
-        # custom callables and None-reduce *tensor* states have no O(1) merge
-        # rule — route them through the full re-update path
+        # custom callables, sketches and None-reduce *tensor* states have no
+        # O(1) merge rule — route them through the full re-update path (a
+        # sketch's batch value comes from a fresh default state, whose key is
+        # the seed's, and the batch never merges into the live state)
         no_fast_merge = any(
-            callable(fx) or (fx is None and not isinstance(getattr(self, name), list))
+            callable(fx) or fx == "sketch" or (fx is None and not isinstance(getattr(self, name), list))
             for name, fx in self._reduce_fns.items()
         )
         if self.full_state_update or self.dist_sync_on_step or no_fast_merge:
@@ -707,6 +828,92 @@ class Metric(nn.Module, ABC):
                 merged = _merge_tensor_state(fx, global_val, local_val, global_count)
             setattr(self, name, merged)
 
+    def merge_state(
+        self,
+        other_state: Union[Dict[str, Any], Sequence[Dict[str, Any]]],
+        other_count: Optional[Union[int, Sequence[int]]] = None,
+    ) -> None:
+        """Fold other instances' states (what :meth:`state_pytree` returns) into this one.
+
+        A sequence merges in one pass.  With ``other_count`` (each other
+        instance's update count), ``mean`` states merge weighted by the counts
+        and the update count grows by them; without it ``mean`` states average
+        equally.  Buffer, list and ``cat`` states concatenate in order; sketch
+        states fold through their ``merge_fn``.
+        """
+        others = [dict(other_state)] if isinstance(other_state, dict) else [dict(s) for s in other_state]
+        for other in others:
+            other.pop("_update_count", None)
+        if other_count is None:
+            counts: Optional[List[float]] = None
+        elif isinstance(other_count, (list, tuple)):
+            counts = [float(c) for c in other_count]
+        else:
+            counts = [float(other_count)]
+        if counts is not None and len(counts) != len(others):
+            raise ValueError(f"`other_count` has {len(counts)} entries for {len(others)} state pytrees")
+        parts_n = 1 + len(others)
+        total = float(self._update_count) + sum(counts or [])
+        if counts is not None and total:
+            weights = [float(self._update_count) / total] + [c / total for c in counts]
+        else:
+            weights = [1.0 / parts_n] * parts_n
+        skip = self._buffer_keys() | self._sketch_leaf_key_set()
+        for bname, meta in self._buffer_states.items():
+            bkey, lkey = bname + "__buf", bname + "__len"
+            parts = [self.buffer_values(bname)] + [
+                self._extract_buffer_values(_to_state_tensor(s[bkey], self.device), int(s[lkey]), bname) for s in others
+            ]
+            filled = [p for p in parts if p.shape[0]]
+            if not filled:
+                rows = parts[0]
+            else:
+                dtype = filled[0].dtype
+                for p in filled[1:]:
+                    dtype = _x32_dtype(torch.promote_types(dtype, p.dtype))
+                rows = torch.cat([p.to(dtype) for p in filled])
+            setattr(self, bkey, rows)
+            setattr(self, lkey, int(rows.shape[0]))
+            self._refresh_buffer_meta(bname)
+            meta["owned"] = None
+        for sname in self._sketch_states:
+            own = {k: getattr(self, k) for k in self._sketch_leaf_keys(sname)}
+            theirs = [{k: _to_state_tensor(s[k], self.device) for k in self._sketch_leaf_keys(sname)} for s in others]
+            self._store_sketch_tree(sname, self._merge_sketches(sname, [own] + theirs))
+        for name in self._defaults:
+            if name in skip:
+                continue
+            value = getattr(self, name)
+            fx = self._reduce_fns[name]
+            theirs = [s[name] for s in others]
+            if isinstance(value, list):
+                merged: Any = list(value)
+                for p in theirs:
+                    merged.extend(p if isinstance(p, list) else [_to_state_tensor(p, self.device)])
+                setattr(self, name, merged)
+                continue
+            parts = [value] + [_to_state_tensor(p, self.device) for p in theirs]
+            if fx is None or fx == "cat":
+                merged = torch.cat([torch.atleast_1d(p) for p in parts])
+            elif fx in ("sum", "max", "min"):
+                step = {"sum": torch.add, "max": torch.maximum, "min": torch.minimum}[fx]
+                merged = parts[0]
+                for p in parts[1:]:
+                    merged = step(merged, p)
+            elif fx == "mean":
+                merged = weights[0] * parts[0]
+                for w, p in zip(weights[1:], parts[1:]):
+                    merged = merged + w * p
+            elif callable(fx):
+                merged = fx(torch.stack(parts))
+            else:
+                raise ValueError(f"cannot merge state {name!r} with reduce {fx!r}")
+            setattr(self, name, merged)
+        if counts is not None:
+            self._update_count += int(sum(counts))
+        self._computed = None
+        self._delta_cache.clear()  # merged-in rows were never part of a gathered prefix
+
     # ------------------------------------------------------------------- sync
     def _sync_options(self) -> SyncOptions:
         return SyncOptions.resolve(self.sync_timeout, self.sync_max_retries, self.sync_backoff)
@@ -751,8 +958,10 @@ class Metric(nn.Module, ABC):
         self, state: Dict[str, Any], phase: str, reference: Optional[Dict[str, Any]] = None
     ) -> None:
         """NaN/Inf and dtype-drift checks for ``validate_sync=True``."""
+        sketch_keys = self._sketch_leaf_key_set()
         for name, value in state.items():
-            if isinstance(value, int):  # a buffer's row count
+            # a buffer's row count; sketch leaves hold ±inf padding by design
+            if isinstance(value, int) or name in sketch_keys:
                 continue
             leaves = value if isinstance(value, list) else [value]
             for leaf in leaves:
@@ -801,6 +1010,12 @@ class Metric(nn.Module, ABC):
                     gathered = backend.all_gather_cat(self._extract_buffer_values(buf, cnt, bname))
                 out[bkey] = gathered
                 out[lkey] = int(gathered.shape[0])
+            for sname, smeta in self._sketch_states.items():
+                keys = self._sketch_leaf_keys(sname)
+                tree = {leaf: state.pop(key) for leaf, key in zip(smeta["leaves"], keys)}
+                with backend.annotate(sname):
+                    merged_tree = backend.all_gather_merge(tree, smeta["merge"])
+                out.update({key: merged_tree[leaf] for leaf, key in zip(smeta["leaves"], keys)})
             for name, value in state.items():
                 with backend.annotate(name):
                     if isinstance(value, list):
@@ -832,11 +1047,15 @@ class Metric(nn.Module, ABC):
         collectives in all instead of two per state.  Each rank's part comes
         back to the metric's device, where cat states concatenate in rank
         order and reduced states fold in rank order, with their own dtypes.
+        Sketch leaves travel whole (there is no appended suffix to cut) and
+        fold through the sketch's ``merge_fn`` in rank order.
         """
         payload: Dict[str, torch.Tensor] = {}
         out: Dict[str, Any] = {}
         cat_names: List[str] = []
         reduce_names: List[str] = []
+        for key in self._sketch_leaf_key_set():
+            payload["s." + key] = state.pop(key)
         for bname in self._buffer_states:
             bkey, lkey = bname + "__buf", bname + "__len"
             payload["b." + bname] = self._extract_buffer_values(state.pop(bkey), state.pop(lkey), bname)
@@ -883,6 +1102,9 @@ class Metric(nn.Module, ABC):
         for name in reduce_names:
             stacked = torch.stack([r["r." + name] for r in per_rank])
             out[name] = reduce_stack(stacked, self._reduce_fns[name])
+        for sname in self._sketch_states:
+            merged_tree = self._merge_sketches(sname, [{k[2:]: v for k, v in r.items() if k.startswith("s.")} for r in per_rank])
+            out.update({f"{sname}__sk_{leaf}": value for leaf, value in merged_tree.items()})
         return out
 
     # ------------------------------------------------------------- delta sync
@@ -1342,7 +1564,7 @@ class Metric(nn.Module, ABC):
 
     # -------------------------------------------------------------- pickling
     def __getstate__(self) -> Dict[str, Any]:
-        d = self.__dict__.copy()
+        d = {key: _picklable(value) for key, value in self.__dict__.items()}
         # bound-method wrappers are reinstalled in __setstate__
         for key in ("update", "compute", "_update_impl", "_compute_impl"):
             d.pop(key, None)
@@ -1354,7 +1576,7 @@ class Metric(nn.Module, ABC):
         return d
 
     def __setstate__(self, d: Dict[str, Any]) -> None:
-        super().__setstate__(d)
+        super().__setstate__({key: _unpickled(value) for key, value in d.items()})
         self._delta_cache = _DeltaCache()
         self._install_wrappers()
 

@@ -13,28 +13,19 @@ with two entry points in ``csrc/stat_scores.cu``, one launch each:
 CUDA tensors launch the kernel and CPU tensors take the plain version.  The
 kernels are compiled with ``nvcc`` from the package's own source at first use,
 into ``build/kernels/`` at the root of the checkout, keyed by a hash of the
-source and flags, and loaded with ``ctypes``.  A failed build or launch raises.
+source and flags, and loaded with ``ctypes`` (:mod:`metrics_tpu_torch.ops._build`).  A failed build or launch raises.
 """
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 from typing import Tuple
 
 import torch
 
+from metrics_tpu_torch.ops import _build
 from metrics_tpu_torch.utils.data import select_topk, to_onehot
 
-_SOURCE = Path(__file__).resolve().parent / "csrc" / "stat_scores.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-_NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+_SOURCE = _build.CSRC / "stat_scores.cu"
 _COUNT_FUNCTIONS = {torch.int32: "stat_scores_i32", torch.bool: "stat_scores_u8"}
 _LOGITS_FUNCTIONS = {
     torch.float32: "stat_scores_logits_f32",
@@ -47,43 +38,9 @@ LABEL_DTYPES = (torch.int64, torch.int32)
 Counts = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
 
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    if CUDA_HOME is not None and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
-        return str(Path(CUDA_HOME) / "bin" / "nvcc")
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: the stat-scores CUDA kernels cannot be built")
-    return found
-
-
-def build() -> Tuple[Path, str]:
-    """Compile the kernels if this source has not been built yet.
-
-    Returns the shared library's path and the compiler's messages (the
-    ``-Xptxas -v`` register and shared-memory report; empty when the library
-    was already built).
-    """
-    digest = hashlib.sha256(_SOURCE.read_bytes() + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = _BUILD_DIR / f"libstat_scores_{digest}.so"
-    if out.exists():
-        return out, ""
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")  # concurrent builds never share a file
-    proc = subprocess.run(
-        [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)],
-        capture_output=True, text=True, check=False,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed to build {_SOURCE.name} (exit {proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, out)
-    return out, proc.stderr
-
-
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build()[0]))
+    lib = _build.load(_SOURCE)
     pointer, i64 = ctypes.c_void_p, ctypes.c_int64
     for name in set(_COUNT_FUNCTIONS.values()):
         fn = getattr(lib, name)  # (preds, target, n, c, out, stream)

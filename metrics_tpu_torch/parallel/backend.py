@@ -307,6 +307,21 @@ class Backend:
         """Gather with a new leading participant dim."""
         raise NotImplementedError
 
+    def all_gather_merge(self, tree: Dict[str, torch.Tensor], merge_fn: Callable) -> Dict[str, torch.Tensor]:
+        """Merge-on-gather for fixed-shape sketch states.
+
+        Gathers every leaf with a leading participant dim (one stacked gather
+        per leaf, in sorted leaf order), reassembles each rank's tree and folds
+        them through ``merge_fn`` in rank order, so every rank computes the
+        same merged sketch without a broadcast.
+        """
+        leaves = sorted(tree)
+        stacked = {k: self.all_gather_stack(tree[k]) for k in leaves}
+        ranks = int(stacked[leaves[0]].shape[0])
+        if ranks == 1:
+            return {k: stacked[k][0] for k in leaves}
+        return merge_fn([{k: stacked[k][p] for k in leaves} for p in range(ranks)])
+
 
 class NullBackend(Backend):
     def is_distributed(self) -> bool:

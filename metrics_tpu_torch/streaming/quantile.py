@@ -1,0 +1,164 @@
+"""Streaming quantile and histogram metrics over the KLL sketch
+(counterpart of ``metrics_tpu/streaming/quantile.py``).
+
+Bounded-state replacements for ``cat``-state percentile evaluation: the
+state is a fixed ``(levels, capacity)`` sketch whatever the stream's length,
+and a sync rides the ``"sketch"`` reduce: every rank gathers its peers'
+sketches and folds them with :func:`~metrics_tpu_torch.streaming.kll_merge`,
+so the synced estimate is as good as one sketch over the union of the shards.
+
+The JAX package's ``SketchMetric`` also reports the sketch's compaction count
+to its observability counters; the port has no such counters yet, and keeps
+the count in the sketch's ``nc`` leaf.
+"""
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from metrics_tpu_torch.metric import Metric
+from metrics_tpu_torch.streaming._threefry import fma32
+from metrics_tpu_torch.streaming.sketches import (
+    DEFAULT_CAPACITY,
+    DEFAULT_MAX_ITEMS,
+    kll_cdf,
+    kll_init,
+    kll_merge,
+    kll_quantile,
+    kll_rank_error_bound,
+    kll_total_weight,
+    kll_update,
+)
+from metrics_tpu_torch.utils.data import _linspace_thresholds, _total_order_keys
+
+__all__ = ["SketchMetric", "StreamingQuantile", "StreamingHistogram"]
+
+
+class SketchMetric(Metric):
+    """Base for metrics whose primary state is one KLL sketch named ``"sketch"``.
+
+    Args:
+        capacity: per-level sketch width (even, >= 8); error ~ O(1/capacity).
+        seed: PRNG seed of the compaction coin flips (``jax.random.PRNGKey(seed)``).
+        max_items: design stream length (sets the level count).
+    """
+
+    is_differentiable = False
+    higher_is_better = None
+
+    def __init__(
+        self,
+        capacity: int = DEFAULT_CAPACITY,
+        seed: int = 0,
+        max_items: int = DEFAULT_MAX_ITEMS,
+        **kwargs: Any,
+    ) -> None:
+        super().__init__(**kwargs)
+        self.capacity = int(capacity)
+        self.add_sketch_state(
+            "sketch", kll_init(capacity=capacity, seed=seed, max_items=max_items, device=self.device), kll_merge
+        )
+
+    def update(self, values) -> None:
+        self._store_sketch_tree("sketch", kll_update(self.sketch_tree("sketch"), values))
+
+    @property
+    def n_items(self) -> int:
+        """Items folded in so far (a host read)."""
+        return int(self.sketch_tree("sketch")["n"])
+
+    def rank_error_bound(self) -> float:
+        """Worst-case normalized rank error of the current estimates."""
+        return kll_rank_error_bound(max(self.n_items, 1), self.capacity)
+
+
+class StreamingQuantile(SketchMetric):
+    """O(1)-state online quantile estimator.
+
+    ``update(values)`` folds a batch; ``compute()`` returns the estimated
+    ``q``-quantile(s) of everything seen, across all ranks when a process
+    group is up (sketch merge on gather), within :meth:`rank_error_bound`
+    normalized rank of exact.
+
+    Args:
+        q: quantile(s) in [0, 1]; scalar in, scalar out.
+        capacity, seed, max_items: see :class:`SketchMetric`.
+
+    Example:
+        >>> import torch
+        >>> from metrics_tpu_torch import StreamingQuantile
+        >>> m = StreamingQuantile(q=0.5, capacity=64, device="cpu")
+        >>> m.update(torch.arange(11.0))
+        >>> float(m.compute())
+        5.0
+    """
+
+    def __init__(self, q=0.5, **kwargs: Any) -> None:
+        super().__init__(**kwargs)
+        qs = np.atleast_1d(np.asarray(q, np.float64))
+        if qs.size == 0 or ((qs < 0.0) | (qs > 1.0)).any():
+            raise ValueError(f"quantiles must lie in [0, 1], got {q!r}")
+        self._scalar_q = np.ndim(q) == 0
+        self.q = tuple(float(x) for x in qs)
+
+    def compute(self):
+        out = kll_quantile(self.sketch_tree("sketch"), torch.tensor(self.q, dtype=torch.float32, device=self.device))
+        return out[0] if self._scalar_q else out
+
+
+def _xla_extreme(x: torch.Tensor, largest: bool) -> torch.Tensor:
+    """``jnp.max``/``jnp.min`` of floats without NaN: ranked by IEEE totalOrder, which puts ``-0.0``
+    below ``+0.0`` as XLA's max and min do (``torch.amin`` takes either zero)."""
+    flat = x.reshape(-1)
+    keys = _total_order_keys(flat)
+    at = keys.argmax() if largest else keys.argmin()
+    return flat.index_select(0, at.reshape(1)).reshape(())  # a tensor index: no read of ``at`` to the host
+
+
+class StreamingHistogram(SketchMetric):
+    """Fixed-state streaming histogram: ``compute()`` returns ``{"edges": (bins+1,),
+    "counts": (bins,)}`` over the observed [min, max] range.
+
+    Counts are sketch estimates (CDF differences scaled by the total weight),
+    accurate to the sketch's rank-error bound; the edges are exact (min and
+    max ride ordinary ``min``/``max`` reduces).
+    """
+
+    def __init__(self, bins: int = 10, **kwargs: Any) -> None:
+        super().__init__(**kwargs)
+        if int(bins) < 1:
+            raise ValueError(f"bins must be >= 1, got {bins}")
+        self.bins = int(bins)
+        self.add_state("minv", torch.tensor(float("inf")), dist_reduce_fx="min")
+        self.add_state("maxv", torch.tensor(float("-inf")), dist_reduce_fx="max")
+
+    def update(self, values) -> None:
+        vals = torch.as_tensor(values, device=self.device).reshape(-1).to(torch.float32)
+        if vals.shape[0] == 0:
+            return
+        super().update(vals)
+        finite = torch.isfinite(vals)
+        low = torch.where(finite, vals, torch.full_like(vals, float("inf")))
+        high = torch.where(finite, vals, torch.full_like(vals, float("-inf")))
+        self.minv = _xla_extreme(torch.cat([self.minv.reshape(1), low]), largest=False)
+        self.maxv = _xla_extreme(torch.cat([self.maxv.reshape(1), high]), largest=True)
+
+    def compute(self) -> Dict[str, Any]:
+        tree = self.sketch_tree("sketch")
+        lo, hi = self.minv.to(torch.float32), self.maxv.to(torch.float32)
+        # degenerate (single value or empty) ranges still need increasing edges
+        hi = torch.where(hi > lo, hi, lo + 1.0)
+        grid = torch.from_numpy(_linspace_thresholds(self.bins + 1)).to(self.device)
+        # XLA fuses lo + (hi - lo) * grid into one multiply-add
+        edges = fma32(hi - lo, grid, lo)
+        total = kll_total_weight(tree)
+        below = kll_cdf(tree, edges[1:])
+        # the first bin's lower edge is inclusive (it IS the observed minimum);
+        # XLA contracts each difference of neighbouring upper counts with the
+        # product before it: below * total - upper[i - 1], rounded once
+        upper = below * total
+        previous = torch.cat([torch.zeros((1,), dtype=torch.float32, device=self.device), upper[:-1]])
+        counts = fma32(below, total, -previous)
+        counts = torch.where(total > 0, counts, torch.zeros_like(counts))
+        return {"edges": edges, "counts": counts}

@@ -1,9 +1,4 @@
-"""MetricTracker (counterpart of ``metrics_tpu/wrappers/tracker.py``).
-
-The JAX package's tracker carries the rings of ``WindowedMetric`` members
-into each new step; the port has no windowed metrics yet, so every step
-starts from fresh state.
-"""
+"""MetricTracker (counterpart of ``metrics_tpu/wrappers/tracker.py``)."""
 
 from copy import deepcopy
 from typing import Any, Dict, List, Tuple, Union
@@ -19,7 +14,10 @@ from metrics_tpu_torch.utils.prints import rank_zero_warn
 class MetricTracker:
     """Track a metric (or collection) over steps or epochs.
 
-    ``increment()`` starts a step with a fresh copy of the metric;
+    ``increment()`` starts a step with a fresh copy of the metric, except
+    that a ``WindowedMetric`` (alone or in a collection) carries its ring of
+    buckets into the new step, so each step sees the last ``window_size``
+    buckets;
     ``update``/``compute``/``forward`` address the newest step;
     ``compute_all``/``best_metric`` span every step.  ``best_metric`` gives
     ``None`` (with a warning) for a value that is not one scalar per step,
@@ -63,7 +61,33 @@ class MetricTracker:
 
     def increment(self) -> None:
         self._increment_called = True
-        self._steps.append(deepcopy(self._base_metric))
+        new = deepcopy(self._base_metric)
+        if self._steps:
+            self._carry_window_state(self._steps[-1], new)
+        self._steps.append(new)
+
+    @staticmethod
+    def _carry_window_state(prev: Union[Metric, MetricCollection], new: Union[Metric, MetricCollection]) -> None:
+        """Carry ``WindowedMetric`` members' rings into the next step.
+
+        A fresh copy starts with an empty window, which would drop the sliding
+        history the window exists to keep.  The states are cloned, never
+        aliased.  Other members keep the per-step semantics (fresh state every
+        step).
+        """
+        from metrics_tpu_torch.streaming.window import WindowedMetric
+
+        if isinstance(prev, MetricCollection):
+            pairs = [(prev[k], new[k]) for k in prev.keys(keep_base=True)]
+        else:
+            pairs = [(prev, new)]
+        for pm, nm in pairs:
+            if not isinstance(pm, WindowedMetric):
+                continue
+            for name in pm._defaults:
+                setattr(nm, name, getattr(pm, name).clone())
+            nm._update_count = pm._update_count
+            nm._computed = None
 
     def forward(self, *args: Any, **kwargs: Any) -> Any:
         self._check_for_increment("forward")

@@ -525,3 +525,92 @@ def test_retrieval_and_bootstrap_modules_on_cuda_match_the_cpu(cuda):
     for b in boots:
         b.update(x[0].to(b.device), x[1].to(b.device))
     assert torch.equal(boots[0].compute()["raw"].cpu(), boots[1].compute()["raw"])
+
+
+def _sketch_stream(seed: int, size: int) -> np.ndarray:
+    """Values with ties, both signed zeros, NaN, both infinities and a tail of whole NaN chunks."""
+    rng = np.random.default_rng(seed)
+    v = np.round(rng.normal(size=size), 2).astype(np.float32)
+    v[::7], v[3::11] = 0.0, -0.0
+    v[[1, 2, 4]] = [np.nan, np.inf, -np.inf]
+    v[-64:] = np.nan
+    return v
+
+
+def _same_leaves(a: dict, b: dict) -> None:
+    assert sorted(a) == sorted(b)
+    for k in a:
+        assert a[k].dtype == b[k].dtype and a[k].cpu().numpy().tobytes() == b[k].cpu().numpy().tobytes(), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("capacity,max_items", [(8, 1 << 12), (10, 1 << 10), (256, 1 << 20), (2048, 1 << 26)])
+def test_kll_fold_kernel_matches_plain(cuda, capacity, max_items):
+    from metrics_tpu_torch.ops import kll
+    from metrics_tpu_torch.streaming import sketches as sk
+
+    cpu, card = (sk.kll_init(capacity, seed=2, max_items=max_items, device=d) for d in ("cpu", cuda))
+    before = kll.kll_fold.launches
+    for step in range(3):
+        v = torch.from_numpy(_sketch_stream(step, capacity * 37 + 5))
+        cpu, card = sk.kll_update(cpu, v), sk.kll_update(card, v.to(cuda))
+    torch.cuda.synchronize()
+    assert kll.kll_fold.launches == before + 3
+    _same_leaves(cpu, card)
+    assert int(card["nc"]) > 0
+    empty_cpu, empty_card = (sk.kll_init(capacity, seed=5, max_items=max_items, device=d) for d in ("cpu", cuda))
+    _same_leaves(sk.kll_merge([cpu, empty_cpu, cpu]), sk.kll_merge([card, empty_card, card]))
+    _same_leaves(sk.kll_merge([empty_cpu, cpu]), sk.kll_merge([empty_card, card]))
+    q = torch.tensor([0.01, 0.5, 0.99])
+    assert torch.equal(sk.kll_quantile(cpu, q), sk.kll_quantile(card, q.to(cuda)).cpu())
+
+
+@pytest.mark.cuda
+def test_kll_fold_kernel_folds_a_batch_of_sketches_in_one_launch(cuda):
+    from metrics_tpu_torch.ops import kll
+    from metrics_tpu_torch.streaming import sketches as sk
+
+    sketches = 8
+    inits = [sk.kll_init(256, seed=i, max_items=1 << 20, device="cpu") for i in range(sketches)]
+    cpu = {k: torch.stack([s[k] for s in inits]) for k in inits[0]}
+    card = {k: v.to(cuda) for k, v in cpu.items()}
+    values = torch.from_numpy(np.stack([_sketch_stream(10 + i, 5000) for i in range(sketches)]))
+    before = kll.kll_fold.launches
+    cpu, card = sk.kll_update(cpu, values), sk.kll_update(card, values.to(cuda))
+    merged_cpu, merged_card = sk.kll_merge([cpu, cpu]), sk.kll_merge([card, card])
+    torch.cuda.synchronize()
+    assert kll.kll_fold.launches == before + 2
+    _same_leaves(cpu, card)
+    _same_leaves(merged_cpu, merged_card)
+
+
+@pytest.mark.cuda
+def test_kll_fold_kernel_refuses_rows_wider_than_shared_memory_sorts(cuda):
+    from metrics_tpu_torch.ops import kll
+    from metrics_tpu_torch.streaming import sketches as sk
+
+    with pytest.raises(ValueError, match=str(kll.MAX_CAPACITY)):
+        sk.kll_init(kll.MAX_CAPACITY + 2, device=cuda)
+    sk.kll_init(kll.MAX_CAPACITY, max_items=1 << 20, device=cuda)
+
+
+@pytest.mark.cuda
+def test_streaming_metrics_on_cuda_equal_the_cpu(cuda):
+    made = {}
+    for device in ("cpu", cuda):
+        made[device] = {
+            "q": mt.StreamingQuantile(q=(0.1, 0.5, 0.9), capacity=64, device=device),
+            "h": mt.StreamingHistogram(bins=9, capacity=32, device=device),
+            "w": mt.WindowedMetric(mt.StreamingQuantile(q=0.5, capacity=16, device=device), window_size=3, device=device),
+        }
+    for step in range(5):
+        v = torch.from_numpy(_sketch_stream(20 + step, 700))
+        for device, metrics in made.items():
+            for name, m in metrics.items():
+                m.update(v.to(device))
+            if step % 2:
+                metrics["w"].advance()
+    for name in ("q", "h", "w"):
+        got, want = made[cuda][name].compute(), made["cpu"][name].compute()
+        for g, w in zip(*(x.values() if isinstance(x, dict) else (x,) for x in (got, want))):
+            assert g.cpu().numpy().tobytes() == w.numpy().tobytes(), name

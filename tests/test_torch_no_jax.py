@@ -73,6 +73,28 @@ def test_the_walk_covers_the_wrappers_and_retrieval():
     assert len(expected) == 26 and expected <= walked
 
 
+STREAMING = ("metrics_tpu_torch/streaming/__init__.py", "metrics_tpu_torch/streaming/_threefry.py",
+             "metrics_tpu_torch/streaming/sketches.py", "metrics_tpu_torch/streaming/quantile.py",
+             "metrics_tpu_torch/streaming/window.py", "metrics_tpu_torch/ops/kll.py", "metrics_tpu_torch/ops/_build.py")
+
+
+def test_the_walk_covers_the_streaming_modules_and_the_kll_fold():
+    walked = {p.relative_to(ROOT).as_posix() for p in _port_sources()}
+    assert set(STREAMING) <= walked
+    assert (ROOT / "metrics_tpu_torch" / "ops" / "csrc" / "kll_fold.cu").is_file()
+
+
+def test_sketch_functions_without_device_raise_when_cuda_is_absent(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (mt.kll_init, mt.reservoir_init, mt.StreamingQuantile, mt.StreamingHistogram):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+    for wrap in (mt.WindowedMetric, mt.TimeDecayedMetric):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            wrap(mt.SumMetric(device="cpu"), 2)
+    assert mt.kll_init(8, device="cpu")["buf"].device == torch.device("cpu")
+
+
 def _imported_roots(path: Path):
     for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
         if isinstance(node, ast.Import):

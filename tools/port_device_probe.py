@@ -79,7 +79,7 @@ def _device_ops(fn, calls: int = 1) -> list:
 
 def barriers() -> None:
     sys.path.insert(0, str(ROOT))
-    from metrics_tpu_torch.ops.stat_scores import _nvcc
+    from metrics_tpu_torch.ops._build import _nvcc
 
     build = ROOT / "build" / "probe"
     build.mkdir(parents=True, exist_ok=True)
