@@ -2719,6 +2719,7 @@ HIST_BINS = 20  # StreamingHistogram at the default capacity 256 (21 levels at m
 PREFIX_CHUNKS = 300  # chunks of the NYU stream that the kernel and its plain version both fold
 EDGE_CAPACITIES = (8, 256, 2048)  # the card against the plain version on tricky values
 BATCHED_SKETCHES = 8  # sketches folded in one launch
+RAW_CHUNKS = 400  # raw chunks per sketch in (b)'s edge cases
 WINDOW_BUCKET = 5  # ImageNet batches per window bucket
 WINDOW_EPOCHS = 2  # passes through the windows, so that full windows evict buckets
 ACC_WINDOW, CE_WINDOW = 10, 8
@@ -2868,26 +2869,169 @@ def _card_vs_plain_sketches(sk, err: torch.Tensor, last: torch.Tensor, deep: dic
     compared += _same_leaves("a batch of 8 merges", sk.kll_merge([card, batch, card]),
                              _with_plain_fold(lambda: sk.kll_merge([card, batch, card])))
     cases += 2
+    raw_leaves, raw_cases = _card_vs_plain_raw(sk)
+    compared, cases = compared + raw_leaves, cases + raw_cases
     print(f"check kll_fold: {compared} leaves over {cases} cases bitwise equal to the plain version (on the card, and "
           f"on the CPU for the NYU prefixes of {PREFIX_CHUNKS} chunks at capacities {SKETCH_CAPACITY}, 256 and 8)")
     return {"cases": cases, "leaves": compared, "deep_plain_ms": deep_ms}
 
 
-def _kll_timings(sk, kll, err: torch.Tensor) -> dict:
-    """The kernel's own device time per launch (profiler) on the NYU prefix and on one main-path update,
-    the plain version's time on the prefix, and the bound of the prefix's fold."""
+def _raw_chunks(rng: np.random.Generator, sketches: int, n: int, half: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunks as a caller of ``kll_fold`` may pass them: values on a grid of hundredths with both signed
+    zeros; random valid counts (odd ones: many short runs in a row), a fifth all padding (0 or -1), the
+    rest +inf; sketches 0, 2, ... sorted, the others not (the bitonic sort); NaN inside sketch 1's runs."""
+    vals = np.round(rng.normal(size=(sketches, n, half)), 2).astype(np.float32)
+    vals[..., ::7], vals[..., 3::11] = 0.0, -0.0
+    valids = rng.integers(1, half + 1, (sketches, n))
+    valids[rng.random((sketches, n)) < 0.3] = half
+    valids[rng.random((sketches, n)) < 0.2] = 0
+    valids[rng.random((sketches, n)) < 0.03] = -1
+    vals[1, ::5, 1] = np.nan  # inside the run where the count passes 1
+    vals = np.where(np.arange(half) < valids[..., None], vals, np.float32(np.inf))
+    vals[::2] = np.sort(vals[::2], axis=-1, kind="stable")
+    return torch.from_numpy(vals), torch.from_numpy(valids.astype(np.int32))
+
+
+def _card_vs_plain_raw(sk) -> Tuple[int, int]:
+    """``kll_fold`` itself against its plain version on the card, at both main-path capacities: raw chunks
+    (partial, all padding, unsorted, NaN inside) into 8 sketches mid-stream, at level 0 and at every level
+    (as a merge folds them); 8 such sketches merged; and a stream past ``max_items`` (the top level
+    compacts in place, a chain of events)."""
+    from metrics_tpu_torch.ops import kll
+
+    compared = cases = 0
+    for capacity in (SKETCH_CAPACITY, 256):
+        half = capacity // 2
+        rng = np.random.default_rng(capacity)
+        inits = [sk.kll_init(capacity, seed=i, max_items=SKETCH_MAX_ITEMS, device=DEVICE) for i in range(BATCHED_SKETCHES)]
+        batch = {k: torch.stack([st[k] for st in inits]) for k in inits[0]}
+        batch = sk.kll_update(batch, torch.from_numpy(rng.random((BATCHED_SKETCHES, 40 * half), np.float32)).to(DEVICE))
+        n_levels = batch["buf"].shape[1]
+        n = RAW_CHUNKS
+        for spread in (False, True):
+            chunks, valids = (x.to(DEVICE) for x in _raw_chunks(rng, BATCHED_SKETCHES, n, half))
+            at = rng.integers(0, n_levels if spread else 1, n).astype(np.int32)
+            levels = torch.from_numpy(at).to(DEVICE)
+            card = {k: batch[k].clone() for k in ("buf", "cnt", "key", "nc")}
+            plain = {k: batch[k].clone() for k in ("buf", "cnt", "key", "nc")}
+            kll.kll_fold(card["buf"], card["cnt"], card["key"], card["nc"], chunks, valids, levels)
+            kll.kll_fold_plain(plain["buf"], plain["cnt"], plain["key"], plain["nc"], chunks, valids, levels)
+            compared += _same_leaves(f"raw chunks at capacity {capacity}, {'every level' if spread else 'level 0'}",
+                                     card, plain)
+            cases += 1
+        merged = [batch, sk.kll_update(batch, torch.from_numpy(rng.random((BATCHED_SKETCHES, 9 * half + 5), np.float32)).to(DEVICE)), batch]
+        compared += _same_leaves(f"8 merges at capacity {capacity}", sk.kll_merge(merged),
+                                 _with_plain_fold(lambda: sk.kll_merge(merged)))
+        small = sk.kll_init(capacity, seed=7, max_items=capacity * 15, device=DEVICE)  # 4 levels
+        a = b = small
+        for step in range(2):
+            v = torch.from_numpy(np.round(rng.normal(size=capacity * 40 + 3), 2).astype(np.float32)).to(DEVICE)
+            a = sk.kll_update(a, v)
+            b = _with_plain_fold(lambda: sk.kll_update(b, v))
+        compared += _same_leaves(f"the top level saturated at capacity {capacity}", a, b)
+        if not float(sk.kll_total_weight(a)) < int(a["n"]):
+            raise AssertionError(f"capacity {capacity}: the top level never compacted in place")
+        cases += 2
+    return compared, cases
+
+
+def _kll_bound(chunks: int, compactions: int, levels: int, k: int) -> Tuple[float, str]:
+    """The least time of a fold of ``chunks`` chunks with ``compactions`` compactions into one sketch of
+    ``levels`` rows of ``k``: bytes, each chunk and its valid count and level read once, the state read
+    and written once; operations, each compaction's K order keys and K binary searches of log2 K steps
+    and its coin (a hash of 20 rounds of 3 operations), each chunk's K/2 slot writes and its key chain
+    (3 such hashes)."""
+    moved = chunks * (k // 2 * 4 + 8) + 2 * (levels * k * 4 + levels * 4 + 8 + 4)
+    operations = compactions * (k * (1 + int(np.log2(k))) + 60) + chunks * (k // 2 + 3 * 60)
+    return _bound(moved, operations)
+
+
+def _kll_own(fn, levels: int, calls: int = 5) -> Optional[dict]:
+    """The fold's own device time per call (every stage, profiler) and its plan stage's (the serial
+    floor), each stage's, and its device operations per call: the median over sessions that saw the
+    ``levels + 2`` operations a call makes (a session at times loses events, and once timed every
+    operation of a session at half its length).  None where the profiler records no device activity."""
+    sessions, most = [], []
+    for _ in range(PROFILER_ATTEMPTS):
+        seen = _device_ops(fn, calls)
+        if seen is None:
+            return None
+        seen = [(op, ms) for op, ms in seen if "kll_fold" in op]
+        most = max(most, seen, key=len)
+        if len(seen) == calls * (levels + 2):
+            sessions.append(seen)
+    complete = bool(sessions)
+    sessions = sessions or [most]  # every session lost events: the fullest one, marked
+    stages: dict = {}
+    for seen in sessions:
+        for op, ms in seen:
+            stage = next(name for name in ("kll_fold_plan", "kll_fold_execute", "kll_fold_assemble") if name in op)
+            stages.setdefault(stage, []).append(ms)
+    return {"ms": statistics.median(sum(ms for _, ms in seen) / calls for seen in sessions),
+            "plan_ms": statistics.median(stages["kll_fold_plan"]),
+            "stage_ms": {stage: sum(v) / (calls * len(sessions)) for stage, v in stages.items()},
+            "ops_per_call": len(sessions[0]) / calls, "sessions": len(sessions), "complete": complete}
+
+
+def _kll_event_ms(sk, state: dict, values: torch.Tensor) -> float:
+    """The fold's device time per call by CUDA events (calls queued behind a sleep, the gaps between
+    its launches included): the update's own ``kll_fold`` call, repeated in place on its copy of the
+    state (each repeat folds the same chunks into a state as deep)."""
+    from metrics_tpu_torch.ops import kll
+
+    seen = []
+
+    def capture(*args):
+        seen.append(args)
+        kll.kll_fold(*args)
+
+    sk.kll_fold = capture
+    try:
+        sk.kll_update(state, values)
+    finally:
+        sk.kll_fold = kll.kll_fold
+    return _device_ms(lambda: kll.kll_fold(*seen[0]), calls=20, warmup=2)[0]
+
+
+def _short_op(name: str) -> str:
+    """A device operation's name without its argument list and namespaces."""
+    name = name.replace("(anonymous namespace)::", "").replace("void ", "")
+    return name.split("(")[0].split("::")[-1][-60:] if "<" not in name else name[:60]
+
+
+def _kll_timings(sk, err: torch.Tensor, deep: dict, last: torch.Tensor, deep_plain_ms: dict) -> dict:
+    """The fold's own device time (profiler) on one main-path update at each capacity, from the deep
+    state of (b), and its plan stage's; the device operations of one such update by name; the bound at
+    those shapes; and the 300-chunk NYU prefix from empty beside the plain version."""
     prefix = err[: PREFIX_CHUNKS * SKETCH_CAPACITY // 2]
     empty = sk.kll_init(SKETCH_CAPACITY, max_items=SKETCH_MAX_ITEMS, device=DEVICE)
-
-    def own_ms(fn) -> Optional[float]:
-        seen = max(((_device_ops(fn, 5) or []) for _ in range(PROFILER_ATTEMPTS)), key=len)
-        times = [ms for op, ms in seen if "kll_fold" in op]
-        return statistics.median(times) if times else None
-
-    prefix_ms = own_ms(lambda: sk.kll_update(empty, prefix))
-    update_ms = own_ms(lambda: sk.kll_update(empty, _stream_batches(err)[0]))
-    narrow = sk.kll_init(sk.DEFAULT_CAPACITY, max_items=SKETCH_MAX_ITEMS, device=DEVICE)
-    narrow_update_ms = own_ms(lambda: sk.kll_update(narrow, _stream_batches(err)[0]))
+    out: dict = {"main_path": {}}
+    for name, (before, after) in deep.items():
+        levels, k = before["buf"].shape
+        own = _kll_own(lambda: sk.kll_update(before, last), levels)
+        event_ms = _kll_event_ms(sk, before, last)
+        ops = _device_ops(lambda: sk.kll_update(before, last)) or []
+        chunks = last.numel() // (k // 2)
+        compactions = int(after["nc"]) - int(before["nc"])
+        bound_ms, bound_by = _kll_bound(chunks, compactions, levels, k)
+        out["main_path"][name] = {
+            "capacity": k, "levels": levels, "chunks": chunks, "compactions": compactions,
+            "ms": event_ms, "own_ms": own["ms"] if own else None, "plan_ms": own["plan_ms"] if own else None,
+            "stage_ms": own["stage_ms"] if own else None, "kll_ops_per_call": own["ops_per_call"] if own else None,
+            "plain_ms": deep_plain_ms[name], "bound_ms": bound_ms, "bound_by": bound_by,
+            "update_device_ops": [(_short_op(op), ms) for op, ms in ops],
+            "update_call_ms": _call_ms(lambda: sk.kll_update(before, last), reps=10, warmup=2),
+        }
+        m = out["main_path"][name]
+        print(f"kll_fold, one main-path update of the {name} (capacity {k}, {levels} levels, {chunks} chunks, "
+              f"{compactions} compactions, from the deep state of (b)): {m['ms']!r} ms of device time a call "
+              f"(events), its operations' own {m['own_ms']!r} ms ({m['kll_ops_per_call']!r} a call; stages "
+              f"{m['stage_ms']!r}), the plan stage "
+              f"{m['plan_ms']!r} ms, bound {bound_ms!r} ms ({bound_by}), plain version {m['plain_ms']!r} ms; the "
+              f"update {m['update_call_ms']!r} ms on an idle card, {len(ops)} device operations: {m['update_device_ops']!r}")
+    levels, k = empty["buf"].shape
+    own = _kll_own(lambda: sk.kll_update(empty, prefix), levels)
+    prefix_ms = own["ms"] if own else None
     call_ms = _call_ms(lambda: sk.kll_update(empty, prefix), reps=10, warmup=2)
     plain_times = []
     for _ in range(3):
@@ -2897,23 +3041,17 @@ def _kll_timings(sk, kll, err: torch.Tensor) -> dict:
         torch.cuda.synchronize()
         plain_times.append((time.perf_counter() - start) * 1e3)
     folded = sk.kll_update(empty, prefix)
-    levels, k = folded["buf"].shape
     chunks, compactions = PREFIX_CHUNKS, int(folded["nc"])
-    # bytes: each chunk and its valid count read once, the state read and written once; operations:
-    # each compaction's K order keys and its merge's K binary searches of log2 K steps, each chunk's
-    # K/2 slot writes, and the key's threefry chain (3 hashes of 20 rounds of 3 operations)
-    moved = chunks * (k // 2 * 4 + 4) + 2 * (levels * k * 4 + levels * 4 + 8 + 4)
-    operations = compactions * k * (1 + int(np.log2(k))) + chunks * (k // 2 + 3 * 60)
-    bound_ms, bound_by = _bound(moved, operations)
+    bound_ms, bound_by = _kll_bound(chunks, compactions, levels, k)
     per_chunk_us = prefix_ms / chunks * 1e3 if prefix_ms else None
     print(f"kll_fold on the NYU prefix ({chunks} chunks of {k // 2} at capacity {k}, {compactions} compactions): "
-          f"its own device time {prefix_ms!r} ms ({per_chunk_us!r} us per chunk), one call on an idle card "
-          f"{call_ms!r} ms, plain version {plain_times!r} ms, bound {bound_ms!r} ms ({bound_by}); one main-path "
-          f"update (8 maps, {NYU_BATCH * NYU_H * NYU_W // (k // 2)} chunks): {update_ms!r} ms of its own device time, "
-          f"{narrow_update_ms!r} ms at capacity {sk.DEFAULT_CAPACITY} ({NYU_BATCH * NYU_H * NYU_W // (sk.DEFAULT_CAPACITY // 2)} chunks)")
-    return {"prefix_ms": prefix_ms, "per_chunk_us": per_chunk_us, "call_ms": call_ms,
-            "plain_ms": statistics.median(plain_times), "update_ms": update_ms, "narrow_update_ms": narrow_update_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "prefix_compactions": compactions}
+          f"its own device time {prefix_ms!r} ms ({per_chunk_us!r} us per chunk; plan stage "
+          f"{own['plan_ms'] if own else None!r} ms), one call on an idle card {call_ms!r} ms, plain version "
+          f"{plain_times!r} ms, bound {bound_ms!r} ms ({bound_by})")
+    out.update({"prefix_ms": prefix_ms, "prefix_plan_ms": own["plan_ms"] if own else None,
+                "per_chunk_us": per_chunk_us, "call_ms": call_ms, "plain_ms": statistics.median(plain_times),
+                "bound_ms": bound_ms, "bound_by": bound_by, "prefix_compactions": compactions})
+    return out
 
 
 def _window_reference_ok(name: str, got, want_num: int, want_den: int) -> None:
@@ -3143,7 +3281,7 @@ def phase_streaming(mt, ops, card: str) -> Tuple[dict, dict, dict]:
 
     # (b) the kernel against its plain version
     compared = _card_vs_plain_sketches(sk, err, batches[deep_at], deep)
-    timing = _kll_timings(sk, kll, err)
+    timing = _kll_timings(sk, err, deep, batches[deep_at], compared["deep_plain_ms"])
 
     # (c) windows
     del batches
@@ -3157,6 +3295,7 @@ def phase_streaming(mt, ops, card: str) -> Tuple[dict, dict, dict]:
 
     secs = time.perf_counter() - phase_start
     print(f"streaming phase took {secs:.1f} s")
+    quantile, histogram = timing["main_path"]["quantile"], timing["main_path"]["histogram"]
     entry = {
         "name": "kll_fold",
         "route": "cuda",
@@ -3166,15 +3305,22 @@ def phase_streaming(mt, ops, card: str) -> Tuple[dict, dict, dict]:
         "launches": launches_main + kll_c["kll"],
         "bitwise": True,
         "max_abs_err": 0,
-        # the profiler's own device time of the launch; one call's time where the profiler saw no device activity
-        "ms": timing["prefix_ms"] if timing["prefix_ms"] is not None else timing["call_ms"],
-        "ms_shape": f"{PREFIX_CHUNKS} chunks of {SKETCH_CAPACITY // 2} at capacity {SKETCH_CAPACITY}, from empty",
-        "per_chunk_us": timing["per_chunk_us"],
-        "main_path_update_ms": timing["update_ms"],
-        "main_path_update_ms_capacity_256": timing["narrow_update_ms"],
-        "plain_ms": timing["plain_ms"],
-        "bound_ms": timing["bound_ms"],
-        "bound_by": timing["bound_by"],
+        # the device time of a call (every stage, by events) on the main path's update at capacity 2048,
+        # from the deep state of (b); beside it its operations' own time (profiler) and the plan stage's
+        "ms": quantile["ms"],
+        "own_ms": quantile["own_ms"],
+        "ms_shape": f"one main-path update: {quantile['chunks']} chunks of {SKETCH_CAPACITY // 2} at capacity "
+                    f"{SKETCH_CAPACITY} into a deep state",
+        "plan_ms": quantile["plan_ms"],
+        "device_ops_per_call": quantile["kll_ops_per_call"],
+        "plain_ms": quantile["plain_ms"],
+        "bound_ms": quantile["bound_ms"],
+        "bound_by": quantile["bound_by"],
+        "capacity_256": {key: histogram[key] for key in ("chunks", "ms", "own_ms", "plan_ms", "plain_ms", "bound_ms",
+                                                         "bound_by")},
+        "prefix": {"shape": f"{PREFIX_CHUNKS} chunks at capacity {SKETCH_CAPACITY}, from empty",
+                   "ms": timing["prefix_ms"], "plan_ms": timing["prefix_plan_ms"], "per_chunk_us": timing["per_chunk_us"],
+                   "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"]},
         "library_ms": None,
         "library_note": "no PyTorch call folds chunks into a KLL sketch",
     }

@@ -8,11 +8,20 @@ its values' chunks at level 0; ``kll_merge`` folds each other state's rows,
 two half-row chunks per level ``h`` entering at ``h``.
 
 :func:`kll_fold` works in place.  CUDA tensors launch ``csrc/kll_fold.cu``
-(one thread block per sketch, one launch per call) and CPU tensors take
-:func:`kll_fold_plain`.  The two agree bitwise on every leaf: they compare
-and move floats and never do arithmetic on them.  The library is built with
-``nvcc`` at first use (:mod:`metrics_tpu_torch.ops._build`); a failed build
-or launch raises.
+and CPU tensors take :func:`kll_fold_plain`.  The kernel runs the fold in
+four stages, ``L + 2`` launches on the current stream: a serial plan per
+sketch (the key chain, the coins and the level counts, integers only; it
+emits one event per compaction and the runs each row is made of), the
+compactions of each level below the top in parallel across the card, the
+top level's compactions in order, and the rows' assembly.  The two agree
+bitwise on every leaf: they compare and move floats and never do arithmetic
+on them.  ``tests/test_torch_kll_plan.py`` holds a plain model of the four
+stages against :func:`kll_fold_plain` and the JAX package on the CPU; the
+kernel itself runs only on a card: ``python -m pytest --noconftest -p
+no:cacheprovider -m cuda tests/test_torch_cuda.py`` and ``python3
+chip_smoke.py`` (phase 11) hold it against the plain version.  The library
+is built with ``nvcc`` at first use (:mod:`metrics_tpu_torch.ops._build`); a
+failed build or launch raises.
 """
 
 import ctypes
@@ -27,16 +36,18 @@ from metrics_tpu_torch.streaming._threefry import as_uint32, as_words, randint_b
 _SOURCE = _build.CSRC / "kll_fold.cu"
 
 #: the widest sketch one thread block sorts in shared memory (a 16384-slot row
-#: pads to 16384 eight-byte sort keys beside its 4-byte values: 196 KB of 227 KB)
+#: pads to 16384 eight-byte sort keys beside its 4-byte values: 192 KB of 227 KB)
 MAX_CAPACITY = 16384
+#: the most levels the kernel's plan tracks (one bit of a 64-bit mask each)
+MAX_LEVELS = 64
 
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = _build.load(_SOURCE)
     pointer, i64 = ctypes.c_void_p, ctypes.c_int64
-    # (buf, cnt, key, nc, chunks, valids, levels, S, n, L, K, stream)
-    lib.kll_fold.argtypes = [pointer] * 7 + [i64] * 4 + [pointer]
+    # (buf, cnt, key, nc, chunks, valids, levels, events, runs, rows, slab, S, n, L, K, EV, R, EB, stream)
+    lib.kll_fold.argtypes = [pointer] * 11 + [i64] * 7 + [pointer]
     lib.kll_fold.restype = ctypes.c_int
     return lib
 
@@ -147,6 +158,21 @@ def kll_fold_plain(buf, cnt, key, nc, chunks, valids, levels) -> None:
     key.copy_(as_uint32(torch.tensor(keys, dtype=torch.int64)))
 
 
+def scratch_sizes(n: int, levels: int) -> Tuple[int, int, int]:
+    """The kernel's scratch per sketch for ``n`` chunks into ``levels`` levels: events per level
+    ``EV``, runs per level ``R`` and events in all ``EB`` (each with a slab row of ``K / 2`` floats).
+
+    Within the contract (counts in ``[0, K]``, valid counts at most ``K / 2``): level ``h`` gets at
+    most ``n + h + 1`` runs from outside (its initial row, chunks, one per compaction at ``h - 1``)
+    and each compaction consumes at least one of them; the top level also appends its own
+    survivors, one per compaction; and a compaction of ``c > K / 2`` entries keeps at most
+    ``(c + 1) / 2``, so it removes at least ``K / 4`` of the at most ``L K + n K / 2`` entries there
+    ever are.  ``tests/test_torch_kll_plan.py`` checks the three on its plans.
+    """
+    per_level = n + levels + 1
+    return per_level, 2 * per_level, 2 * n + 4 * levels
+
+
 def kll_fold(buf, cnt, key, nc, chunks, valids, levels) -> None:
     """Fold ``chunks`` into ``S`` KLL sketches in place.
 
@@ -154,9 +180,14 @@ def kll_fold(buf, cnt, key, nc, chunks, valids, levels) -> None:
     ``nc (S,)`` int32 are the sketches' leaves; ``chunks (S, n, K/2)`` float32
     holds ``valids (S, n)`` int32 values at the start of each chunk, and
     ``levels (n,)`` int32 the level each chunk enters at.  CPU tensors take
-    :func:`kll_fold_plain`; CUDA tensors launch the kernel on the current
-    stream, one device operation per call (none when ``S`` or ``n`` is 0).
-    ``kll_fold.launches`` counts the kernel's launches.
+    :func:`kll_fold_plain`; CUDA tensors launch the kernel's four stages on the
+    current stream, ``L + 2`` device operations per call (none when ``S`` or
+    ``n`` is 0), with scratch from :func:`scratch_sizes`.
+    ``kll_fold.launches`` counts the calls that launch it.
+
+    The leaves are the sketch's, with its layout invariant (``cnt[h]`` in
+    ``[0, K]``, +inf past it) and at most ``K / 2`` values a chunk, as
+    ``kll_update`` and ``kll_merge`` make them.
     """
     if isinstance(buf, torch.Tensor) and buf.device.type == "cpu":
         kll_fold_plain(buf, cnt, key, nc, chunks, valids, levels)
@@ -165,12 +196,25 @@ def kll_fold(buf, cnt, key, nc, chunks, valids, levels) -> None:
     s_count, n_levels, k = buf.shape
     check_capacity(k, buf.device)
     n = chunks.shape[1]
+    per_level, runs_per_level, n_events = scratch_sizes(n, n_levels)
+    if n_levels > MAX_LEVELS or n_events >= 1 << 30:  # a run names its chunk or event in 30 bits
+        raise ValueError(f"kll_fold on CUDA folds at most {MAX_LEVELS} levels and 2**29 chunks a call, "
+                         f"got {n_levels} levels and {n} chunks")
     if n == 0 or s_count == 0:
         return
+    rows = s_count * n_levels
+    # int32 words: events (int4 each), runs (int2), rows (int4); the slab holds K / 2 floats per event.
+    # Both return to PyTorch's caching allocator when this returns; the stream orders their reuse after the fold.
+    ints = torch.empty(rows * (4 * per_level + 2 * runs_per_level + 4), dtype=torch.int32, device=buf.device)
+    slab = torch.empty(s_count * n_events * (k // 2), dtype=torch.float32, device=buf.device)
+    base = ints.data_ptr()
+    runs = base + rows * per_level * 16
+    row_info = runs + rows * runs_per_level * 8
     with torch.cuda.device(buf.device):
         err = _library().kll_fold(
             buf.data_ptr(), cnt.data_ptr(), key.data_ptr(), nc.data_ptr(), chunks.data_ptr(),
-            valids.data_ptr(), levels.data_ptr(), s_count, n, n_levels, k,
+            valids.data_ptr(), levels.data_ptr(), base, runs, row_info, slab.data_ptr(),
+            s_count, n, n_levels, k, per_level, runs_per_level, n_events,
             torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:

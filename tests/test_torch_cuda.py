@@ -584,6 +584,95 @@ def test_kll_fold_kernel_folds_a_batch_of_sketches_in_one_launch(cuda):
     _same_leaves(merged_cpu, merged_card)
 
 
+def _raw_chunks(seed: int, sketches: int, n: int, half: int, case: str):
+    """Chunks as ``kll_fold`` takes them: random valid counts (odd ones, short runs), values past them
+    +inf; ``padding`` makes most chunks all padding, ``unsorted`` leaves the runs unsorted (the bitonic
+    sort), ``nan`` puts a NaN among the valid values (the plain walk sorts it after the padding)."""
+    rng = np.random.default_rng(seed)
+    valids = rng.integers(1, half + 1, (sketches, n)).astype(np.int32)
+    valids[rng.random((sketches, n)) < (0.7 if case == "padding" else 0.1)] = 0
+    valids[rng.random((sketches, n)) < 0.05] = -1
+    chunks = np.full((sketches, n, half), np.inf, np.float32)
+    for s in range(sketches):
+        for t in range(n):
+            v = max(int(valids[s, t]), 0)
+            x = _sketch_stream(seed + 100 * s + t, v + 8)[:v]
+            x = np.where(np.isfinite(x), x, np.float32(0.5))
+            if case == "nan" and v > 2 and t % 3 == 0:
+                x[1] = np.nan
+            chunks[s, t, :v] = x if case == "unsorted" else np.sort(x, kind="stable")
+    return torch.from_numpy(chunks), torch.from_numpy(valids)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["partial", "padding", "unsorted", "nan", "levels"])
+@pytest.mark.parametrize("capacity", [8, 10, 256, 2048])
+def test_kll_fold_kernel_on_raw_chunks_matches_plain(cuda, capacity, case):
+    """Partial and all-padding chunks (many short runs in a row), unsorted runs, NaN among the valid
+    values, and chunks entering at every level (as a merge folds them), into 3 sketches mid-stream."""
+    from metrics_tpu_torch.ops import kll
+    from metrics_tpu_torch.streaming import sketches as sk
+
+    sketches, half = 3, capacity // 2
+    n = max(300, 12_000 // half)
+    inits = [sk.kll_update(sk.kll_init(capacity, seed=s, max_items=capacity << 6, device="cpu"),
+                           torch.from_numpy(_sketch_stream(s, capacity * 5 + 3))) for s in range(sketches)]
+    cpu = {k: torch.stack([st[k] for st in inits]) for k in ("buf", "cnt", "key", "nc")}
+    chunks, valids = _raw_chunks(capacity, sketches, n, half, case)
+    rng = np.random.default_rng(capacity + 1)
+    level_n = cpu["buf"].shape[1]
+    levels = torch.from_numpy((rng.integers(0, level_n, n) if case == "levels" else np.zeros(n, np.int64)).astype(np.int32))
+    card = {k: v.to(cuda) for k, v in cpu.items()}
+    before = kll.kll_fold.launches
+    kll.kll_fold(card["buf"], card["cnt"], card["key"], card["nc"], chunks.to(cuda), valids.to(cuda), levels.to(cuda))
+    torch.cuda.synchronize()
+    assert kll.kll_fold.launches == before + 1
+    kll.kll_fold_plain(cpu["buf"], cpu["cnt"], cpu["key"], cpu["nc"], chunks, valids, levels)
+    _same_leaves(cpu, card)
+    assert int(cpu["nc"].min()) > int(torch.stack([st["nc"] for st in inits]).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("capacity,max_items", [(8, 1 << 5), (256, 1 << 11), (2048, 1 << 14)])
+def test_kll_fold_kernel_saturates_the_top_level(cuda, capacity, max_items):
+    """A stream far past ``max_items``: the top level compacts in place, a chain of events in order."""
+    from metrics_tpu_torch.streaming import sketches as sk
+
+    cpu, card = (sk.kll_init(capacity, seed=4, max_items=max_items, device=d) for d in ("cpu", cuda))
+    levels = cpu["buf"].shape[0]
+    for step in range(2):
+        v = torch.from_numpy(_sketch_stream(50 + step, max_items * 3 + 7))
+        cpu, card = sk.kll_update(cpu, v), sk.kll_update(card, v.to(cuda))
+        torch.cuda.synchronize()
+        _same_leaves(cpu, card)
+    # a compaction of the top level in place drops weight: the sketch holds less than it was given
+    assert int(cpu["cnt"][levels - 1]) > 0 and float(sk.kll_total_weight(cpu)) < int(cpu["n"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("capacity", [10, 256, 2048])
+def test_kll_fold_kernel_merges_a_batch_of_8(cuda, capacity):
+    """S = 8 sketches updated, then merged slot-wise with two more batches, each fold one launch."""
+    from metrics_tpu_torch.ops import kll
+    from metrics_tpu_torch.streaming import sketches as sk
+
+    sketches = 8
+    inits = [sk.kll_init(capacity, seed=i, max_items=1 << 16, device="cpu") for i in range(sketches)]
+    cpu = {k: torch.stack([s[k] for s in inits]) for k in inits[0]}
+    values = torch.from_numpy(np.stack([_sketch_stream(60 + i, capacity * 23 + 5) for i in range(sketches)]))
+    other = torch.from_numpy(np.stack([_sketch_stream(80 + i, capacity * 7 + 3) for i in range(sketches)]))
+    card = {k: v.to(cuda) for k, v in cpu.items()}
+    a_cpu, a_card = sk.kll_update(cpu, values), sk.kll_update(card, values.to(cuda))
+    b_cpu, b_card = sk.kll_update(cpu, other), sk.kll_update(card, other.to(cuda))
+    before = kll.kll_fold.launches
+    merged_card = sk.kll_merge([a_card, b_card, a_card])
+    torch.cuda.synchronize()
+    assert kll.kll_fold.launches == before + 1
+    merged_cpu = sk.kll_merge([a_cpu, b_cpu, a_cpu])
+    _same_leaves(a_cpu, a_card)
+    _same_leaves(merged_cpu, merged_card)
+
+
 @pytest.mark.cuda
 def test_kll_fold_kernel_refuses_rows_wider_than_shared_memory_sorts(cuda):
     from metrics_tpu_torch.ops import kll
@@ -592,6 +681,19 @@ def test_kll_fold_kernel_refuses_rows_wider_than_shared_memory_sorts(cuda):
     with pytest.raises(ValueError, match=str(kll.MAX_CAPACITY)):
         sk.kll_init(kll.MAX_CAPACITY + 2, device=cuda)
     sk.kll_init(kll.MAX_CAPACITY, max_items=1 << 20, device=cuda)
+
+
+@pytest.mark.cuda
+def test_kll_fold_kernel_refuses_more_levels_than_its_plan_tracks(cuda):
+    from metrics_tpu_torch.ops import kll
+
+    levels, k, n = kll.MAX_LEVELS + 1, 8, 2
+    buf = torch.full((1, levels, k), float("inf"), device=cuda)
+    args = (buf, torch.zeros((1, levels), dtype=torch.int32, device=cuda), torch.zeros((1, 2), dtype=torch.uint32, device=cuda),
+            torch.zeros((1,), dtype=torch.int32, device=cuda), torch.zeros((1, n, k // 2), device=cuda),
+            torch.ones((1, n), dtype=torch.int32, device=cuda), torch.zeros((n,), dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError, match=str(kll.MAX_LEVELS)):
+        kll.kll_fold(*args)
 
 
 @pytest.mark.cuda
