@@ -669,6 +669,8 @@ def sync_rank(scenario: str, rank: int, where: Path) -> int:
         _rank_retrieval(mt, rank, where)
     elif scenario == "streaming":
         _rank_streaming(mt, rank, where)
+    elif scenario == "checkpoint":
+        _rank_checkpoint(mt, rank, where)
     else:
         _, _, batches = _imagenet_pass()
         if scenario == "stall":
@@ -3331,6 +3333,556 @@ def phase_streaming(mt, ops, card: str) -> Tuple[dict, dict, dict]:
     return stat_launches, entry, line
 
 
+# ---------------------------------------------------------------- phase 12: checkpoint and multistream
+
+MS_SOURCES = 64  # (a) F1's streams: source ids drawn from the seed
+ML_USERS = 162_541  # MovieLens-25M's users: (b)'s streams
+ML_USER_TAIL = 3.0  # (b)'s user ids: floor(users x u^3), u uniform: a heavy head of frequent raters
+MS_QUANTILES = (0.5, 0.9, 0.99)
+MS_COMPUTE_STREAMS = 1000  # ids of (b)'s compute_streams query
+MS_TIMING_STREAMS = 64  # S of the per-stream entry points' timed calls at (1024, 1000)
+MS_SYNC_SPLIT = 2  # the two-rank checkpoint: rank r takes every other batch, from batch r
+# (b)'s per-user sums: each of a user's n terms rounds once (a difference, then its square or abs), the float32
+# sum adds n roundings of at most the running sum, the mean one more: all terms are >= 0, so the value lies
+# within (n + 4) x 2^-24 of the float64 reference, relative.  A two-rank fold adds one rounding more.
+ML_UNITS_PAST_ROWS = 4
+
+
+def _ms_sources() -> torch.Tensor:
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 20)
+    return torch.randint(0, MS_SOURCES, (N_SAMPLES,), generator=gen, device=DEVICE)
+
+
+def _ml_users() -> torch.Tensor:
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 21)
+    u = torch.rand(ML_RATINGS, generator=gen, device=DEVICE, dtype=torch.float64)
+    return (ML_USERS * u**ML_USER_TAIL).floor().to(torch.int64).clamp_(max=ML_USERS - 1)
+
+
+def _cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Per-sample cross-entropy of the logits, float32, on the card."""
+    return torch.logsumexp(logits, 1) - logits.gather(1, labels[:, None])[:, 0]
+
+
+def _ms_metrics(mt, device: str = DEVICE) -> dict:
+    """Phase 12's metrics: (a) per-class accuracy, per-source F1 and per-class top-5 accuracy, (b) per-user
+    MSE and MAE, (c) per-class cross-entropy quantiles, and configuration 2 (not stacked)."""
+    ms = mt.MultiStreamMetric
+    return {
+        "acc": ms(mt.Accuracy(num_classes=N_CLASSES, device=device), num_streams=N_CLASSES, device=device),
+        "f1": ms(mt.F1Score(num_classes=N_CLASSES, average="macro", device=device), num_streams=MS_SOURCES, device=device),
+        "top5": ms(mt.Accuracy(num_classes=N_CLASSES, top_k=TOP_K, device=device), num_streams=N_CLASSES, device=device),
+        "mse": ms(mt.MeanSquaredError(device=device), num_streams=ML_USERS, device=device),
+        "mae": ms(mt.MeanAbsoluteError(device=device), num_streams=ML_USERS, device=device),
+        "q": ms(mt.StreamingQuantile(q=MS_QUANTILES, device=device), num_streams=N_CLASSES, device=device),
+        "config2": mt.MetricCollection(
+            {"acc": mt.Accuracy(num_classes=N_CLASSES, average="macro", device=device),
+             "f1": mt.F1Score(num_classes=N_CLASSES, average="macro", device=device),
+             "prec": mt.Precision(num_classes=N_CLASSES, average="macro", device=device),
+             "cm": mt.ConfusionMatrix(num_classes=N_CLASSES, device=device)},
+            device=device,
+        ),
+    }
+
+
+def _ms_feeds(logits, labels, sources, ce, ml_preds, ml_target, users) -> dict:
+    """Each metric's batches as (args, kwargs) on the card: ImageNet batches of 1024, MovieLens batches of 65,536."""
+    image = range(0, N_SAMPLES, BATCH)
+    ratings = range(0, ML_RATINGS, ML_BATCH)
+    return {
+        "acc": [((logits[i : i + BATCH], labels[i : i + BATCH]), {"stream_ids": labels[i : i + BATCH]}) for i in image],
+        "f1": [((logits[i : i + BATCH], labels[i : i + BATCH]), {"stream_ids": sources[i : i + BATCH]}) for i in image],
+        "top5": [((logits[i : i + BATCH], labels[i : i + BATCH]), {"stream_ids": labels[i : i + BATCH]}) for i in image],
+        "mse": [((ml_preds[i : i + ML_BATCH], ml_target[i : i + ML_BATCH]), {"stream_ids": users[i : i + ML_BATCH]}) for i in ratings],
+        "mae": [((ml_preds[i : i + ML_BATCH], ml_target[i : i + ML_BATCH]), {"stream_ids": users[i : i + ML_BATCH]}) for i in ratings],
+        "q": [((ce[i : i + BATCH],), {"stream_ids": labels[i : i + BATCH]}) for i in image],
+        "config2": [((logits[i : i + BATCH], labels[i : i + BATCH]), {}) for i in image],
+    }
+
+
+def _ms_data():
+    logits, labels, _ = _imagenet_pass()
+    ml_preds, ml_target, _ = _movielens_pass()
+    return logits, labels, _ms_sources(), _cross_entropy(logits, labels), ml_preds, ml_target, _ml_users()
+
+
+def _states_of(target) -> dict:
+    """Every state of a metric or collection, on the host, by flat checkpoint key."""
+    from metrics_tpu_torch.checkpoint import flatten_target
+
+    out = {}
+    for key, m in flatten_target(target).items():
+        for name, v in m.state_pytree().items():
+            out[f"{key}.{name}"] = v.detach().cpu().clone() if isinstance(v, torch.Tensor) else torch.tensor(v)
+    return out
+
+
+def _same_states(name: str, a: dict, b: dict) -> int:
+    if sorted(a) != sorted(b):
+        raise AssertionError(f"{name}: states {sorted(a)} and {sorted(b)}")
+    for k in a:
+        x, y = a[k], b[k]
+        x = x.view(torch.int32) if x.dtype == torch.uint32 else x
+        y = y.view(torch.int32) if y.dtype == torch.uint32 else y
+        if x.dtype != y.dtype or x.shape != y.shape or x.numpy().tobytes() != y.numpy().tobytes():
+            raise AssertionError(f"{name}: state {k!r} differs")
+    return len(a)
+
+
+def _ms_counters(ops, kll) -> dict:
+    return {"stream_logits": ops.fused_stream_stat_scores_logits, "stream_canonical": ops.fused_stream_stat_scores,
+            "logits": ops.fused_stat_scores_logits, "canonical": ops.fused_stat_scores, "kll_fold": kll.kll_fold}
+
+
+def _ms_ranking(values: np.ndarray, k: int, largest: bool) -> np.ndarray:
+    """numpy's ranking of float32 scores as top_k ranks them: NaN last, ties to the lower stream id."""
+    if largest:
+        return np.argsort(-np.where(np.isnan(values), -np.inf, values), kind="stable")[:k]
+    return np.argsort(np.where(np.isnan(values), np.inf, values), kind="stable")[:k]
+
+
+def _check_ranking(name: str, metric, values: np.ndarray, k: int, largest: bool) -> None:
+    got_v, got_i = metric.top_k(k, largest=largest)
+    want = _ms_ranking(values, k, largest)
+    if got_i.cpu().numpy().astype(np.int64).tolist() != want.tolist() or got_v.cpu().numpy().tobytes() != values[want].tobytes():
+        raise AssertionError(f"{name} {'top' if largest else 'bottom'}_k({k}): {got_i.tolist()} against numpy's {want.tolist()}")
+
+
+def _stream_counts_np(pred: np.ndarray, label: np.ndarray, ids: np.ndarray, s: int, c: int, micro: bool) -> dict:
+    """numpy's per-stream tp/fp/tn/fn of top-1 predictions (or, with `pred` (N, k), top-k) against labels."""
+    rows = np.bincount(ids, minlength=s).astype(np.int64)
+    if pred.ndim == 1:
+        hit = pred == label
+        if micro:
+            tp = np.bincount(ids, weights=hit, minlength=s).astype(np.int64)
+            fp = rows - tp
+            fn = rows - tp
+            return {"tp": tp, "fp": fp, "fn": fn, "tn": c * rows - tp - fp - fn}
+        tp = np.bincount(ids * c + pred, weights=hit, minlength=s * c).astype(np.int64).reshape(s, c)
+        pc = np.bincount(ids * c + pred, minlength=s * c).astype(np.int64).reshape(s, c)
+        lc = np.bincount(ids * c + label, minlength=s * c).astype(np.int64).reshape(s, c)
+        return {"tp": tp, "fp": pc - tp, "fn": lc - tp, "tn": rows[:, None] - pc - lc + tp}
+    k = pred.shape[1]
+    hit = (pred == label[:, None]).any(1)
+    tp = np.bincount(ids, weights=hit, minlength=s).astype(np.int64)
+    fp = k * rows - tp
+    fn = rows - tp
+    return {"tp": tp, "fp": fp, "fn": fn, "tn": c * rows - tp - fp - fn}
+
+
+def _f1_macro_np(counts: dict) -> np.ndarray:
+    tp, fp, fn = (counts[k].astype(np.float64) for k in ("tp", "fp", "fn"))
+    with np.errstate(divide="ignore", invalid="ignore"):
+        p = np.where(tp + fp > 0, tp / (tp + fp), 0.0)
+        r = np.where(tp + fn > 0, tp / (tp + fn), 0.0)
+        f = np.where(p + r > 0, 2 * p * r / (p + r), 0.0)
+    present = (tp + fp + fn) > 0
+    return (f * present).sum(1) / present.sum(1)
+
+
+def _check_ms_counts(name: str, metric, want: dict) -> int:
+    for k, v in want.items():
+        got = getattr(metric, k).cpu().numpy()
+        if got.dtype != np.int32 or got.astype(np.int64).tobytes() != v.astype(np.int64).tobytes():
+            raise AssertionError(f"{name}: {k} differs from numpy's per-stream counts")
+    return len(want)
+
+
+def _check_rel(name: str, got: np.ndarray, want: np.ndarray, rel: np.ndarray, checks: dict) -> None:
+    both = ~np.isnan(want)
+    if (np.isnan(got) != np.isnan(want)).any():
+        raise AssertionError(f"{name}: NaN where numpy has a value, or the other way")
+    err = np.abs(got[both].astype(np.float64) - want[both]) / np.maximum(np.abs(want[both]), np.finfo(np.float64).tiny)
+    worst = float((err / rel[both]).max()) if both.any() else 0.0
+    checks[name] = {"worst_share_of_bound": worst, "streams": int(both.sum())}
+    print(f"check {name}: {int(both.sum())} streams within their bound, worst {worst!r} of it")
+    if worst > 1.0:
+        raise AssertionError(f"{name}: a stream's value lies outside its bound")
+
+
+def _staged_rows(ids: np.ndarray, m: int) -> np.ndarray:
+    """Which rows of one batch the vmap strategy stages: each stream's first m rows (stable order)."""
+    order = np.argsort(ids, kind="stable")
+    sorted_ids = ids[order]
+    pos = np.arange(ids.size) - np.searchsorted(sorted_ids, sorted_ids, side="left")
+    keep = np.zeros(ids.size, bool)
+    keep[order[pos < m]] = True
+    return keep
+
+
+def _ms_card_vs_plain(ops, mt, first_batch) -> int:
+    """The per-stream entry points against their plain versions on the main-path batch and edge cases,
+    bitwise; num_valid through the metric on the card against the metric on the CPU."""
+    compared = 0
+    x, y, src = first_batch
+
+    def same(case, got, want):
+        nonlocal compared
+        for which, g, w in zip(COUNTS, got, want):
+            if g.dtype != torch.int32 or not torch.equal(g.cpu(), w.cpu()):
+                raise AssertionError(f"per-stream {which} differs from the plain version on {case}")
+        compared += 1
+
+    cases = [("main-path batch, ids = labels, S = 1000", x, y, y, N_CLASSES),
+             ("main-path batch, 64 sources", x, y, src, MS_SOURCES)]
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 22)
+    s = MS_SOURCES
+    cases.append(("ids out of range on both sides", x, y, torch.randint(-3, s + 3, (x.shape[0],), generator=gen, device=DEVICE), s))
+    cases.append(("S = 1", x, y, torch.zeros_like(y), 1))
+    cases.append(("all rows in one stream", x, y, torch.full_like(y, 7), s))
+    cases.append(("N = 0", x[:0], y[:0], y[:0], s))
+    for dtype in LOGIT_DTYPES:
+        logits, labels = _logit_cases(BATCH, N_CLASSES, dtype, torch.int64, seed=SEED + 23)
+        cases.append((f"NaN, tied and infinite {str(dtype).replace('torch.', '')} logits", logits, labels, labels % s, s))
+    for case, logits, labels, ids, s in cases:
+        for micro in (False, True):
+            same(f"{case}, micro={micro}", ops.fused_stream_stat_scores_logits(logits, labels, ids, s, micro),
+                 ops.fused_stream_stat_scores_logits_plain(logits, labels, ids, s, micro))
+            for dtype in (torch.int32, torch.bool):
+                top = torch.zeros_like(logits, dtype=dtype).scatter_(1, logits.float().nan_to_num(-1e30).topk(TOP_K, 1).indices, 1)
+                hot = torch.zeros_like(logits, dtype=dtype).scatter_(1, labels.clamp(0, logits.shape[1] - 1)[:, None], 1)
+                same(f"{case}, canonical {str(dtype).replace('torch.', '')}, micro={micro}",
+                     ops.fused_stream_stat_scores(top, hot, ids, s, micro), ops.fused_stream_stat_scores_plain(top, hot, ids, s, micro))
+    for nv in (0, 700, 5000):  # rows past num_valid neither route nor count as dropped
+        made = {d: mt.MultiStreamMetric(mt.Accuracy(num_classes=N_CLASSES, device=d), num_streams=MS_SOURCES, device=d) for d in (DEVICE, "cpu")}
+        for d, m in made.items():
+            m.update(x.to(d), y.to(d), stream_ids=src.to(d), num_valid=nv)
+        _same_states(f"num_valid={nv}", _states_of(made[DEVICE]), _states_of(made["cpu"]))
+        compared += 1
+    print(f"check per-stream stat-scores entry points: {compared} cases bitwise against the plain version and the CPU")
+    return compared
+
+
+def _ms_entry(ops) -> list:
+    """The kernels-line entries of the per-stream entry points, timed at (1024, 1000) with S = 64 (their
+    launches are phase 12's, filled in after it runs).  Timed beside the other entry points, before the curve
+    phase: torch.profiler sessions after it lose device events."""
+    n, c, s = BATCH, N_CLASSES, MS_TIMING_STREAMS
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 24)
+    logits = torch.randn((n, c), generator=gen, device=DEVICE)
+    labels = torch.randint(0, c, (n,), generator=gen, device=DEVICE)
+    ids = torch.randint(0, s, (n,), generator=gen, device=DEVICE)
+    preds = torch.randint(0, 2, (n, c), generator=gen, device=DEVICE, dtype=torch.int32)
+    target = torch.randint(0, 2, (n, c), generator=gen, device=DEVICE, dtype=torch.int32)
+    entries = []
+    for name, kernel, plain, inputs_bytes, key in (
+        ("stream_stat_scores_logits", lambda: ops.fused_stream_stat_scores_logits(logits, labels, ids, s),
+         lambda: ops.fused_stream_stat_scores_logits_plain(logits, labels, ids, s), n * c * 4 + n * 8 + n * 8, "stream_logits"),
+        ("stream_stat_scores", lambda: ops.fused_stream_stat_scores(preds, target, ids, s),
+         lambda: ops.fused_stream_stat_scores_plain(preds, target, ids, s), 2 * n * c * 4 + n * 8, "stream_canonical"),
+    ):
+        own_ms = _one_launch(name, kernel)
+        times = _in_turns({"plain": plain, "kernel": kernel}, ["plain", "kernel", "kernel", "plain"])
+        # each input read once, the four (S, C) int32 outputs written once; about six integer operations an element
+        bound_ms, bound_by = _bound(inputs_bytes + 4 * s * c * 4, 6 * n * c)
+        micro_ms = _device_ms(lambda: (ops.fused_stream_stat_scores_logits(logits, labels, ids, s, True) if key == "stream_logits"
+                                       else ops.fused_stream_stat_scores(preds, target, ids, s, True)))[0]
+        print(f"{name} at {(n, c)} with S = {s}: kernel {times['kernel']!r} ms (its own device time {own_ms!r} ms), "
+              f"plain {times['plain']!r} ms, bound {bound_ms!r} ms ({bound_by}); micro (S,) outputs {micro_ms!r} ms")
+        entries.append({
+            "name": name,
+            "route": "cuda",
+            "source": "metrics_tpu_torch/ops/csrc/stat_scores.cu",
+            "replaces": "metrics_tpu/ops/stat_scores_pallas.py:124",
+            "replaces_kind": "the per-row stat-scores update that metrics_tpu/multistream/core.py:361-378 "
+                             "vmaps and segment-sums (the Pallas kernel under jax.vmap on a TPU)",
+            "counter": key,
+            "launches": 0,
+            "bitwise": True,
+            "max_abs_err": 0,
+            "ms": times["kernel"],
+            "kernel_ms": own_ms,
+            "micro_ms": micro_ms,
+            "ms_shape": f"({n}, {c}) into S = {s} streams, (S, C) outputs",
+            "plain_ms": times["plain"],
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": None,
+            "library_note": "no single PyTorch call computes per-stream counts (the plain version is an argmax or "
+                            "one-hot chain and four index_add_ calls)",
+        })
+    return entries
+
+
+def _rank_checkpoint(mt, rank: int, out: Path) -> None:
+    """This rank's share of the (a) and (b) batches, one checkpoint saved through the group's store, and the
+    synced per-class accuracy."""
+    from metrics_tpu_torch.checkpoint import CheckpointManager
+
+    data = _ms_data()
+    feeds = _ms_feeds(*data)
+    full = _ms_metrics(mt)
+    col = mt.MetricCollection({k: full[k] for k in ("acc", "f1", "mse")}, compute_groups=False, device=DEVICE)
+    for key in col.keys():
+        for args, kwargs in feeds[key][rank::MS_SYNC_SPLIT]:
+            col[key].update(*args, **kwargs)
+    manager = CheckpointManager(str(out / "ckpt"), barrier_timeout=SYNC_LIMIT)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    step = manager.save(col)
+    save_ms = (time.perf_counter() - start) * 1e3
+    acc = col["acc"].compute().cpu().numpy()
+    np.save(out / f"acc{rank}.npy", acc)
+    (out / f"rank{rank}.json").write_text(json.dumps({
+        "step": step, "rank": manager.rank, "world": manager.world_size, "store": manager._kv_client() is not None,
+        "save_ms": save_ms, "bytes": manager.store.bytes_written, "fsyncs": manager.store.fsyncs,
+    }))
+
+
+def phase_ms_sync(mt, full: dict, where: Path) -> dict:
+    """Two gloo ranks save one checkpoint; it restores here at world size 1 (the elastic fold) against the
+    single-process pass."""
+    from metrics_tpu_torch.checkpoint import CheckpointManager
+
+    ranks = _start_ranks("checkpoint", where)
+    records = _wait_ranks("checkpoint", ranks, where)
+    for rank, rec in enumerate(records):
+        if rec is None or (rec["rank"], rec["world"], rec["store"], rec["step"]) != (rank, SYNC_WORLD, True, 0):
+            raise AssertionError(f"checkpoint rank {rank} did not save step 0 through the group's store: {rec}")
+    fresh = _ms_metrics(mt)
+    col = mt.MetricCollection({k: fresh[k] for k in ("acc", "f1", "mse")}, compute_groups=False, device=DEVICE)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    result = CheckpointManager(str(where / "ckpt"), rank=0, world_size=1).restore(col)
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - start) * 1e3
+    if result.world_size != SYNC_WORLD or result.folded_shards != [1]:
+        raise AssertionError(f"the elastic restore folded {result.folded_shards} of a world of {result.world_size}")
+    single = {k: _states_of(full[k]) for k in ("acc", "f1", "mse")}
+    folded = {k: _states_of(col[k]) for k in ("acc", "f1", "mse")}
+    integers = 0
+    for key in ("acc", "f1"):
+        integers += _same_states(f"two-rank fold of {key}", single[key], folded[key])
+    integers += _same_states("two-rank fold of mse's counts",
+                             {k: v for k, v in single["mse"].items() if not k.endswith("sum_squared_error")},
+                             {k: v for k, v in folded["mse"].items() if not k.endswith("sum_squared_error")})
+    rows = single["mse"]["metric.stream_rows"].numpy().astype(np.float64)
+    want = single["mse"]["metric.sum_squared_error"].numpy().astype(np.float64)
+    got = folded["mse"]["metric.sum_squared_error"].numpy().astype(np.float64)
+    # two float32 sums of a user's n nonnegative terms, each within n 2^-24 of its exact sum, and their rounded total
+    bound = (2 * rows + 2) * 2.0**-24 * want
+    worst = float(np.max(np.abs(got - want) - bound))
+    if worst > 0:
+        raise AssertionError("the two-rank fold's MSE sums lie outside their float32 bound")
+    acc_single = full["acc"].compute().cpu().numpy()
+    for rank in range(SYNC_WORLD):
+        synced = np.load(where / f"acc{rank}.npy")
+        if synced.tobytes() != acc_single.tobytes():
+            raise AssertionError(f"rank {rank}'s synced per-class accuracy differs from one process's")
+    record = {"save_ms": [r["save_ms"] for r in records], "bytes": [r["bytes"] for r in records],
+              "fsyncs": [r["fsyncs"] for r in records], "restore_ms": restore_ms, "integer_states_bitwise": integers,
+              "mse_sums_within_bound": True, "synced_accuracy_bitwise": True}
+    print(f"check two-rank checkpoint: saved through the group's store by both ranks ({record['save_ms']} ms, "
+          f"{record['bytes']} bytes, {record['fsyncs']} fsyncs), restored at world size 1 in {restore_ms!r} ms; "
+          f"{integers} integer states bitwise, MSE sums within their bound, both ranks' synced accuracy bitwise")
+    return record
+
+
+def phase_multistream(mt, ops, card: str) -> Tuple[dict, dict, dict]:
+    """(a) per-class and per-source classification streams through the per-stream kernel, (b) per-user
+    MovieLens errors, (c) per-class quantiles through one kll_fold over 1,000 sketches, (d) checkpoints of all
+    of it halfway, restored on the card and on the CPU, and over two ranks.  Returns the stat-scores launches,
+    every counted entry point's launches in the phase's passes, and the phase's line."""
+    from metrics_tpu_torch.checkpoint import CheckpointManager
+    from metrics_tpu_torch.multistream import shard_spans
+    from metrics_tpu_torch.ops import kll
+    from metrics_tpu_torch.streaming.sketches import DEFAULT_CAPACITY, kll_rank_error_bound
+
+    phase_start = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    data = _ms_data()
+    logits, labels, sources, ce, ml_preds, ml_target, users = data
+    feeds = _ms_feeds(*data)
+    half = {k: len(v) // 2 for k, v in feeds.items()}
+    metrics = _ms_metrics(mt)
+    counters = _ms_counters(ops, kll)
+    checks, passes = {}, {}
+
+    def feed(metric, batches):
+        for args, kwargs in batches:
+            metric.update(*args, **kwargs)
+
+    # the main path, halted halfway for the checkpoint; each metric's pass timed without the save
+    for fn in counters.values():
+        fn.launches = 0
+    pass_s = {}
+    for key, metric in metrics.items():
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        feed(metric, feeds[key][: half[key]])
+        torch.cuda.synchronize()
+        pass_s[key] = time.perf_counter() - start
+    halfway = {k: _states_of(m) for k, m in metrics.items()}
+    ckpt_root = Path(tempfile.mkdtemp(prefix="ms_ckpt_"))
+    managers = {k: CheckpointManager(str(ckpt_root / k)) for k in metrics}
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for k, m in metrics.items():
+        managers[k].save(m)
+    save_ms = (time.perf_counter() - start) * 1e3
+    for key, metric in metrics.items():
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        feed(metric, feeds[key][half[key] :])
+        torch.cuda.synchronize()
+        pass_s[key] += time.perf_counter() - start
+    launches = {name: fn.launches for name, fn in counters.items()}
+    implied = {"stream_logits": len(feeds["acc"]) + len(feeds["f1"]), "stream_canonical": len(feeds["top5"]),
+               "logits": len(feeds["config2"]) * 2 + 1, "canonical": 0, "kll_fold": len(feeds["q"])}
+    print(f"multistream launches per entry point: {launches} (the passes imply {implied})")
+    # config 2's groups: {acc}, {cm} and {f1, prec}: two logits launches a batch after the first's three
+    if launches != implied:
+        raise AssertionError("phase 12 did not launch the kernels as its passes imply")
+    for key in metrics:
+        n_batches = len(feeds[key])
+        samples = sum(args[0].shape[0] for args, _ in feeds[key])
+        passes[key] = {"seconds": pass_s[key], "updates_per_s": n_batches / pass_s[key], "samples_per_s": samples / pass_s[key]}
+        print(f"multistream pass {key}: {n_batches} updates in {pass_s[key]!r} s, {n_batches / pass_s[key]!r} updates/s, "
+              f"{samples / pass_s[key]!r} samples/s")
+
+    # (a) integer states against numpy's counts, values within FLOAT_RTOL, rankings
+    host_logits, host_labels = logits.cpu().numpy(), labels.cpu().numpy()
+    pred = host_logits.argmax(1)
+    top5 = np.argsort(-host_logits, axis=1, kind="stable")[:, :TOP_K]
+    src = sources.cpu().numpy()
+    want_acc = _stream_counts_np(pred, host_labels, host_labels, N_CLASSES, N_CLASSES, micro=True)
+    want_f1 = _stream_counts_np(pred, host_labels, src, MS_SOURCES, N_CLASSES, micro=False)
+    want_top5 = _stream_counts_np(top5, host_labels, host_labels, N_CLASSES, N_CLASSES, micro=True)
+    compared = sum(_check_ms_counts(k, metrics[k], w) for k, w in (("acc", want_acc), ("f1", want_f1), ("top5", want_top5)))
+    rows_a = np.bincount(host_labels, minlength=N_CLASSES)
+    for key, want in (("acc", want_acc["tp"] / rows_a), ("top5", want_top5["tp"] / rows_a), ("f1", _f1_macro_np(want_f1))):
+        got = metrics[key].compute().cpu().numpy()
+        _check_rel(f"(a) {key} per stream", got, want, np.full(want.shape, FLOAT_RTOL), checks)
+    acc_values = metrics["acc"].compute().cpu().numpy()
+    _check_ranking("(a) acc", metrics["acc"], acc_values, 10, largest=False)
+    _check_ranking("(a) acc", metrics["acc"], acc_values, 10, largest=True)
+    compared += _ms_card_vs_plain(ops, mt, (logits[:BATCH], labels[:BATCH], sources[:BATCH]))
+
+    # (b) per-user rows bitwise, values within their float32 bound, rankings, a query, a span
+    u = users.cpu().numpy()
+    p64, t64 = ml_preds.cpu().numpy().astype(np.float64), ml_target.cpu().numpy().astype(np.float64)
+    rows_b = np.bincount(u, minlength=ML_USERS)
+    if metrics["mse"].stream_rows.cpu().numpy().astype(np.int64).tobytes() != rows_b.astype(np.int64).tobytes():
+        raise AssertionError("(b) stream_rows differ from numpy's bincount")
+    rel = (rows_b + ML_UNITS_PAST_ROWS) * 2.0**-24
+    with np.errstate(divide="ignore", invalid="ignore"):
+        for key, terms in (("mse", (p64 - t64) ** 2), ("mae", np.abs(p64 - t64))):
+            want = np.bincount(u, weights=terms, minlength=ML_USERS) / rows_b
+            values = metrics[key].compute().cpu().numpy()
+            _check_rel(f"(b) {key} per user", values, want, rel, checks)
+            _check_ranking(f"(b) {key}", metrics[key], values, 10, largest=True)
+            _check_ranking(f"(b) {key}", metrics[key], values, 10, largest=False)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 25)
+    query = torch.randint(0, ML_USERS, (MS_COMPUTE_STREAMS,), generator=gen, device=DEVICE)
+    if metrics["mse"].compute_streams(query).cpu().numpy().tobytes() != metrics["mse"].compute()[query].cpu().numpy().tobytes():
+        raise AssertionError("(b) compute_streams differs from compute()'s rows")
+    lo, hi = shard_spans(ML_USERS, 4)[1]
+    recipient = mt.MultiStreamMetric(mt.MeanSquaredError(device=DEVICE), num_streams=hi - lo, device=DEVICE)
+    recipient.adopt_stream_slice(0, metrics["mse"].stream_slice(lo, hi))
+    donor = {k: v[lo:hi] for k, v in metrics["mse"].stream_slice(0, ML_USERS).items()}
+    _same_states("(b) adopted span", donor, {k: getattr(recipient, k).cpu() for k in donor})
+    if recipient.compute().cpu().numpy().tobytes() != metrics["mse"].compute()[lo:hi].cpu().numpy().tobytes():
+        raise AssertionError("(b) the adopted span computes other values than its donor")
+    print(f"check (b): stream_rows bitwise over {ML_USERS} users, top/bottom 10 as numpy ranks them, compute_streams of "
+          f"{MS_COMPUTE_STREAMS} ids, span [{lo}, {hi}) adopted bitwise")
+
+    # (c) rank errors per stream, dropped rows, one 1,000-sketch launch against the plain version
+    q_metric = metrics["q"]
+    host_ce = ce.cpu().numpy()
+    kept = np.zeros(N_SAMPLES, bool)
+    for i in range(0, N_SAMPLES, BATCH):
+        n = min(BATCH, N_SAMPLES - i)
+        m = min(n, max(8, -(-4 * n // N_CLASSES)))
+        kept[i : i + n] = _staged_rows(host_labels[i : i + n], m)
+    if q_metric.dropped_rows() != int((~kept).sum()):
+        raise AssertionError(f"(c) dropped {q_metric.dropped_rows()} rows, numpy counts {int((~kept).sum())} past m")
+    estimates = q_metric.compute().cpu().numpy()
+    worst_share = 0.0
+    order = np.argsort(host_labels[kept], kind="stable")
+    grouped = np.split(host_ce[kept][order], np.cumsum(np.bincount(host_labels[kept], minlength=N_CLASSES))[:-1])
+    for s in range(N_CLASSES):
+        data_s = np.sort(grouped[s])
+        errors = _rank_errors(estimates[s], MS_QUANTILES, data_s)
+        worst_share = max(worst_share, float(errors.max()) / kll_rank_error_bound(data_s.size, DEFAULT_CAPACITY))
+    checks["(c) rank errors"] = {"worst_share_of_bound": worst_share, "dropped_rows": q_metric.dropped_rows()}
+    print(f"check (c): {N_CLASSES} streams' estimates within kll_rank_error_bound of their exact ranks (worst "
+          f"{worst_share!r} of it), {q_metric.dropped_rows()} rows dropped past m as numpy counts")
+    if worst_share > 1.0:
+        raise AssertionError("(c) a stream's estimate lies outside kll_rank_error_bound")
+    last_args, last_kwargs = feeds["q"][-1]
+    before_last = mt.MultiStreamMetric(mt.StreamingQuantile(q=MS_QUANTILES, device=DEVICE), num_streams=N_CLASSES, device=DEVICE)
+    feed(before_last, feeds["q"][:-1])
+    card_twin = {k: v.clone() for k, v in before_last.state_pytree().items() if isinstance(v, torch.Tensor)}
+    kll.kll_fold.launches = 0
+    before_last.update(*last_args, **last_kwargs)
+    if kll.kll_fold.launches != 1:
+        raise AssertionError("(c) an update did not fold its 1,000 sketches in one kll_fold launch")
+    plain_twin = mt.MultiStreamMetric(mt.StreamingQuantile(q=MS_QUANTILES, device=DEVICE), num_streams=N_CLASSES, device=DEVICE)
+    plain_twin.load_state_pytree(card_twin)
+    _with_plain_fold(lambda: plain_twin.update(*last_args, **last_kwargs))
+    leaves = _same_leaves("(c) 1,000-sketch launch", before_last.sketch_tree("sketch"), plain_twin.sketch_tree("sketch"))
+    print(f"check (c): one 1,000-sketch kll_fold launch bitwise against kll_fold_plain ({leaves} leaves, keys included)")
+    compared += leaves
+
+    # (d) restore on the card, finish, and match the uninterrupted run; restore on the CPU, bitwise
+    restored = _ms_metrics(mt)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for k, m in restored.items():
+        CheckpointManager(str(ckpt_root / k)).restore(m)
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - start) * 1e3
+    for key, metric in restored.items():
+        feed(metric, feeds[key][half[key] :])
+        _same_states(f"(d) {key} restored halfway and finished", _states_of(metrics[key]), _states_of(metric))
+    on_cpu = _ms_metrics(mt, device="cpu")
+    for k, m in on_cpu.items():
+        CheckpointManager(str(ckpt_root / k)).restore(m)
+        _same_states(f"(d) {k} restored on the CPU", halfway[k], _states_of(m))
+    written = sum(mgr.store.bytes_written for mgr in managers.values())
+    fsyncs = sum(mgr.store.fsyncs for mgr in managers.values())
+    print(f"check (d): {len(metrics)} checkpoints saved halfway in {save_ms!r} ms ({written} bytes, {fsyncs} fsyncs), "
+          f"restored on the card in {restore_ms!r} ms and finished bitwise as the uninterrupted run; restored on the "
+          f"CPU bitwise")
+    del on_cpu, restored
+    sync = phase_ms_sync(mt, metrics, Path(tempfile.mkdtemp(prefix="ms_sync_")) / "ranks")
+
+    # per-update device operations and host copies, query times, peak memory
+    updates = {}
+    for key in ("acc", "f1", "top5", "mse", "q"):
+        fresh = _ms_metrics(mt)[key]
+        args, kwargs = feeds[key][1]
+        fresh.update(*args, **kwargs)
+        ms = _call_ms(lambda: fresh.update(*args, **kwargs), reps=10, warmup=2)
+        seen = max(((_device_ops(lambda: fresh.update(*args, **kwargs)) or []) for _ in range(PROFILER_ATTEMPTS)), key=len)
+        updates[key] = {"update_ms": ms, "device_ops": len(seen), "device_to_host": sum("DtoH" in op for op, _ in seen)}
+        print(f"multistream {key} update: {ms!r} ms, {len(seen)} device operations, {updates[key]['device_to_host']} "
+              f"device->host copies (0: not counted where the profiler saw no device activity)")
+    def uncached(metric):
+        metric._computed = None  # compute() returns its cached value until the next update
+        return metric.compute()
+
+    queries = {
+        "acc_compute_ms": _call_ms(lambda: uncached(metrics["acc"]), reps=10, warmup=2),
+        "mse_compute_ms": _call_ms(lambda: uncached(metrics["mse"]), reps=10, warmup=2),
+        "q_compute_ms": _call_ms(lambda: uncached(metrics["q"]), reps=10, warmup=2),
+        "mse_top_k_ms": _call_ms(lambda: metrics["mse"].top_k(10), reps=10, warmup=2),
+        "mse_compute_streams_ms": _call_ms(lambda: metrics["mse"].compute_streams(query), reps=10, warmup=2),
+    }
+    print(f"multistream queries: {queries}")
+    secs = time.perf_counter() - phase_start
+    peak = torch.cuda.max_memory_allocated()
+    print(f"multistream phase took {secs:.1f} s, peak device memory {peak} bytes")
+    line = {"multistream": {
+        "card": card, "passes": passes, "updates": updates, "queries": queries, "checks": checks,
+        "compared": compared, "checkpoint": {"save_ms": save_ms, "restore_ms": restore_ms, "bytes": written,
+                                             "fsyncs": fsyncs, "two_ranks": sync},
+        "launches": launches, "peak_bytes": peak, "phase_s": secs,
+    }}
+    stat_launches = {"logits": launches["logits"], "canonical": launches["canonical"]}
+    return stat_launches, launches, line
+
+
 def _device_ops(fn, calls: int = 1) -> Optional[list]:
     """(name, device ms) of each device operation that ``calls`` calls of ``fn`` issue, as
     torch.profiler records them; None where the profiler records no device activity on this machine."""
@@ -3504,6 +4056,7 @@ def main() -> int:
     sync_line = phase_sync(single, logits, labels, card)
     # the kernels' own times first: torch.profiler sessions after the curve phase's lost events
     kernels = phase_timings(ops, launches, max_abs_err)
+    ms_entries = _ms_entry(ops)
     curve_launches, curve_line = phase_curves(mt, ops, logits, labels, card)
     rest_launches, rest_line = phase_rest(mt, ops, logits, labels, card)
     del logits, labels
@@ -3513,20 +4066,27 @@ def main() -> int:
     wrapper_launches, wrapper_line = phase_wrappers_retrieval(mt, ops, card)
     torch.cuda.empty_cache()
     streaming_launches, kll_entry, streaming_line = phase_streaming(mt, ops, card)
+    torch.cuda.empty_cache()
+    ms_launches, ms_counts, ms_line = phase_multistream(mt, ops, card)
     print(f"launches per entry point: main path {launches}, curve phase {curve_launches}, "
           f"rest of classification {rest_launches}, regression {regression_launches}, "
-          f"wrappers and retrieval {wrapper_launches}, streaming {streaming_launches}")
+          f"wrappers and retrieval {wrapper_launches}, streaming {streaming_launches}, multistream {ms_launches}")
     for entry in kernels:
         route = "canonical" if entry["name"] == "stat_scores" else "logits"
         entry["launches"] += (curve_launches[route] + rest_launches[route] + regression_launches[route]
-                              + wrapper_launches[route] + streaming_launches[route])
+                              + wrapper_launches[route] + streaming_launches[route] + ms_launches[route])
+    kll_entry["launches"] += ms_counts["kll_fold"]
     kernels.append(kll_entry)
+    for entry in ms_entries:
+        entry["launches"] = ms_counts[entry.pop("counter")]
+    kernels.extend(ms_entries)
     print(json.dumps(sync_line))
     print(json.dumps(curve_line))
     print(json.dumps(rest_line))
     print(json.dumps(regression_line))
     print(json.dumps(wrapper_line))
     print(json.dumps(streaming_line))
+    print(json.dumps(ms_line))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -51,15 +51,18 @@ class BaseAggregator(Metric):
         if weight is not None:
             weight = torch.broadcast_to(self._as_float(weight), x.shape)
         if self.nan_strategy in ("error", "warn"):
-            nans = torch.isnan(x)
-            if bool(nans.any()):
-                if self.nan_strategy == "error":
-                    raise RuntimeError("Encountered `nan` values in tensor")
-                rank_zero_warn("Encountered `nan` values in tensor. Will be removed.", UserWarning)
-                keep = ~nans
-                if weight is not None:
-                    weight = weight[keep]
-                x = x[keep]
+            # a NaN check reads the values on the host, which a per-row update under
+            # torch.func.vmap cannot: there the NaN flows on, as under a JAX trace
+            if not self._rows_mapped:
+                nans = torch.isnan(x)
+                if bool(nans.any()):
+                    if self.nan_strategy == "error":
+                        raise RuntimeError("Encountered `nan` values in tensor")
+                    rank_zero_warn("Encountered `nan` values in tensor. Will be removed.", UserWarning)
+                    keep = ~nans
+                    if weight is not None:
+                        weight = weight[keep]
+                    x = x[keep]
         elif self.nan_strategy == "ignore":
             keep = ~torch.isnan(x)
             if weight is not None:
@@ -139,6 +142,8 @@ class SumMetric(BaseAggregator):
         6.0
     """
 
+    stackable = True  # one zero-default sum state
+
     def __init__(self, nan_strategy: Union[str, float] = "warn", **kwargs: Any) -> None:
         super().__init__("sum", torch.tensor(0.0), nan_strategy, state_name="sum_value", **kwargs)
 
@@ -150,6 +155,8 @@ class SumMetric(BaseAggregator):
 
 class CatMetric(BaseAggregator):
     """Concatenate everything (a ``cat`` list state of float32 rows)."""
+
+    stackable = False  # the concatenation list grows with the stream
 
     def __init__(self, nan_strategy: Union[str, float] = "warn", **kwargs: Any) -> None:
         super().__init__("cat", [], nan_strategy, **kwargs)
@@ -177,6 +184,8 @@ class MeanMetric(BaseAggregator):
         >>> float(metric.compute())
         2.0
     """
+
+    stackable = True  # zero-default sum states (value, weight)
 
     def __init__(self, nan_strategy: Union[str, float] = "warn", **kwargs: Any) -> None:
         super().__init__("sum", torch.tensor(0.0), nan_strategy, state_name="mean_value", **kwargs)

@@ -1,6 +1,6 @@
 """Accuracy module metric (counterpart of ``metrics_tpu/classification/accuracy.py``)."""
 
-from typing import Any, Optional
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -13,6 +13,7 @@ from metrics_tpu_torch.functional.classification.accuracy import (
     _subset_accuracy_compute,
     _subset_accuracy_update,
 )
+from metrics_tpu_torch.utils.checks import _as_tensor, _input_squeeze
 from metrics_tpu_torch.utils.enums import DataType
 
 
@@ -99,6 +100,17 @@ class Accuracy(StatScores):
                 validate_args=self.validate_args,
             )
             self._accumulate(tp, fp, tn, fn)
+
+    def _stream_update(self, ids: torch.Tensor, num_streams: int, preds: torch.Tensor, target: torch.Tensor) -> Optional[Dict[str, torch.Tensor]]:
+        """Per-stream sums of what each row's own :meth:`update` adds (see
+        :meth:`StatScores._stream_update`); ``None`` for subset accuracy, whose
+        ``correct``/``total`` the per-stream kernel does not count."""
+        if type(self).update is not Accuracy.update or (self.subset_accuracy and _check_subset_validity(self.mode)):
+            return None
+        if self.mode == DataType.MULTILABEL and self.top_k:
+            raise ValueError("You can not use the `top_k` parameter to calculate accuracy for multi-label inputs.")
+        preds, target = _input_squeeze(_as_tensor(preds), _as_tensor(target))
+        return self._stream_counts(ids, num_streams, preds, target)
 
     def compute(self) -> torch.Tensor:
         if self.mode is None:

@@ -24,6 +24,7 @@ class AUC(Metric):
     is_differentiable = False
     higher_is_better = None
     full_state_update = False
+    stackable = False  # buffer states (x/y) grow with the stream
 
     def __init__(self, reorder: bool = False, **kwargs: Any) -> None:
         super().__init__(**kwargs)

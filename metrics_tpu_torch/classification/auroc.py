@@ -29,6 +29,7 @@ class AUROC(Metric):
     is_differentiable = False
     higher_is_better = True
     full_state_update = False
+    stackable = False  # buffer states (preds/target) grow with the stream
     # the data-determined mode must survive a checkpoint restore
     _ckpt_attrs = ("mode",)
 

@@ -28,6 +28,7 @@ class AveragePrecision(Metric):
     is_differentiable = False
     higher_is_better = True
     full_state_update = False
+    stackable = False  # buffer states (preds/target) grow with the stream
 
     def __init__(
         self,

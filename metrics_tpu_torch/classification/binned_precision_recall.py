@@ -61,6 +61,7 @@ class BinnedPrecisionRecallCurve(Metric):
     is_differentiable = False
     higher_is_better = None
     full_state_update = False
+    stackable = True  # fixed (num_classes, num_thresholds) sum states
 
     def __init__(self, num_classes: int, thresholds: Union[int, torch.Tensor, List[float]] = 100, **kwargs: Any) -> None:
         super().__init__(**kwargs)

@@ -28,6 +28,7 @@ class CalibrationError(Metric):
     is_differentiable = False
     higher_is_better = False
     full_state_update = False
+    stackable = False  # list states (confidences/accuracies) grow with the stream
 
     def __init__(self, n_bins: int = 15, norm: str = "l1", **kwargs: Any) -> None:
         super().__init__(**kwargs)

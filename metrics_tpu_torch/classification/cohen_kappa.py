@@ -25,6 +25,7 @@ class CohenKappa(Metric):
     is_differentiable = False
     higher_is_better = True
     full_state_update = False
+    stackable = True  # fixed (num_classes, num_classes) confmat sum state
 
     def __init__(
         self,

@@ -29,6 +29,7 @@ class ConfusionMatrix(Metric):
     is_differentiable = False
     higher_is_better = None
     full_state_update = False
+    stackable = True  # fixed (num_classes, num_classes) confmat sum state
 
     def __init__(
         self,

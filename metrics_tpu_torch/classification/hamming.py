@@ -28,6 +28,7 @@ class HammingDistance(Metric):
     is_differentiable = False
     higher_is_better = False
     full_state_update = False
+    stackable = True  # scalar sum states only; per-stream stacking is exact
 
     def __init__(self, threshold: float = 0.5, validate_args: bool = True, **kwargs: Any) -> None:
         super().__init__(**kwargs)

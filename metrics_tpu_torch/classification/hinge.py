@@ -32,6 +32,7 @@ class HingeLoss(Metric):
     is_differentiable = True
     higher_is_better = False
     full_state_update = False
+    stackable = True  # scalar sum states only; per-stream stacking is exact
 
     def __init__(
         self,

@@ -26,6 +26,7 @@ class KLDivergence(Metric):
     is_differentiable = True
     higher_is_better = False
     full_state_update = False
+    stackable = False  # non-probabilistic mode holds a growing list state
 
     def __init__(self, log_prob: bool = False, reduction: Optional[str] = "mean", **kwargs: Any) -> None:
         super().__init__(**kwargs)

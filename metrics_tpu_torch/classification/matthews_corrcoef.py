@@ -28,6 +28,7 @@ class MatthewsCorrCoef(Metric):
     is_differentiable = False
     higher_is_better = True
     full_state_update = False
+    stackable = True  # fixed (num_classes, num_classes) confmat sum state
 
     def __init__(self, num_classes: int, threshold: float = 0.5, validate_args: bool = True, **kwargs: Any) -> None:
         super().__init__(**kwargs)

@@ -35,6 +35,7 @@ class PrecisionRecallCurve(Metric):
     is_differentiable = False
     higher_is_better = None
     full_state_update = False
+    stackable = False  # buffer states (preds/target) grow with the stream
 
     def __init__(self, num_classes: Optional[int] = None, pos_label: Optional[int] = None, **kwargs: Any) -> None:
         super().__init__(**kwargs)

@@ -19,6 +19,7 @@ class _RankingBase(Metric):
 
     is_differentiable = False
     full_state_update = False
+    stackable = True  # scalar sum states only; per-stream stacking is exact
     _update_fn: Any = None
 
     def __init__(self, **kwargs: Any) -> None:

@@ -1,13 +1,14 @@
 """StatScores module metric, base of the stat-scores family
 (counterpart of ``metrics_tpu/classification/stat_scores.py``)."""
 
-from typing import Any, Callable, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 from metrics_tpu_torch.functional.classification.accuracy import _mode
 from metrics_tpu_torch.functional.classification.stat_scores import (
     _stat_scores_compute,
+    _stat_scores_stream_update,
     _stat_scores_update,
 )
 from metrics_tpu_torch.metric import Metric
@@ -45,6 +46,7 @@ class StatScores(Metric):
     is_differentiable = False
     higher_is_better = None
     full_state_update = False
+    stackable = True  # tensor sum states only; per-stream stacking is exact
     # with validate_args=False, re-run value-level case detection after this
     # many fingerprint-matched (skipped) batches
     _REDETECT_EVERY = 64
@@ -183,6 +185,34 @@ class StatScores(Metric):
             validate_args=self.validate_args,
         )
         self._accumulate(tp, fp, tn, fn)
+
+    def _stream_counts(self, ids: torch.Tensor, num_streams: int, preds: torch.Tensor, target: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The tp/fp/tn/fn sums per stream (:func:`_stat_scores_stream_update`)."""
+        tp, fp, tn, fn = _stat_scores_stream_update(
+            preds,
+            target,
+            ids,
+            num_streams,
+            reduce=self.reduce,
+            mdmc_reduce=self.mdmc_reduce,
+            threshold=self.threshold,
+            num_classes=self.num_classes,
+            top_k=self.top_k,
+            multiclass=self.multiclass,
+            ignore_index=self.ignore_index,
+            mode=self.mode,
+            validate_args=self.validate_args,
+        )
+        return {"tp": tp, "fp": fp, "tn": tn, "fn": fn}
+
+    def _stream_update(self, ids: torch.Tensor, num_streams: int, *args: Any, **kwargs: Any) -> Optional[Dict[str, torch.Tensor]]:
+        """Per-stream sums of the states each row's own :meth:`update` would add
+        (:class:`~metrics_tpu_torch.multistream.MultiStreamMetric`'s segment route):
+        one launch of the per-stream stat-scores kernel on a CUDA tensor.
+        ``None`` where this class's update is not the one it mirrors."""
+        if type(self).update is not StatScores.update:
+            return None
+        return self._stream_counts(ids, num_streams, *args, **kwargs)
 
     def _get_final_stats(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
         """Concatenate list states (if any) into final count tensors."""

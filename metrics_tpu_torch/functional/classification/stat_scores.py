@@ -9,6 +9,7 @@ straight to :func:`fused_stat_scores_logits`; every other input is first
 canonicalised to binary one-hots and counted by :func:`_stat_scores`.
 """
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -18,6 +19,8 @@ from metrics_tpu_torch.ops.stat_scores import (
     LOGIT_DTYPES,
     fused_stat_scores,
     fused_stat_scores_logits,
+    fused_stream_stat_scores,
+    fused_stream_stat_scores_logits,
 )
 from metrics_tpu_torch.utils.checks import _as_tensor, _canonical_format, _checked_inputs
 from metrics_tpu_torch.utils.enums import AverageMethod, DataType, MDMCAverageMethod
@@ -176,6 +179,93 @@ def _stat_scores_update(
     if ignore_index is not None and reduce == "macro" and not _negative_index_dropped:
         ignored = torch.arange(tp.shape[-1], device=tp.device) == ignore_index
         tp, fp, tn, fn = (torch.where(ignored, -1, x) for x in (tp, fp, tn, fn))
+
+    return tp, fp, tn, fn
+
+
+def _stat_scores_stream_update(
+    preds: torch.Tensor,
+    target: torch.Tensor,
+    ids: torch.Tensor,
+    num_streams: int,
+    reduce: Optional[str] = "micro",
+    mdmc_reduce: Optional[str] = None,
+    num_classes: Optional[int] = None,
+    top_k: Optional[int] = None,
+    threshold: float = 0.5,
+    multiclass: Optional[bool] = None,
+    ignore_index: Optional[int] = None,
+    mode: Optional[DataType] = None,
+    validate_args: bool = True,
+) -> Counts:
+    """Per-stream counts: what :func:`_stat_scores_update` of each row alone gives,
+    added into the row's stream (``ids``, a row outside ``[0, S)`` dropped).
+
+    The JAX package's multistream runs the update once per row under
+    ``jax.vmap`` and ``segment_sum``s the rows.  Every step of the update
+    before the counting works row by row (top-k, thresholds, one-hots), so
+    the port canonicalizes the whole batch once and counts each row into its
+    stream in one launch of the per-stream kernel (a plain ``index_add_`` on
+    the CPU).  Only ``micro`` and ``macro`` reduces stack: ``samples`` holds
+    list states.  Returns ``(S,)`` (micro) or ``(S, C)`` (macro) int32.
+    """
+    if reduce not in ("micro", "macro"):
+        raise ValueError(f"per-stream counts take reduce 'micro' or 'macro', got {reduce!r}")
+    preds, target = _as_tensor(preds), _as_tensor(target)
+    ids = ids.reshape(-1)
+    samples = ids
+    micro = reduce == "micro"
+    _negative_index_dropped = False
+    if ignore_index is not None and ignore_index < 0 and mode is not None:
+        if mode in (DataType.MULTICLASS, DataType.MULTIDIM_MULTICLASS):
+            # the rows this drops are those of the samples' targets, flattened
+            ids = ids.repeat_interleave(math.prod(target.shape[1:]))[target.reshape(-1) != ignore_index]
+        preds, target = _drop_negative_ignored_indices(preds, target, ignore_index, mode)
+        _negative_index_dropped = True
+
+    preds, target, case = _checked_inputs(
+        preds,
+        target,
+        threshold=threshold,
+        num_classes=num_classes,
+        multiclass=multiclass,
+        top_k=top_k,
+        ignore_index=ignore_index,
+        validate_args=validate_args,
+        case=mode if not _negative_index_dropped else None,
+    )
+    if _takes_logits_route(preds, target, case, reduce, num_classes, top_k, multiclass, ignore_index):
+        return fused_stream_stat_scores_logits(preds.contiguous(), target.contiguous(), ids.contiguous(), num_streams, micro)
+    preds, target, _ = _canonical_format(preds, target, case, threshold, top_k, num_classes, multiclass)
+
+    if ignore_index is not None and ignore_index >= preds.shape[1]:
+        raise ValueError(
+            f"The `ignore_index` {ignore_index} is not valid for inputs with {preds.shape[1]} classes"
+        )
+    if ignore_index is not None and preds.shape[1] == 1:
+        raise ValueError("You can not use `ignore_index` with binary data.")
+
+    if preds.ndim == 3:
+        if mdmc_reduce != "global":
+            raise ValueError("per-stream counts of multi-dimensional multi-class inputs take mdmc_reduce='global'")
+        ids = ids.repeat_interleave(preds.shape[2])
+        preds = torch.movedim(preds, 1, 2).reshape(-1, preds.shape[1])
+        target = torch.movedim(target, 1, 2).reshape(-1, target.shape[1])
+
+    if ignore_index is not None and reduce != "macro" and not _negative_index_dropped:
+        preds = _del_column(preds, ignore_index)
+        target = _del_column(target, ignore_index)
+
+    tp, fp, tn, fn = fused_stream_stat_scores(preds.contiguous(), target.contiguous(), ids.contiguous(), num_streams, micro)
+
+    if ignore_index is not None and reduce == "macro" and not _negative_index_dropped:
+        # each row's update marks the ignored class -1; its stream adds one -1 per row
+        slot = torch.where((samples >= 0) & (samples < num_streams), samples, torch.full_like(samples, num_streams))
+        rows = torch.zeros(num_streams + 1, dtype=torch.int32, device=tp.device).index_add_(
+            0, slot.to(torch.int64), torch.ones_like(slot, dtype=torch.int32)
+        )[:num_streams]
+        ignored = torch.arange(tp.shape[-1], device=tp.device) == ignore_index
+        tp, fp, tn, fn = (torch.where(ignored, -rows[:, None], x) for x in (tp, fp, tn, fn))
 
     return tp, fp, tn, fn
 

@@ -51,6 +51,10 @@ def load_jax_state(metric: Metric, state: Dict[str, Any], extra: Optional[Dict[s
     and a ``WindowedMetric``'s rings (``wb_*``, ``w__ptr``, ``w__count``) load
     as tensor states, so a sketch loaded mid-stream continues bit for bit as
     it would have in the JAX package: its coin flips come from the key.
+    A ``MultiStreamMetric``'s stacked states (``(S, ...)`` tensors and
+    stacked sketch leaves, ``stream_rows``, ``stream_dropped``) load the same
+    way; its ``extra`` carries the base's under ``"base"`` (such as the
+    locked ``mode``), as the JAX package's ``_ckpt_extra_state()`` gives it.
 
     A ``BootStrapper``'s ``state`` holds ``_update_count``, ``rng`` (the JAX
     wrapper's ``_rng.bit_generator.state``: the draws continue where its

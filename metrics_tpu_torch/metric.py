@@ -160,6 +160,31 @@ def _unpack_state_blob(blob: bytes) -> Dict[str, torch.Tensor]:
     return out
 
 
+def _flatten_batched_inputs(args: tuple, kwargs: dict) -> Tuple[list, Callable[[Sequence[Any]], Tuple[tuple, dict]], List[bool], Optional[int], bool]:
+    """Flatten an update's ``(args, kwargs)`` and classify its leaves for stacked rows.
+
+    Tensor and array leaves with ``ndim >= 1`` carry the leading row axis;
+    every other leaf passes through unchanged.  Returns ``(leaves, rebuild,
+    is_batched, n, ragged)``: ``rebuild(leaves)`` gives ``(args, kwargs)``
+    back, ``n`` is the leading size of the first batched leaf (``None``
+    without one) and ``ragged`` flags batched leaves of another leading size.
+    The JAX package flattens nested pytrees; an update here takes its arrays
+    at the top level.
+    """
+    keys = list(kwargs)
+    leaves = list(args) + [kwargs[k] for k in keys]
+    is_batched = [isinstance(x, (torch.Tensor, np.ndarray)) and x.ndim >= 1 for x in leaves]
+    batched = [x for x, b in zip(leaves, is_batched) if b]
+    n = int(batched[0].shape[0]) if batched else None
+    ragged = any(int(x.shape[0]) != n for x in batched)
+
+    def rebuild(new_leaves: Sequence[Any]) -> Tuple[tuple, dict]:
+        new_leaves = list(new_leaves)
+        return tuple(new_leaves[: len(args)]), dict(zip(keys, new_leaves[len(args) :]))
+
+    return leaves, rebuild, is_batched, n, ragged
+
+
 def _resolve_device(device: Union[str, torch.device]) -> torch.device:
     """The device a metric keeps its state on; CUDA must be present when asked for."""
     device = torch.device(device)
@@ -317,6 +342,16 @@ class Metric(nn.Module, ABC):
     # ``jit_update=False``): the JAX package's BootStrapper then draws its
     # resamples per copy, and the port's draws as it does
     traced_update = True
+
+    # whether a MultiStreamMetric may stack this metric's states per stream:
+    # False for growing list/buffer states, None where the JAX package leaves
+    # it unsaid (stacked_states decides)
+    stackable: Optional[bool] = None
+
+    # set on a MultiStreamMetric's base, whose update then runs once per row
+    # under torch.func.vmap, where no value can be read on the host: as under a
+    # JAX trace, value checks that read the host are skipped
+    _rows_mapped = False
 
     def __init__(self, **kwargs: Any) -> None:
         super().__init__()
@@ -602,6 +637,49 @@ class Metric(nn.Module, ABC):
             return [name]
         raise KeyError(f"unknown state {name!r}")
 
+    def stacked_states(self, num_streams: int) -> List[Dict[str, Any]]:
+        """Registration specs for this metric's states with a leading
+        ``(num_streams, ...)`` stream axis (:class:`~metrics_tpu_torch.multistream.MultiStreamMetric`'s
+        registration hook).
+
+        One spec per *logical* state: ``{"kind": "tensor", "name", "default",
+        "reduce"}`` for tensor states and ``{"kind": "sketch", "name", "tree",
+        "merge"}`` for sketch states, each default or leaf repeated to
+        ``(num_streams,) + shape``.  A PRNG-key leaf (``torch.uint32``
+        ``(2,)``, a KLL sketch's compaction key) is not repeated but folded per
+        stream, ``jax.random.fold_in(key, stream)`` bit for bit, so the
+        streams' coin flips decorrelate.  List and buffer states grow with the
+        stream and have no stacked form: they raise.
+        """
+        from metrics_tpu_torch.streaming import _threefry
+
+        num_streams = int(num_streams)
+        if num_streams < 1:
+            raise ValueError(f"num_streams must be >= 1, got {num_streams}")
+        streams = torch.arange(num_streams, dtype=torch.int64, device=self.device)
+
+        def _stack(leaf: torch.Tensor) -> torch.Tensor:
+            if leaf.dtype == torch.uint32 and tuple(leaf.shape) == (2,):
+                return _threefry.as_uint32(_threefry.fold_in(leaf, streams))
+            return leaf.expand((num_streams,) + tuple(leaf.shape)).clone()
+
+        specs: List[Dict[str, Any]] = []
+        covered = self._sketch_leaf_key_set()
+        for name, meta in self._sketch_states.items():
+            tree = {leaf: _stack(self._defaults[f"{name}__sk_{leaf}"]) for leaf in meta["leaves"]}
+            specs.append({"kind": "sketch", "name": name, "tree": tree, "merge": meta["merge"]})
+        buffer_keys = self._buffer_keys()
+        for name, default in self._defaults.items():
+            if name in covered:
+                continue
+            if isinstance(default, list) or name in buffer_keys:
+                raise MetricsTPUUserError(
+                    f"state {name!r} is a list/buffer state; growing states have no "
+                    "fixed-shape per-stream stacked form"
+                )
+            specs.append({"kind": "tensor", "name": name, "default": _stack(default), "reduce": self._reduce_fns[name]})
+        return specs
+
     @property
     def update_count(self) -> int:
         return self._update_count
@@ -681,6 +759,14 @@ class Metric(nn.Module, ABC):
 
     def _pre_update(self, *args: Any, **kwargs: Any) -> None:
         """Hook run on the inputs before each update (classification locks its input case here)."""
+
+    def _stream_update(self, ids: torch.Tensor, num_streams: int, *args: Any, **kwargs: Any) -> Optional[Dict[str, torch.Tensor]]:
+        """Per-stream sums of the states each row's own update adds, for a
+        :class:`~metrics_tpu_torch.multistream.MultiStreamMetric` of this base:
+        ``{state: (num_streams, ...)}`` (row ``i`` belongs to stream ``ids[i]``; an
+        id of ``num_streams`` drops the row).  ``None``, the default, runs the
+        update once per row under ``torch.func.vmap`` instead."""
+        return None
 
     def _check_input_devices(self, args: tuple, kwargs: dict) -> None:
         for value in (*args, *kwargs.values()):

@@ -28,6 +28,7 @@ class CosineSimilarity(Metric):
     is_differentiable = True
     higher_is_better = True
     full_state_update = True
+    stackable = False  # buffer states (preds/target) grow with the stream
 
     def __init__(self, reduction: Optional[str] = "sum", **kwargs: Any) -> None:
         super().__init__(**kwargs)

@@ -30,6 +30,7 @@ class ExplainedVariance(Metric):
     is_differentiable = True
     higher_is_better = True
     full_state_update = False
+    stackable = True  # scalar sum states only; per-stream stacking is exact
 
     def __init__(self, multioutput: str = "uniform_average", **kwargs: Any) -> None:
         super().__init__(**kwargs)

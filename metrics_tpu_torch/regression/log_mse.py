@@ -23,6 +23,7 @@ class MeanSquaredLogError(Metric):
     is_differentiable = True
     higher_is_better = False
     full_state_update = False
+    stackable = True  # scalar sum states only; per-stream stacking is exact
 
     def __init__(self, **kwargs: Any) -> None:
         super().__init__(**kwargs)

@@ -24,6 +24,7 @@ class MeanSquaredError(Metric):
     is_differentiable = True
     higher_is_better = False
     full_state_update = False
+    stackable = True  # scalar sum states only; per-stream stacking is exact
 
     def __init__(self, squared: bool = True, **kwargs: Any) -> None:
         super().__init__(**kwargs)

@@ -53,6 +53,7 @@ class PearsonCorrCoef(Metric):
     is_differentiable = True
     higher_is_better = None
     full_state_update = True
+    stackable = True  # fixed-shape Welford accumulators; streams stack independently
 
     def __init__(self, **kwargs: Any) -> None:
         super().__init__(**kwargs)

@@ -25,6 +25,7 @@ class R2Score(Metric):
     is_differentiable = True
     higher_is_better = True
     full_state_update = False
+    stackable = True  # fixed (num_outputs,) sum states; per-stream stacking is exact
 
     def __init__(
         self,

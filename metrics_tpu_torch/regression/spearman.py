@@ -23,6 +23,7 @@ class SpearmanCorrCoef(Metric):
     is_differentiable = False
     higher_is_better = True
     full_state_update = False
+    stackable = False  # buffer states (preds/target) grow with the stream
 
     def __init__(self, **kwargs: Any) -> None:
         super().__init__(**kwargs)

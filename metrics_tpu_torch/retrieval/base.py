@@ -40,6 +40,7 @@ class RetrievalMetric(Metric):
     is_differentiable: bool = False
     higher_is_better: bool = True
     full_state_update: bool = False
+    stackable = False  # buffer states (indexes/preds/target) grow with the stream
     allow_non_binary_target = False
     _empty_kind = "positive"  # which missing target class makes a query "empty"
 

@@ -84,10 +84,15 @@ def split(key: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return torch.stack([y0[..., 0], y1[..., 0]], -1), torch.stack([y0[..., 1], y1[..., 1]], -1)
 
 
-def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
-    """``jax.random.fold_in(key, data)``: ``threefry(key, (0, data mod 2**32))``, int64 words."""
+def fold_in(key: torch.Tensor, data: Word) -> torch.Tensor:
+    """``jax.random.fold_in(key, data)``: ``threefry(key, (0, data mod 2**32))``, int64 words.
+
+    ``data`` is an int, or an integer tensor that folds each of its entries
+    into the key (``vmap(lambda d: fold_in(key, d))``): ``(len(data), 2)``.
+    """
     w = as_words(key)
-    y0, y1 = threefry2x32(w[..., 0], w[..., 1], 0, int(data) & MASK)
+    data = data.to(torch.int64) & MASK if isinstance(data, torch.Tensor) else int(data) & MASK
+    y0, y1 = threefry2x32(w[..., 0], w[..., 1], 0, data)
     return torch.stack([y0, y1], -1)
 
 

@@ -46,6 +46,7 @@ class SketchMetric(Metric):
 
     is_differentiable = False
     higher_is_better = None
+    stackable = True  # fixed-shape sketch state; streams stack on the vmap path
 
     def __init__(
         self,
@@ -103,8 +104,14 @@ class StreamingQuantile(SketchMetric):
         self.q = tuple(float(x) for x in qs)
 
     def compute(self):
-        out = kll_quantile(self.sketch_tree("sketch"), torch.tensor(self.q, dtype=torch.float32, device=self.device))
-        return out[0] if self._scalar_q else out
+        return self._stacked_compute(None)
+
+    def _stacked_compute(self, state):
+        """The estimates of the sketch in ``state`` (the live one when None), or of
+        every sketch of a stacked ``(S, L, K)`` state at once:
+        :class:`~metrics_tpu_torch.multistream.MultiStreamMetric`'s compute."""
+        out = kll_quantile(self.sketch_tree("sketch", state), torch.tensor(self.q, dtype=torch.float32, device=self.device))
+        return out[..., 0] if self._scalar_q else out
 
 
 def _xla_extreme(x: torch.Tensor, largest: bool) -> torch.Tensor:

@@ -208,12 +208,15 @@ kll_merge.batched_merge = True  # takes batched states: a ring of sketches merge
 
 
 def _weights(state: State):
+    """Each slot's value and weight (``2**level`` where the slot holds an item, else 0),
+    flattened over the levels; a batched state ``(S, L, K)`` gives ``(S, L * K)``."""
     buf, cnt = state["buf"], state["cnt"]
-    levels, capacity = buf.shape
+    levels, capacity = buf.shape[-2:]
     level_w = torch.tensor([2.0**h for h in range(levels)], dtype=torch.float32, device=buf.device)[:, None]
     slots = torch.arange(capacity, device=buf.device)[None, :]
-    w = torch.where(slots < cnt[:, None], level_w, torch.zeros((), dtype=torch.float32, device=buf.device))
-    return buf.reshape(-1), w.reshape(-1)
+    w = torch.where(slots < cnt[..., None], level_w, torch.zeros((), dtype=torch.float32, device=buf.device))
+    lead = tuple(buf.shape[:-2])
+    return buf.reshape(lead + (-1,)), w.reshape(lead + (-1,))
 
 
 def kll_total_weight(state: State) -> torch.Tensor:
@@ -231,17 +234,19 @@ def kll_quantile(state: State, q):
 
     A stable sort of the values, a float32 running sum of their weights and
     a left ``searchsorted``: bitwise the JAX package's below ``2**24`` total
-    weight, where every partial sum is exact.
+    weight, where every partial sum is exact.  A batched state ``(S, L, K)``
+    gives every sketch's estimates at once, ``(S,)`` or ``(S, Q)``: what
+    ``jax.vmap`` of the estimate over the sketches gives.
     """
     vals, w = _weights(state)
     key = torch.where(vals == 0, torch.zeros_like(vals), vals)
-    order = torch.sort(key, stable=True).indices
-    sv, cw = vals[order], torch.cumsum(w[order], 0)
-    total = cw[-1]
+    order = torch.sort(key, dim=-1, stable=True).indices
+    sv, cw = torch.gather(vals, -1, order), torch.cumsum(torch.gather(w, -1, order), -1)
+    total = cw[..., -1:]
     qa = _as_query(q, vals.device)
-    idx = torch.clamp(torch.searchsorted(cw, qa * total, side="left"), 0, vals.shape[0] - 1)
-    out = torch.where(total > 0, sv[idx], torch.full_like(qa, float("nan")))
-    return out.reshape(()) if torch.as_tensor(q).ndim == 0 else out
+    idx = torch.clamp(torch.searchsorted(cw, (qa * total).contiguous(), side="left"), 0, vals.shape[-1] - 1)
+    out = torch.where(total > 0, torch.gather(sv, -1, idx), torch.full_like(idx, float("nan"), dtype=torch.float32))
+    return out[..., 0] if torch.as_tensor(q).ndim == 0 else out
 
 
 def kll_cdf(state: State, xs):

@@ -77,3 +77,43 @@ class SyncIntegrityError(SyncError):
         self.state = state
         self.phase = phase
         self.problem = problem
+
+
+class CheckpointError(Exception):
+    """Base class for checkpoint save/restore failures.
+
+    Mirrors :class:`SyncError`: everything the checkpoint layer can detect
+    (torn shards, digest mismatches, missing manifests) derives from this
+    type so the ``on_restore_error`` policy has one stable thing to catch,
+    while genuine programming errors propagate unchanged.
+    """
+
+
+class CheckpointIntegrityError(CheckpointError):
+    """Raised on restore when a packed state blob fails its manifest digest.
+
+    Attributes:
+        metric: the checkpoint key of the affected metric.
+        state: the logical state name whose blob failed verification
+            (``None`` when the whole shard is unreadable).
+        shard: the rank index of the shard the blob came from.
+    """
+
+    def __init__(
+        self,
+        message: str,
+        *,
+        metric: Optional[str] = None,
+        state: Optional[str] = None,
+        shard: Optional[int] = None,
+    ):
+        super().__init__(message)
+        self.metric = metric
+        self.state = state
+        self.shard = shard
+
+
+class CheckpointRestoreError(CheckpointError):
+    """Raised when no usable checkpoint exists (no committed manifest, a
+    missing rank shard under ``on_restore_error="raise"``, or no quorum on
+    which step to restore across processes)."""

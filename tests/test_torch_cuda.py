@@ -716,3 +716,81 @@ def test_streaming_metrics_on_cuda_equal_the_cpu(cuda):
         got, want = made[cuda][name].compute(), made["cpu"][name].compute()
         for g, w in zip(*(x.values() if isinstance(x, dict) else (x,) for x in (got, want))):
             assert g.cpu().numpy().tobytes() == w.numpy().tobytes(), name
+
+
+STREAM_SHAPES = [(1024, 1000, 64), (1024, 1000, 1000), (1000, 7, 1), (0, 5, 3), (513, 33, 5), (2048, 10, 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("micro", [False, True])
+@pytest.mark.parametrize("n,c,s", STREAM_SHAPES)
+def test_stream_stat_scores_kernels_match_plain(cuda, n, c, s, micro):
+    """The per-stream entry points against their plain versions: ids out of range on both
+    sides, every logits dtype, NaN and tied rows, canonical int32 and bool operands."""
+    rng = np.random.default_rng(n + c + s)
+    ids = torch.from_numpy(rng.integers(-2, s + 2, n)).to(cuda)
+    for dtype, label_dtype in [(torch.float32, torch.int64), (torch.bfloat16, torch.int32), (torch.float16, torch.int64)]:
+        logits, labels = logit_cases(n, c, dtype, label_dtype, n + s, cuda)
+        for stream_ids in (ids, ids.to(torch.int32)):
+            before = ops.fused_stream_stat_scores_logits.launches
+            got = ops.fused_stream_stat_scores_logits(logits, labels, stream_ids, s, micro=micro)
+            assert ops.fused_stream_stat_scores_logits.launches == before + 1
+            want = ops.fused_stream_stat_scores_logits_plain(logits.cpu(), labels.cpu(), stream_ids.cpu(), s, micro)
+            assert_counts_equal([g.cpu() for g in got], want)
+    for dtype in (torch.int32, torch.bool):
+        preds = torch.from_numpy(rng.integers(0, 2, (n, c))).to(device=cuda, dtype=dtype)
+        target = torch.from_numpy(rng.integers(0, 2, (n, c))).to(device=cuda, dtype=dtype)
+        before = ops.fused_stream_stat_scores.launches
+        got = ops.fused_stream_stat_scores(preds, target, ids, s, micro=micro)
+        assert ops.fused_stream_stat_scores.launches == before + 1
+        assert_counts_equal([g.cpu() for g in got], ops.fused_stream_stat_scores_plain(preds.cpu(), target.cpu(), ids.cpu(), s, micro))
+
+
+@pytest.mark.cuda
+def test_stream_stat_scores_kernel_all_rows_in_one_stream(cuda):
+    logits, labels = logit_cases(1024, 1000, torch.float32, torch.int64, 3, cuda)
+    ids = torch.zeros(1024, dtype=torch.int64, device=cuda)
+    for micro in (False, True):
+        got = ops.fused_stream_stat_scores_logits(logits, labels, ids, 64, micro=micro)
+        assert_counts_equal([g.cpu() for g in got], ops.fused_stream_stat_scores_logits_plain(logits.cpu(), labels.cpu(), ids.cpu(), 64, micro))
+        total = ops.fused_stat_scores_logits(logits, labels)
+        for g, t in zip(got, total):
+            assert torch.equal(g[0], t.sum() if micro else t)
+
+
+@pytest.mark.cuda
+def test_multistream_stat_scores_on_cuda_come_from_the_kernel(cuda):
+    from metrics_tpu_torch.multistream import MultiStreamMetric
+
+    logits, labels = logit_cases(512, 100, torch.float32, torch.int64, 4, cuda)
+    labels = labels.clamp(0, 99)  # the metric's validation refuses labels out of range
+    ids = labels % 16
+    made = {d: MultiStreamMetric(mt.F1Score(num_classes=100, average="macro", device=d), num_streams=16, device=d) for d in ("cpu", cuda)}
+    before = (ops.fused_stream_stat_scores_logits.launches, ops.fused_stat_scores_logits.launches)
+    made[cuda].update(logits, labels, stream_ids=ids)
+    assert (ops.fused_stream_stat_scores_logits.launches, ops.fused_stat_scores_logits.launches) == (before[0] + 1, before[1])
+    made["cpu"].update(logits.cpu(), labels.cpu(), stream_ids=ids.cpu())
+    for name in ("tp", "fp", "tn", "fn", "stream_rows"):
+        assert torch.equal(getattr(made[cuda], name).cpu(), getattr(made["cpu"], name)), name
+
+
+@pytest.mark.cuda
+def test_kll_fold_kernel_folds_1000_stacked_sketches_in_one_launch(cuda):
+    """A multistream quantile's update: one kll_fold call over 1,000 stacked sketches."""
+    from metrics_tpu_torch.multistream import MultiStreamMetric
+    from metrics_tpu_torch.ops import kll
+
+    rng = np.random.default_rng(6)
+    made = {d: MultiStreamMetric(mt.StreamingQuantile(q=(0.5, 0.9), capacity=64, max_items=1 << 16, device=d), num_streams=1000, device=d)
+            for d in ("cpu", cuda)}
+    for step in range(2):
+        values = torch.from_numpy(_sketch_stream(30 + step, 50_000))
+        ids = torch.from_numpy(rng.integers(0, 1000, 50_000))
+        before = kll.kll_fold.launches
+        made[cuda].update(values.to(cuda), stream_ids=ids.to(cuda))
+        assert kll.kll_fold.launches == before + 1
+        made["cpu"].update(values, stream_ids=ids)
+    got = {k: v for k, v in made[cuda].state_pytree().items() if k != "_update_count"}
+    want = {k: v for k, v in made["cpu"].state_pytree().items() if k != "_update_count"}
+    _same_leaves(got, want)
+    assert made[cuda].compute().cpu().numpy().tobytes() == made["cpu"].compute().numpy().tobytes()

@@ -141,3 +141,23 @@ def test_wrappers_and_retrieval_without_device_raise_when_cuda_is_absent(monkeyp
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             make()
     assert mt.BootStrapper(base, device="cpu").device == torch.device("cpu")
+
+
+CHECKPOINT_AND_MULTISTREAM = tuple(
+    f"metrics_tpu_torch/{pkg}/{name}.py"
+    for pkg, names in (("checkpoint", ("__init__", "codec", "store", "manager")), ("multistream", ("__init__", "core", "sharding")))
+    for name in names
+)
+
+
+def test_the_walk_covers_the_checkpoint_and_multistream_modules():
+    walked = {p.relative_to(ROOT).as_posix() for p in _port_sources()}
+    assert len(CHECKPOINT_AND_MULTISTREAM) == 7 and set(CHECKPOINT_AND_MULTISTREAM) <= walked
+
+
+def test_multistream_without_device_raises_when_cuda_is_absent(monkeypatch):
+    base = mt.Accuracy(num_classes=3, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mt.MultiStreamMetric(base, num_streams=2)
+    assert mt.MultiStreamMetric(base, num_streams=2, device="cpu").device == torch.device("cpu")
