@@ -3341,6 +3341,11 @@ ML_USER_TAIL = 3.0  # (b)'s user ids: floor(users x u^3), u uniform: a heavy hea
 MS_QUANTILES = (0.5, 0.9, 0.99)
 MS_COMPUTE_STREAMS = 1000  # ids of (b)'s compute_streams query
 MS_TIMING_STREAMS = 64  # S of the per-stream entry points' timed calls at (1024, 1000)
+# S of the card's large-S cases: 600 past the 402 streams one block of the canonical route holds for bool
+# operands at C = 1000 (8-byte loads), 5000 past the 664 it holds for int32; 600 x 1000 outputs also loop the
+# logits route's ranges past two blocks an SM times 2048
+MS_LARGE_STREAMS = (600, 5000)
+MS_BINS = 20  # (c)'s per-class histogram
 MS_SYNC_SPLIT = 2  # the two-rank checkpoint: rank r takes every other batch, from batch r
 # (b)'s per-user sums: each of a user's n terms rounds once (a difference, then its square or abs), the float32
 # sum adds n roundings of at most the running sum, the mean one more: all terms are >= 0, so the value lies
@@ -3366,7 +3371,7 @@ def _cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 def _ms_metrics(mt, device: str = DEVICE) -> dict:
     """Phase 12's metrics: (a) per-class accuracy, per-source F1 and per-class top-5 accuracy, (b) per-user
-    MSE and MAE, (c) per-class cross-entropy quantiles, and configuration 2 (not stacked)."""
+    MSE and MAE, (c) per-class cross-entropy quantiles and histograms, and configuration 2 (not stacked)."""
     ms = mt.MultiStreamMetric
     return {
         "acc": ms(mt.Accuracy(num_classes=N_CLASSES, device=device), num_streams=N_CLASSES, device=device),
@@ -3375,6 +3380,7 @@ def _ms_metrics(mt, device: str = DEVICE) -> dict:
         "mse": ms(mt.MeanSquaredError(device=device), num_streams=ML_USERS, device=device),
         "mae": ms(mt.MeanAbsoluteError(device=device), num_streams=ML_USERS, device=device),
         "q": ms(mt.StreamingQuantile(q=MS_QUANTILES, device=device), num_streams=N_CLASSES, device=device),
+        "h": ms(mt.StreamingHistogram(bins=MS_BINS, device=device), num_streams=N_CLASSES, device=device),
         "config2": mt.MetricCollection(
             {"acc": mt.Accuracy(num_classes=N_CLASSES, average="macro", device=device),
              "f1": mt.F1Score(num_classes=N_CLASSES, average="macro", device=device),
@@ -3396,6 +3402,7 @@ def _ms_feeds(logits, labels, sources, ce, ml_preds, ml_target, users) -> dict:
         "mse": [((ml_preds[i : i + ML_BATCH], ml_target[i : i + ML_BATCH]), {"stream_ids": users[i : i + ML_BATCH]}) for i in ratings],
         "mae": [((ml_preds[i : i + ML_BATCH], ml_target[i : i + ML_BATCH]), {"stream_ids": users[i : i + ML_BATCH]}) for i in ratings],
         "q": [((ce[i : i + BATCH],), {"stream_ids": labels[i : i + BATCH]}) for i in image],
+        "h": [((ce[i : i + BATCH],), {"stream_ids": labels[i : i + BATCH]}) for i in image],
         "config2": [((logits[i : i + BATCH], labels[i : i + BATCH]), {}) for i in image],
     }
 
@@ -3543,6 +3550,32 @@ def _ms_card_vs_plain(ops, mt, first_batch) -> int:
                 hot = torch.zeros_like(logits, dtype=dtype).scatter_(1, labels.clamp(0, logits.shape[1] - 1)[:, None], 1)
                 same(f"{case}, canonical {str(dtype).replace('torch.', '')}, micro={micro}",
                      ops.fused_stream_stat_scores(top, hot, ids, s, micro), ops.fused_stream_stat_scores_plain(top, hot, ids, s, micro))
+    # the large-S branch of the canonical route (S past the streams a block's shared memory holds) and logits
+    # ranges that loop (S * C past two blocks an SM times 2048 outputs), on random 0/1 operands; then
+    # C = 1, C = 9 with S = 1, int32 ids and labels, and canonical values outside {0, 1}
+    n = x.shape[0]
+    for s in MS_LARGE_STREAMS:
+        ids = torch.randint(-3, s + 3, (n,), generator=gen, device=DEVICE)
+        for dtype in (torch.int32, torch.bool):
+            a = torch.randint(0, 2, x.shape, generator=gen, device=DEVICE).to(dtype)
+            b = torch.randint(0, 2, x.shape, generator=gen, device=DEVICE).to(dtype)
+            for micro in (False, True):
+                same(f"large S = {s}, random 0/1 {str(dtype).replace('torch.', '')}, micro={micro}",
+                     ops.fused_stream_stat_scores(a, b, ids, s, micro), ops.fused_stream_stat_scores_plain(a, b, ids, s, micro))
+        for micro in (False, True):
+            same(f"logits, S = {s}, micro={micro}", ops.fused_stream_stat_scores_logits(x, y, ids, s, micro),
+                 ops.fused_stream_stat_scores_logits_plain(x, y, ids, s, micro))
+    for c, s in ((1, 3), (9, 1), (37, 5)):
+        logits, labels = _logit_cases(n, c, torch.float32, torch.int32, seed=SEED + 26 + c)
+        ids = torch.randint(-2, s + 2, (n,), generator=gen, device=DEVICE, dtype=torch.int32)
+        a = torch.randint(-2, 3, (n, c), generator=gen, device=DEVICE, dtype=torch.int32)
+        b = torch.randint(-2, 3, (n, c), generator=gen, device=DEVICE, dtype=torch.int32)
+        for micro in (False, True):
+            same(f"C = {c}, S = {s}, int32 ids and labels, micro={micro}",
+                 ops.fused_stream_stat_scores_logits(logits, labels, ids, s, micro),
+                 ops.fused_stream_stat_scores_logits_plain(logits, labels, ids, s, micro))
+            same(f"C = {c}, S = {s}, canonical values in [-2, 2], micro={micro}",
+                 ops.fused_stream_stat_scores(a, b, ids, s, micro), ops.fused_stream_stat_scores_plain(a, b, ids, s, micro))
     for nv in (0, 700, 5000):  # rows past num_valid neither route nor count as dropped
         made = {d: mt.MultiStreamMetric(mt.Accuracy(num_classes=N_CLASSES, device=d), num_streams=MS_SOURCES, device=d) for d in (DEVICE, "cpu")}
         for d, m in made.items():
@@ -3553,32 +3586,64 @@ def _ms_card_vs_plain(ops, mt, first_batch) -> int:
     return compared
 
 
-def _ms_entry(ops) -> list:
-    """The kernels-line entries of the per-stream entry points, timed at (1024, 1000) with S = 64 (their
-    launches are phase 12's, filled in after it runs).  Timed beside the other entry points, before the curve
-    phase: torch.profiler sessions after it lose device events."""
+def _ms_entry(ops, logits: torch.Tensor, labels: torch.Tensor) -> list:
+    """The kernels-line entries of the per-stream entry points, timed at (1024, 1000) with S = 64 on random
+    operands (their launches are phase 12's, filled in after it runs), and at phase 12's own calls on its first
+    batch: per-class accuracy (logits, micro, S = 1,000), per-source F1 (logits, S = 64) and per-class top-5
+    accuracy (canonical int32 top-5 masks against one-hot labels, micro, S = 1,000).  Timed beside the other
+    entry points, before the curve phase: torch.profiler sessions after it lose device events."""
+    from metrics_tpu_torch.utils.data import select_topk, to_onehot
+
     n, c, s = BATCH, N_CLASSES, MS_TIMING_STREAMS
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 24)
-    logits = torch.randn((n, c), generator=gen, device=DEVICE)
-    labels = torch.randint(0, c, (n,), generator=gen, device=DEVICE)
+    rand_logits = torch.randn((n, c), generator=gen, device=DEVICE)
+    rand_labels = torch.randint(0, c, (n,), generator=gen, device=DEVICE)
     ids = torch.randint(0, s, (n,), generator=gen, device=DEVICE)
     preds = torch.randint(0, 2, (n, c), generator=gen, device=DEVICE, dtype=torch.int32)
     target = torch.randint(0, 2, (n, c), generator=gen, device=DEVICE, dtype=torch.int32)
+    x, y, src = logits[:n], labels[:n], _ms_sources()[:n]
+    top5, hot = select_topk(x, TOP_K), to_onehot(y, c)
+    # each input read once, the four int32 outputs written once; about six integer operations an element
+    logits_bytes = lambda width, streams: n * c * 4 + n * 8 + n * 8 + 4 * streams * width * 4  # noqa: E731
+    canonical_bytes = lambda width, streams, item: 2 * n * c * item + n * 8 + 4 * streams * width * 4  # noqa: E731
+    phase12 = {
+        "stream_logits": [
+            ("per-class accuracy, micro, S = 1000", lambda: ops.fused_stream_stat_scores_logits(x, y, y, c, True),
+             lambda: ops.fused_stream_stat_scores_logits_plain(x, y, y, c, True), logits_bytes(1, c)),
+            ("per-source F1, (S, C), S = 64", lambda: ops.fused_stream_stat_scores_logits(x, y, src, MS_SOURCES),
+             lambda: ops.fused_stream_stat_scores_logits_plain(x, y, src, MS_SOURCES), logits_bytes(c, MS_SOURCES)),
+        ],
+        "stream_canonical": [
+            ("per-class top-5 accuracy, micro, S = 1000", lambda: ops.fused_stream_stat_scores(top5, hot, y, c, True),
+             lambda: ops.fused_stream_stat_scores_plain(top5, hot, y, c, True), canonical_bytes(1, c, top5.element_size())),
+        ],
+    }
     entries = []
     for name, kernel, plain, inputs_bytes, key in (
-        ("stream_stat_scores_logits", lambda: ops.fused_stream_stat_scores_logits(logits, labels, ids, s),
-         lambda: ops.fused_stream_stat_scores_logits_plain(logits, labels, ids, s), n * c * 4 + n * 8 + n * 8, "stream_logits"),
+        ("stream_stat_scores_logits", lambda: ops.fused_stream_stat_scores_logits(rand_logits, rand_labels, ids, s),
+         lambda: ops.fused_stream_stat_scores_logits_plain(rand_logits, rand_labels, ids, s), n * c * 4 + n * 8 + n * 8, "stream_logits"),
         ("stream_stat_scores", lambda: ops.fused_stream_stat_scores(preds, target, ids, s),
          lambda: ops.fused_stream_stat_scores_plain(preds, target, ids, s), 2 * n * c * 4 + n * 8, "stream_canonical"),
     ):
         own_ms = _one_launch(name, kernel)
         times = _in_turns({"plain": plain, "kernel": kernel}, ["plain", "kernel", "kernel", "plain"])
-        # each input read once, the four (S, C) int32 outputs written once; about six integer operations an element
         bound_ms, bound_by = _bound(inputs_bytes + 4 * s * c * 4, 6 * n * c)
-        micro_ms = _device_ms(lambda: (ops.fused_stream_stat_scores_logits(logits, labels, ids, s, True) if key == "stream_logits"
-                                       else ops.fused_stream_stat_scores(preds, target, ids, s, True)))[0]
+        micro = (lambda: ops.fused_stream_stat_scores_logits(rand_logits, rand_labels, ids, s, True)) if key == "stream_logits" \
+            else (lambda: ops.fused_stream_stat_scores(preds, target, ids, s, True))
+        micro_ms = _device_ms(micro)[0]
+        micro_own_ms = _one_launch(f"{name} micro", micro)
         print(f"{name} at {(n, c)} with S = {s}: kernel {times['kernel']!r} ms (its own device time {own_ms!r} ms), "
-              f"plain {times['plain']!r} ms, bound {bound_ms!r} ms ({bound_by}); micro (S,) outputs {micro_ms!r} ms")
+              f"plain {times['plain']!r} ms, bound {bound_ms!r} ms ({bound_by}); micro (S,) outputs {micro_ms!r} ms "
+              f"(own {micro_own_ms!r} ms)")
+        calls = []
+        for what, call, call_plain, call_bytes in phase12[key]:
+            call_own = _one_launch(f"{name}, {what}", call)
+            call_times = _in_turns({"plain": call_plain, "kernel": call}, ["plain", "kernel", "kernel", "plain"])
+            call_bound, call_by = _bound(call_bytes, 6 * n * c)
+            print(f"{name}, phase 12's {what}: kernel {call_times['kernel']!r} ms (own {call_own!r} ms), plain "
+                  f"{call_times['plain']!r} ms, bound {call_bound!r} ms ({call_by})")
+            calls.append({"call": what, "ms": call_times["kernel"], "kernel_ms": call_own, "plain_ms": call_times["plain"],
+                          "bound_ms": call_bound, "bound_by": call_by})
         entries.append({
             "name": name,
             "route": "cuda",
@@ -3593,13 +3658,15 @@ def _ms_entry(ops) -> list:
             "ms": times["kernel"],
             "kernel_ms": own_ms,
             "micro_ms": micro_ms,
-            "ms_shape": f"({n}, {c}) into S = {s} streams, (S, C) outputs",
+            "micro_kernel_ms": micro_own_ms,
+            "ms_shape": f"({n}, {c}) into S = {s} streams, (S, C) outputs, random operands",
             "plain_ms": times["plain"],
             "bound_ms": bound_ms,
             "bound_by": bound_by,
             "library_ms": None,
             "library_note": "no single PyTorch call computes per-stream counts (the plain version is an argmax or "
                             "one-hot chain and four index_add_ calls)",
+            "phase12_calls": calls,
         })
     return entries
 
@@ -3680,7 +3747,8 @@ def phase_ms_sync(mt, full: dict, where: Path) -> dict:
 
 def phase_multistream(mt, ops, card: str) -> Tuple[dict, dict, dict]:
     """(a) per-class and per-source classification streams through the per-stream kernel, (b) per-user
-    MovieLens errors, (c) per-class quantiles through one kll_fold over 1,000 sketches, (d) checkpoints of all
+    MovieLens errors, (c) per-class quantiles and histograms, each through one kll_fold over 1,000 sketches an
+    update, (d) checkpoints of all
     of it halfway, restored on the card and on the CPU, and over two ranks.  Returns the stat-scores launches,
     every counted entry point's launches in the phase's passes, and the phase's line."""
     from metrics_tpu_torch.checkpoint import CheckpointManager
@@ -3728,7 +3796,7 @@ def phase_multistream(mt, ops, card: str) -> Tuple[dict, dict, dict]:
         pass_s[key] += time.perf_counter() - start
     launches = {name: fn.launches for name, fn in counters.items()}
     implied = {"stream_logits": len(feeds["acc"]) + len(feeds["f1"]), "stream_canonical": len(feeds["top5"]),
-               "logits": len(feeds["config2"]) * 2 + 1, "canonical": 0, "kll_fold": len(feeds["q"])}
+               "logits": len(feeds["config2"]) * 2 + 1, "canonical": 0, "kll_fold": len(feeds["q"]) + len(feeds["h"])}
     print(f"multistream launches per entry point: {launches} (the passes imply {implied})")
     # config 2's groups: {acc}, {cm} and {f1, prec}: two logits launches a batch after the first's three
     if launches != implied:
@@ -3824,6 +3892,49 @@ def phase_multistream(mt, ops, card: str) -> Tuple[dict, dict, dict]:
     print(f"check (c): one 1,000-sketch kll_fold launch bitwise against kll_fold_plain ({leaves} leaves, keys included)")
     compared += leaves
 
+    # (c) the per-class histogram: each stream's counts against numpy's exact counts of its kept rows on the
+    # metric's own edges, within twice the sketch's rank-error bound; the same pass on the CPU, bitwise
+    h_metric = metrics["h"]
+    if h_metric.dropped_rows() != q_metric.dropped_rows():
+        raise AssertionError(f"(c) the histogram dropped {h_metric.dropped_rows()} rows, the quantiles {q_metric.dropped_rows()}")
+    h_value = h_metric.compute()
+    h_edges, h_counts = h_value["edges"].cpu().numpy(), h_value["counts"].cpu().numpy().astype(np.float64)
+    worst_h, filled = 0.0, 0
+    for s in range(N_CLASSES):
+        data_s = np.sort(grouped[s])
+        if data_s.size == 0:
+            if h_counts[s].any():
+                raise AssertionError(f"(c) stream {s} has no rows but histogram counts")
+            continue
+        filled += 1
+        if h_edges[s][0] != data_s[0]:
+            raise AssertionError(f"(c) stream {s}'s first edge is not its minimum")
+        _, le = _exact_counts(data_s, h_edges[s])
+        exact = np.diff(np.concatenate([[0], le[1:]])).astype(np.float64)  # bins (e_i, e_i+1], the first closed
+        eps = 2 * kll_rank_error_bound(data_s.size, DEFAULT_CAPACITY)
+        worst_h = max(worst_h, float(np.abs(h_counts[s] - exact).max()) / data_s.size / eps)
+    checks["(c) histogram counts"] = {"worst_share_of_bound": worst_h, "streams": filled}
+    print(f"check (c): {filled} streams' {MS_BINS}-bin histograms within twice kll_rank_error_bound of numpy's exact "
+          f"counts (worst {worst_h!r} of it)")
+    if worst_h > 1.0:
+        raise AssertionError("(c) a stream's histogram counts lie outside the sketch's bound")
+    # the pass's last update from the state before it, on the card and on the CPU (a CPU pass of 1,000 sketches
+    # takes about a minute); then both computes
+    h_args, h_kwargs = feeds["h"][-1]
+    h_card = mt.MultiStreamMetric(mt.StreamingHistogram(bins=MS_BINS, device=DEVICE), num_streams=N_CLASSES, device=DEVICE)
+    feed(h_card, feeds["h"][:-1])
+    h_cpu = mt.MultiStreamMetric(mt.StreamingHistogram(bins=MS_BINS, device="cpu"), num_streams=N_CLASSES, device="cpu")
+    h_cpu.load_state_pytree({k: v.cpu() if isinstance(v, torch.Tensor) else v for k, v in h_card.state_pytree().items()})
+    h_card.update(*h_args, **h_kwargs)
+    h_cpu.update(*(a.cpu() for a in h_args), stream_ids=h_kwargs["stream_ids"].cpu())
+    compared += _same_states("(c) the histogram's last update on the card and the CPU", _states_of(h_card), _states_of(h_cpu))
+    _same_states("(c) the histogram pass and its replay", _states_of(h_metric), _states_of(h_card))
+    cpu_value = h_cpu.compute()
+    for k in ("edges", "counts"):
+        if h_value[k].cpu().numpy().tobytes() != cpu_value[k].numpy().tobytes():
+            raise AssertionError(f"(c) the histogram's {k} on the card differ from the CPU's")
+    print("check (c): the histogram's last update and compute on the card bitwise as on the CPU (states, edges, counts)")
+
     # (d) restore on the card, finish, and match the uninterrupted run; restore on the CPU, bitwise
     restored = _ms_metrics(mt)
     torch.cuda.synchronize()
@@ -3849,7 +3960,7 @@ def phase_multistream(mt, ops, card: str) -> Tuple[dict, dict, dict]:
 
     # per-update device operations and host copies, query times, peak memory
     updates = {}
-    for key in ("acc", "f1", "top5", "mse", "q"):
+    for key in ("acc", "f1", "top5", "mse", "q", "h"):
         fresh = _ms_metrics(mt)[key]
         args, kwargs = feeds[key][1]
         fresh.update(*args, **kwargs)
@@ -3866,6 +3977,7 @@ def phase_multistream(mt, ops, card: str) -> Tuple[dict, dict, dict]:
         "acc_compute_ms": _call_ms(lambda: uncached(metrics["acc"]), reps=10, warmup=2),
         "mse_compute_ms": _call_ms(lambda: uncached(metrics["mse"]), reps=10, warmup=2),
         "q_compute_ms": _call_ms(lambda: uncached(metrics["q"]), reps=10, warmup=2),
+        "h_compute_ms": _call_ms(lambda: uncached(metrics["h"]), reps=10, warmup=2),
         "mse_top_k_ms": _call_ms(lambda: metrics["mse"].top_k(10), reps=10, warmup=2),
         "mse_compute_streams_ms": _call_ms(lambda: metrics["mse"].compute_streams(query), reps=10, warmup=2),
     }
@@ -4056,7 +4168,7 @@ def main() -> int:
     sync_line = phase_sync(single, logits, labels, card)
     # the kernels' own times first: torch.profiler sessions after the curve phase's lost events
     kernels = phase_timings(ops, launches, max_abs_err)
-    ms_entries = _ms_entry(ops)
+    ms_entries = _ms_entry(ops, logits, labels)
     curve_launches, curve_line = phase_curves(mt, ops, logits, labels, card)
     rest_launches, rest_line = phase_rest(mt, ops, logits, labels, card)
     del logits, labels

@@ -21,7 +21,8 @@ at construction:
   base runs its update once per row under ``torch.func.vmap``; with
   ``Metric._rows_mapped`` set, value checks that read the host are skipped
   there, as they are under a JAX trace.
-* **vmap**: the base holds sketch states (``StreamingQuantile``).  Rows are
+* **vmap**: the base holds sketch states (``StreamingQuantile``,
+  ``StreamingHistogram``; the histogram's min and max stack beside).  Rows are
   bucketed by stream id into a ``(num_streams, max_rows_per_stream)`` block
   padded with NaN (sketch updates drop non-finite values) and the base's
   update folds every stream's block into its sketch in one call: one
@@ -230,10 +231,11 @@ class MultiStreamMetric(Metric):
             self._base_tensor_reduces[spec["name"]] = fx
 
         if self._base_sketch_names:
+            # the base's own update takes the stacked (S, m) block; its compute must read stacked states too
             if getattr(base, "_stacked_compute", None) is None:
                 raise MetricsTPUUserError(
-                    f"{type(base).__name__} has no update and compute over stacked sketch states in this "
-                    "package yet (StreamingQuantile has)"
+                    f"{type(base).__name__} holds sketch states but has no compute over stacked ones "
+                    "(_stacked_compute), so MultiStreamMetric cannot evaluate its streams"
                 )
             self._strategy = "vmap"
         else:

@@ -226,7 +226,9 @@ def _launch_stream(name: str, fn_name: str, a: torch.Tensor, b: torch.Tensor, id
     n, c = a.shape
     s = int(num_streams)
     width = 1 if micro else c
-    buffer = torch.empty(4 * s * width + s, dtype=torch.int32, device=a.device)  # the kernel writes every entry
+    # the four outputs, which the kernel writes entry by entry, then the logits route's scratch: each row's
+    # stream, argmax and label
+    buffer = torch.empty(4 * s * width + (3 * n if logits else 0), dtype=torch.int32, device=a.device)
     fn = getattr(_library(), fn_name)
     ids_64 = ids.dtype == torch.int64
     with torch.cuda.device(a.device):

@@ -125,7 +125,8 @@ def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     err = (p - (s - bb)) + (c - bb)
     even = (s.view(torch.int64) & 1) == 0
     toward = torch.where(err > 0, torch.full_like(s, float("inf")), torch.full_like(s, float("-inf")))
-    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    # a NaN or infinite sum keeps its bits (a vectorized nextafter would drop a NaN's sign)
+    s = torch.where((err != 0) & even & ~torch.isnan(err), torch.nextafter(s, toward), s)
     return s.to(torch.float32)
 
 

@@ -115,12 +115,11 @@ class StreamingQuantile(SketchMetric):
 
 
 def _xla_extreme(x: torch.Tensor, largest: bool) -> torch.Tensor:
-    """``jnp.max``/``jnp.min`` of floats without NaN: ranked by IEEE totalOrder, which puts ``-0.0``
-    below ``+0.0`` as XLA's max and min do (``torch.amin`` takes either zero)."""
-    flat = x.reshape(-1)
-    keys = _total_order_keys(flat)
-    at = keys.argmax() if largest else keys.argmin()
-    return flat.index_select(0, at.reshape(1)).reshape(())  # a tensor index: no read of ``at`` to the host
+    """``jnp.max``/``jnp.min`` over the last axis of floats without NaN: ranked by IEEE totalOrder, which
+    puts ``-0.0`` below ``+0.0`` as XLA's max and min do (``torch.amin`` takes either zero)."""
+    keys = _total_order_keys(x)
+    at = keys.argmax(-1, keepdim=True) if largest else keys.argmin(-1, keepdim=True)
+    return x.gather(-1, at)[..., 0]  # a tensor index: no read of ``at`` to the host
 
 
 class StreamingHistogram(SketchMetric):
@@ -129,7 +128,12 @@ class StreamingHistogram(SketchMetric):
 
     Counts are sketch estimates (CDF differences scaled by the total weight),
     accurate to the sketch's rank-error bound; the edges are exact (min and
-    max ride ordinary ``min``/``max`` reduces).
+    max ride ordinary ``min``/``max`` reduces).  Under
+    :class:`~metrics_tpu_torch.multistream.MultiStreamMetric` the sketch and
+    both extremes stack over the streams: an update takes every stream's
+    ``(S, m)`` block in one batched fold, and ``compute()`` gives ``(S, bins+1)``
+    edges and ``(S, bins)`` counts, each stream's what ``jax.vmap`` of the
+    JAX package's update and compute gives.
     """
 
     def __init__(self, bins: int = 10, **kwargs: Any) -> None:
@@ -141,31 +145,39 @@ class StreamingHistogram(SketchMetric):
         self.add_state("maxv", torch.tensor(float("-inf")), dist_reduce_fx="max")
 
     def update(self, values) -> None:
-        vals = torch.as_tensor(values, device=self.device).reshape(-1).to(torch.float32)
-        if vals.shape[0] == 0:
+        vals = torch.as_tensor(values, device=self.device).to(torch.float32)
+        # a stacked state takes one row of values per stream; a single sketch one flat batch
+        vals = vals.reshape(vals.shape[0], -1) if self.sketch_tree("sketch")["buf"].ndim == 3 else vals.reshape(-1)
+        if vals.shape[-1] == 0:
             return
         super().update(vals)
         finite = torch.isfinite(vals)
         low = torch.where(finite, vals, torch.full_like(vals, float("inf")))
         high = torch.where(finite, vals, torch.full_like(vals, float("-inf")))
-        self.minv = _xla_extreme(torch.cat([self.minv.reshape(1), low]), largest=False)
-        self.maxv = _xla_extreme(torch.cat([self.maxv.reshape(1), high]), largest=True)
+        self.minv = _xla_extreme(torch.cat([self.minv[..., None], low], -1), largest=False)
+        self.maxv = _xla_extreme(torch.cat([self.maxv[..., None], high], -1), largest=True)
 
     def compute(self) -> Dict[str, Any]:
-        tree = self.sketch_tree("sketch")
-        lo, hi = self.minv.to(torch.float32), self.maxv.to(torch.float32)
+        return self._stacked_compute(None)
+
+    def _stacked_compute(self, state) -> Dict[str, Any]:
+        """The histogram of the sketch in ``state`` (the live one when None), or of every sketch of a stacked
+        state at once (:class:`~metrics_tpu_torch.multistream.MultiStreamMetric`'s compute)."""
+        tree = self.sketch_tree("sketch", state)
+        lo = (self.minv if state is None else state["minv"]).to(torch.float32)[..., None]
+        hi = (self.maxv if state is None else state["maxv"]).to(torch.float32)[..., None]
         # degenerate (single value or empty) ranges still need increasing edges
         hi = torch.where(hi > lo, hi, lo + 1.0)
         grid = torch.from_numpy(_linspace_thresholds(self.bins + 1)).to(self.device)
         # XLA fuses lo + (hi - lo) * grid into one multiply-add
         edges = fma32(hi - lo, grid, lo)
-        total = kll_total_weight(tree)
-        below = kll_cdf(tree, edges[1:])
+        total = kll_total_weight(tree)[..., None]
+        below = kll_cdf(tree, edges[..., 1:])
         # the first bin's lower edge is inclusive (it IS the observed minimum);
         # XLA contracts each difference of neighbouring upper counts with the
         # product before it: below * total - upper[i - 1], rounded once
         upper = below * total
-        previous = torch.cat([torch.zeros((1,), dtype=torch.float32, device=self.device), upper[:-1]])
+        previous = torch.cat([torch.zeros_like(upper[..., :1]), upper[..., :-1]], -1)
         counts = fma32(below, total, -previous)
         counts = torch.where(total > 0, counts, torch.zeros_like(counts))
         return {"edges": edges, "counts": counts}

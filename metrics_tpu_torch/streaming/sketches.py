@@ -220,9 +220,10 @@ def _weights(state: State):
 
 
 def kll_total_weight(state: State) -> torch.Tensor:
-    """Total weight held by the sketch (the items folded in, until the top level saturates)."""
+    """Total weight held by the sketch (the items folded in, until the top level saturates); ``(S,)``
+    for a batched state ``(S, L, K)``."""
     _, w = _weights(state)
-    return w.sum()
+    return w.sum(-1)
 
 
 def _as_query(q, device: torch.device) -> torch.Tensor:
@@ -250,13 +251,18 @@ def kll_quantile(state: State, q):
 
 
 def kll_cdf(state: State, xs):
-    """Estimated CDF (fraction of weight ``<= x``) at each ``x``; NaN when empty."""
+    """Estimated CDF (fraction of weight ``<= x``) at each ``x``; NaN when empty.
+
+    A batched state ``(S, L, K)`` takes ``xs`` ``(S, Q)`` (each sketch its own
+    points) or ``(Q,)`` and gives ``(S, Q)``: what ``jax.vmap`` of the CDF over
+    the sketches gives.
+    """
     vals, w = _weights(state)
     xa = _as_query(xs, vals.device)
-    total = w.sum()
-    below = torch.where(vals[None, :] <= xa[:, None], w[None, :], torch.zeros((), device=vals.device)).sum(1)
-    out = torch.where(total > 0, below / torch.clamp(total, min=1.0), torch.full_like(xa, float("nan")))
-    return out.reshape(()) if torch.as_tensor(xs).ndim == 0 else out
+    total = w.sum(-1, keepdim=True)
+    below = torch.where(vals[..., None, :] <= xa[..., :, None], w[..., None, :], torch.zeros((), device=vals.device)).sum(-1)
+    out = torch.where(total > 0, below / torch.clamp(total, min=1.0), torch.full_like(below, float("nan")))
+    return out[..., 0] if torch.as_tensor(xs).ndim == 0 else out
 
 
 def kll_rank_error_bound(n: int, capacity: int = DEFAULT_CAPACITY) -> float:

@@ -746,6 +746,59 @@ def test_stream_stat_scores_kernels_match_plain(cuda, n, c, s, micro):
         assert_counts_equal([g.cpu() for g in got], ops.fused_stream_stat_scores_plain(preds.cpu(), target.cpu(), ids.cpu(), s, micro))
 
 
+# (n, c, s): C = 1; C not a multiple of 4 with S = 1; clusters of 8 ranks; the large-S branch of the canonical
+# route (S past the 501 streams a block holds for int32, 127 or 253 for bool) and logits ranges that loop
+# (S * C past two blocks an SM times 2048 outputs); a tall batch for the logits route's phase 2
+STREAM_EDGE_SHAPES = [(200, 1, 3), (64, 9, 1), (5000, 40, 6), (1024, 1000, 600), (1024, 64, 5000),
+                      (300, 1000, 700), (20_000, 100, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("micro", [False, True])
+@pytest.mark.parametrize("n,c,s", STREAM_EDGE_SHAPES)
+def test_stream_stat_scores_kernels_match_plain_on_edge_shapes(cuda, n, c, s, micro):
+    """Random 0/1 operands (most elements count), int32 and int64 ids and labels out of range on both sides."""
+    rng = np.random.default_rng(n + 3 * c + s)
+    for k, id_dtype in enumerate((torch.int64, torch.int32)):
+        ids = torch.from_numpy(rng.integers(-3, s + 3, n)).to(device=cuda, dtype=id_dtype)
+        logits, labels = logit_cases(n, c, torch.float32, (torch.int32, torch.int64)[k], n + k, cuda)
+        got = ops.fused_stream_stat_scores_logits(logits, labels, ids, s, micro=micro)
+        want = ops.fused_stream_stat_scores_logits_plain(logits.cpu(), labels.cpu(), ids.cpu(), s, micro)
+        assert_counts_equal([g.cpu() for g in got], want)
+        for dtype in (torch.int32, torch.bool):
+            preds = torch.from_numpy(rng.integers(0, 2, (n, c))).to(device=cuda, dtype=dtype)
+            target = torch.from_numpy(rng.integers(0, 2, (n, c))).to(device=cuda, dtype=dtype)
+            got = ops.fused_stream_stat_scores(preds, target, ids, s, micro=micro)
+            want = ops.fused_stream_stat_scores_plain(preds.cpu(), target.cpu(), ids.cpu(), s, micro)
+            assert_counts_equal([g.cpu() for g in got], want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [7, 700])
+def test_stream_stat_scores_kernel_counts_values_outside_zero_one(cuda, s):
+    rng = np.random.default_rng(s)
+    preds = torch.from_numpy(rng.integers(-2, 3, (900, 37)).astype(np.int32)).to(cuda)
+    target = torch.from_numpy(rng.integers(-2, 3, (900, 37)).astype(np.int32)).to(cuda)
+    ids = torch.from_numpy(rng.integers(-2, s + 2, 900)).to(cuda)
+    for micro in (False, True):
+        got = ops.fused_stream_stat_scores(preds, target, ids, s, micro=micro)
+        assert_counts_equal([g.cpu() for g in got], ops.fused_stream_stat_scores_plain(preds.cpu(), target.cpu(), ids.cpu(), s, micro))
+
+
+@pytest.mark.cuda
+def test_stream_stat_scores_kernels_take_unaligned_rows_and_offsets(cuda):
+    """Operands that start 4 or 1 bytes past an aligned address take the narrower loads."""
+    rng = np.random.default_rng(12)
+    base = torch.from_numpy(rng.integers(0, 2, (257, 65))).to(device=cuda, dtype=torch.int32)
+    other = torch.from_numpy(rng.integers(0, 2, (257, 65))).to(device=cuda, dtype=torch.int32)
+    ids = torch.from_numpy(rng.integers(0, 9, 256)).to(cuda)
+    for dtype in (torch.int32, torch.bool):
+        preds, target = base.to(dtype).reshape(-1)[65:].reshape(256, 65), other.to(dtype).reshape(-1)[65:].reshape(256, 65)
+        for micro in (False, True):
+            got = ops.fused_stream_stat_scores(preds, target, ids, 9, micro=micro)
+            assert_counts_equal([g.cpu() for g in got], ops.fused_stream_stat_scores_plain(preds.cpu(), target.cpu(), ids.cpu(), 9, micro))
+
+
 @pytest.mark.cuda
 def test_stream_stat_scores_kernel_all_rows_in_one_stream(cuda):
     logits, labels = logit_cases(1024, 1000, torch.float32, torch.int64, 3, cuda)
@@ -794,3 +847,30 @@ def test_kll_fold_kernel_folds_1000_stacked_sketches_in_one_launch(cuda):
     want = {k: v for k, v in made["cpu"].state_pytree().items() if k != "_update_count"}
     _same_leaves(got, want)
     assert made[cuda].compute().cpu().numpy().tobytes() == made["cpu"].compute().numpy().tobytes()
+
+
+@pytest.mark.cuda
+def test_multistream_histogram_on_cuda_equals_the_cpu(cuda):
+    """A per-stream histogram's update (one kll_fold over the stacked sketches) and compute, bitwise as on the CPU."""
+    from metrics_tpu_torch.multistream import MultiStreamMetric
+    from metrics_tpu_torch.ops import kll
+
+    rng = np.random.default_rng(7)
+    made = {d: MultiStreamMetric(mt.StreamingHistogram(bins=20, capacity=32, max_items=1 << 14, device=d), num_streams=50, device=d)
+            for d in ("cpu", cuda)}
+    for step in range(3):
+        values = torch.from_numpy(_sketch_stream(40 + step, 4000))
+        ids = torch.from_numpy(rng.integers(-1, 49, 4000))  # stream 49 stays empty, -1 is dropped
+        before = kll.kll_fold.launches
+        made[cuda].update(values.to(cuda), stream_ids=ids.to(cuda))
+        assert kll.kll_fold.launches == before + 1
+        made["cpu"].update(values, stream_ids=ids)
+    got = {k: v for k, v in made[cuda].state_pytree().items() if k != "_update_count"}
+    want = {k: v for k, v in made["cpu"].state_pytree().items() if k != "_update_count"}
+    _same_leaves(got, want)
+    card, cpu = made[cuda].compute(), made["cpu"].compute()
+    for k in ("edges", "counts"):
+        got, want = card[k].cpu().numpy(), cpu[k].numpy()
+        # the empty stream's edges are inf - inf: NaN on both, with the card's own NaN bits (0x7fffffff)
+        assert (np.isnan(got) == np.isnan(want)).all() and np.isnan(got).sum() == (k == "edges") * 21, k
+        assert got[~np.isnan(got)].tobytes() == want[~np.isnan(want)].tobytes(), k

@@ -383,8 +383,16 @@ def test_construction_errors():
     q = MultiStreamMetric(T.StreamingQuantile(capacity=16, max_items=256, device="cpu"), num_streams=2, device="cpu")
     with pytest.raises(MetricsTPUUserError, match="floating"):
         q.update(torch.tensor([1, 2]), stream_ids=torch.tensor([0, 1]))
-    with pytest.raises(MetricsTPUUserError, match="stacked sketch states"):
-        MultiStreamMetric(T.StreamingHistogram(device="cpu"), num_streams=2, device="cpu")
+    # a sketch base is refused only when it has no compute over stacked states (StreamingHistogram has one:
+    # tests/test_torch_multistream_histogram.py holds it against the JAX package)
+    from metrics_tpu_torch.streaming.quantile import SketchMetric
+
+    class _SingleSketch(SketchMetric):
+        def compute(self):
+            return self.n_items
+
+    with pytest.raises(MetricsTPUUserError, match="_SingleSketch holds sketch states but has no compute over stacked"):
+        MultiStreamMetric(_SingleSketch(device="cpu"), num_streams=2, device="cpu")
     assert shard_spans(10, 3) == [(0, 4), (4, 7), (7, 10)]
 
 
