@@ -123,7 +123,29 @@ Phases (each passes or raises; any failure exits non-zero):
      bitwise equal to this process's ``kll_merge`` of the two local states;
      the fold's values/s, the kernel's own time per launch and per chunk, the
      plain version's time, update times and device operations, compactions,
-     peak memory and synced bytes.
+     peak memory and synced bytes;
+ 12. multistream and checkpoint: per-class, per-source and per-user streams
+     of the ImageNet and MovieLens-shaped passes through the per-stream
+     entry points and ``kll_fold``, counts bitwise against numpy's, and
+     checkpoints restored bitwise on the card, the CPU and two ranks;
+ 13. core and obs: (a) config 2 over the ImageNet pass with obs disabled,
+     then enabled: the integers bitwise as phase 4's, the launches its groups
+     imply, the same device operations and device->host copies per update,
+     the spans and a Prometheus round trip; (b) config 2 and ``AUROC`` over
+     two gloo ranks on ``cuda:0``, one async round per group leader with
+     rank 1 stalled, ``sync_async()`` back within 100 ms and ``compute()``
+     bitwise equal to one process's synchronous pass; (c) ``(F1Score +
+     Accuracy) / 2``, ``-Precision`` and ``Accuracy(average=None)[7]`` by
+     ``forward`` per batch, bitwise as their operands' ``compute()`` combined
+     by hand and against the CPU path; (d) ``MeanSquaredError().half()`` over
+     the NYU pass against the CPU path within one bf16 ulp, and
+     ``AUROC(compute_on_cpu=True)`` beside a device-resident one (peak
+     memory, update and compute times, values); (e) ``advance_windows`` over
+     two windows in one compute group against the members advanced one by
+     one; (f) small reruns of phases 11 and 12 with obs enabled: their
+     counters reach ``summarize_counters()`` and an update's copies do not
+     change; and the large-S branch of the canonical per-stream entry point
+     against its plain version.
 The last line is ``{"ok": true, "device": {...}}``.
 
 The sync phases run this script again as their ranks
@@ -137,6 +159,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import warnings
 from datetime import timedelta
@@ -677,7 +700,8 @@ def sync_rank(scenario: str, rank: int, where: Path) -> int:
             _rank_stall(mt, rank, batches, where, store)
         {"main": lambda: _rank_main(mt, ops, rank, batches, where),
          "desync": lambda: _rank_desync(mt, rank, batches, where),
-         "curves": lambda: _rank_curves(mt, ops, rank, batches, where)}[scenario]()
+         "curves": lambda: _rank_curves(mt, ops, rank, batches, where),
+         "async": lambda: _rank_async(mt, ops, rank, batches, where)}[scenario]()
     dist.barrier()
     dist.destroy_process_group()
     return 0
@@ -3995,6 +4019,584 @@ def phase_multistream(mt, ops, card: str) -> Tuple[dict, dict, dict]:
     return stat_launches, launches, line
 
 
+# ------------------------------------------------------------ core and obs
+ASYNC_STALL_SECS = 0.25  # the stalled peer's sleep before each collective of its async rounds
+ASYNC_SUBMIT_LIMIT_MS = 100.0  # sync_async() must hand back its handles within this
+CORE_WINDOW = 4  # (e)'s windows: buckets of WINDOW_BUCKET batches
+CORE_SMALL_BATCHES = 10  # (f)'s small reruns of phases 11 and 12
+LARGE_S_TIMED = (600, 1000, 5000)  # the large-S branch's timed calls, on the operands of tools/stream_stat_scores_ab.py
+BF16_RTOL = 2.0**-8  # one bfloat16 ulp, relative
+
+
+def _obs_profiles(mt, obs, logits: torch.Tensor, labels: torch.Tensor) -> dict:
+    """(device operations, device->host copies) of one update with obs disabled and enabled, for phase 13's
+    (a) and (f): a config-2 collection, a ``StreamingQuantile`` (capacity 2048) on a NYU-sized batch and a
+    1,000-stream ``MultiStreamMetric(Accuracy)``.  The two states alternate over the sessions, and each count
+    is the most any session recorded (a session may drop events, never add one).  Run before the curve
+    phase: profiler sessions after it lose device events, and some lose them for a while."""
+    x, t = logits[:BATCH], labels[:BATCH]
+    col = _config2(mt)
+    col.update(x, t)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 13)
+    err = torch.rand(NYU_BATCH * NYU_H * NYU_W, generator=gen, device=DEVICE)
+    q = mt.StreamingQuantile(q=SKETCH_Q, capacity=SKETCH_CAPACITY, device=DEVICE)
+    q.update(err)
+    ms = mt.MultiStreamMetric(mt.Accuracy(num_classes=N_CLASSES, device=DEVICE), num_streams=N_CLASSES, device=DEVICE)
+    ms.update(x, t, stream_ids=t)
+    probes = {"config2": lambda: col.update(x, t), "quantile": lambda: q.update(err),
+              "multistream": lambda: ms.update(x, t, stream_ids=t)}
+    seen = {name: {"disabled": [], "enabled": []} for name in probes}
+    for _ in range(PROFILER_ATTEMPTS + 2):
+        for label in ("disabled", "enabled"):
+            if label == "enabled":
+                obs.enable()
+            else:
+                obs.disable()
+            for name, fn in probes.items():
+                seen[name][label].append(_device_ops(fn) or [])
+    obs.disable()
+    obs.reset()
+    out = {name: {label: (max(len(s) for s in sessions), max(sum("DtoH" in op for op, _ in s) for s in sessions))
+                  if any(sessions) else None for label, sessions in by_state.items()}
+           for name, by_state in seen.items()}
+    print(f"obs profiles, (device operations, device->host copies) of one update with obs disabled / enabled: {out}")
+    return out
+
+
+def _profiled(seen: dict, where: str) -> bool:
+    """Whether both obs states of ``seen`` were profiled.  The host-copy gates need both: on the card a
+    state that no session recorded fails the run; off the card the profiler records no device operations."""
+    if DEVICE == "cuda" and None in seen.values():
+        raise AssertionError(f"{where}: the profiler recorded no device operations of an update in "
+                             f"{PROFILER_ATTEMPTS + 2} sessions: {seen}")
+    return None not in seen.values()
+
+
+def _launches_of(counters: dict, run) -> Tuple[object, dict]:
+    """Run ``run`` with every launch count set to 0 just before it; the counts just after."""
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    out = run()
+    torch.cuda.synchronize()
+    return out, {name: fn.launches for name, fn in counters.items()}
+
+
+def _spread(values: list) -> dict:
+    ordered = sorted(values)
+    return {"median": statistics.median(ordered), "min": ordered[0], "max": ordered[-1],
+            "p90": ordered[min(len(ordered) - 1, int(0.9 * len(ordered)))]}
+
+
+def _core_obs_main_path(mt, ops, obs, batches, single: dict, profile: dict) -> Tuple[dict, int]:
+    """(a) config 2 through the stat-scores kernel with obs off, then on: the same integers as phase 4,
+    the launches its groups imply, the same device operations and host copies per update."""
+    n_batches = len(batches)
+    out, launches = {}, 0
+    # in turns, disabled, enabled, enabled, disabled: the host's drift falls on both alike
+    for turn, (label, enabled) in enumerate((("disabled", False), ("enabled", True), ("enabled", True), ("disabled", False))):
+        obs.reset()
+        if enabled:
+            obs.enable()
+        else:
+            obs.disable()
+        col = _config2(mt)
+        update_ms = []
+
+        def run():
+            for preds, target in batches:
+                torch.cuda.synchronize()
+                start = time.perf_counter()
+                col.update(preds, target)
+                torch.cuda.synchronize()
+                update_ms.append((time.perf_counter() - start) * 1e3)
+            return col.compute()
+
+        _, secs, counts = _driven(ops, f"core_obs (a) config 2, obs {label} (turn {turn})", run,
+                                  lambda: _implied_config2(ops, col, n_batches))
+        launches += counts["logits"]
+        got = _integer_results(col)
+        for key, want in single.items():
+            if got[key].dtype != torch.int32 or not torch.equal(got[key], want):
+                raise AssertionError(f"core_obs (a), obs {label}: {key} differs from phase 4's")
+        spans = obs.spans_snapshot()
+        span_counts = {name: sum(int(agg[0]) for (n, _), agg in spans.items() if n == name)
+                       for name in ("collection.update", "metric.update", "collection.compute", "metric.compute", "metric.sync")}
+        # every member updates on the first batch, one member a compute group after it
+        member_updates = len(col) + len(col.compute_groups) * (n_batches - 1)
+        if enabled and (span_counts["collection.update"] != n_batches or span_counts["metric.update"] != member_updates
+                        or span_counts["collection.compute"] != 1):
+            raise AssertionError(f"core_obs (a): spans {span_counts} do not match {n_batches} collection updates and "
+                                 f"{member_updates} member updates")
+        if not enabled and spans:
+            raise AssertionError(f"core_obs (a): spans recorded while obs was disabled: {sorted(spans)}")
+        text = obs.prometheus_text()
+        series = [line for line in text.splitlines() if line and not line.startswith("#")]
+        parsed = obs.parse_prometheus_text(text)
+        if len(parsed) != len(series):
+            raise AssertionError(f"core_obs (a): {len(series)} series lines parse back to {len(parsed)}")
+        seen = {
+            "update_ms": _spread(update_ms), "samples_per_s": N_SAMPLES / secs, "spans": span_counts, "summarize_counters": obs.summarize_counters(),
+            "prometheus_lines": len(text.splitlines()), "prometheus_series": len(parsed),
+        }
+        out.setdefault(label, []).append(seen)
+        print(f"core_obs (a) obs {label}, turn {turn}: ms per update {seen['update_ms']!r}, {seen['samples_per_s']!r} "
+              f"samples/s, spans {span_counts}, "
+              f"summarize_counters {seen['summarize_counters']}, prometheus_text {seen['prometheus_lines']} "
+              f"lines ({len(parsed)} series parsed back)")
+    obs.disable()
+    obs.reset()
+    out["per_update"] = profile
+    if _profiled(profile, "core_obs (a) config 2") and profile["disabled"] != profile["enabled"]:
+        raise AssertionError(f"core_obs (a): obs changed an update's (device operations, host copies): {profile}")
+    medians = {label: [t["update_ms"]["median"] for t in out[label]] for label in ("disabled", "enabled")}
+    # one span's own host cost: enter and exit of an enabled span, and the flag check of a disabled one
+    spans_timed = 20_000
+    for label, enabled in (("span_us_enabled", True), ("span_us_disabled", False)):
+        if enabled:
+            obs.enable()
+        start = time.perf_counter()
+        for _ in range(spans_timed):
+            if obs.enabled():
+                with obs.span("metric.update", metric="Accuracy"):
+                    pass
+        out[label] = (time.perf_counter() - start) / spans_timed * 1e6
+        obs.disable()
+    obs.reset()
+    print(f"check core_obs (a): integers bitwise as phase 4, launches as the groups imply, spans and counters as "
+          f"recorded, (device operations, host copies) per update {profile} with obs off and on; median ms per update "
+          f"by turn {medians}; one span {out['span_us_enabled']!r} us enabled, {out['span_us_disabled']!r} us disabled")
+    return out, launches
+
+
+def _async_collection(mt, backend=None):
+    """Configuration 2 and a buffer-state member (AUROC) in one collection, every member syncing
+    through ``backend`` (the default process group's when None)."""
+    kw = {"device": DEVICE} if backend is None else {"device": DEVICE, "sync_backend": backend}
+    return mt.MetricCollection(
+        {
+            "acc": mt.Accuracy(num_classes=N_CLASSES, average="macro", **kw),
+            "f1": mt.F1Score(num_classes=N_CLASSES, average="macro", **kw),
+            "prec": mt.Precision(num_classes=N_CLASSES, average="macro", **kw),
+            "cm": mt.ConfusionMatrix(num_classes=N_CLASSES, **kw),
+            "auroc": mt.AUROC(num_classes=N_CLASSES, **kw),
+        },
+        device=DEVICE,
+    )
+
+
+def _timed_submits(col) -> dict:
+    """Record, per member, the ms its ``sync_async`` takes when the collection submits its group leaders."""
+    times = {}
+    for name, metric in col.items():
+        def timed(*args, _submit=metric.sync_async, _name=name, **kwargs):
+            start = time.perf_counter()
+            handle = _submit(*args, **kwargs)
+            times[_name] = (time.perf_counter() - start) * 1e3
+            return handle
+        metric.sync_async = timed
+    return times
+
+
+def _submit_diagnosis(mt, backend, batches) -> dict:
+    """Where a submit's time goes, after the timed (first) one: ``sync_async()`` on fresh collections of this
+    rank's rows with the worker held (parked on an event until every submit has returned, so no round runs
+    meanwhile), with it free (as in the timed run), and free with the interpreter's switch interval cut from
+    its 5 ms to 0.1 ms.  Every round ends before the next condition starts."""
+    from metrics_tpu_torch.parallel import submit_async_round
+
+    out = {}
+    for label in ("held", "free", "free_switch_0.1ms"):
+        col = _async_collection(mt, backend)
+        for probs, target in _probability_batches(batches):
+            col.update(probs, target)
+        torch.cuda.synchronize()
+        times = _timed_submits(col)
+        gate, interval = threading.Event(), sys.getswitchinterval()
+        if label == "held":
+            submit_async_round(gate.wait, label="held")
+        if label == "free_switch_0.1ms":
+            sys.setswitchinterval(1e-4)
+        try:
+            start = time.perf_counter()
+            handles = col.sync_async()
+            submit_ms = (time.perf_counter() - start) * 1e3
+        finally:
+            sys.setswitchinterval(interval)
+            gate.set()
+        for handle in handles.values():
+            handle.result()
+        out[label] = {"submit_ms": submit_ms, "by_member": times}
+    return out
+
+
+def _rank_async(mt, ops, rank: int, batches, out: Path) -> None:
+    """This rank's share of the probabilities through config 2 and AUROC, one async round per group
+    leader (rank 1 a stalled peer: a sleep before each of its collectives), then compute(): rank 0
+    reaches the catch-up barrier while the stalled rounds run, rank 1 after them."""
+    from metrics_tpu_torch import obs
+    from metrics_tpu_torch.parallel import ChaosBackend, DistBackend
+
+    inner = DistBackend()
+    backend = ChaosBackend(inner, packed=True, stall_secs=ASYNC_STALL_SECS) if rank == 1 else inner
+    col = _async_collection(mt, backend)
+    first, stop = SYNC_SHARDS[rank]
+    for fn in _counters(ops).values():
+        fn.launches = 0
+    for probs, target in _probability_batches(batches[first:stop]):
+        col.update(probs, target)
+    torch.cuda.synchronize()
+    launches = {route: fn.launches for route, fn in _counters(ops).items()}
+    backend.for_async()  # makes the worker's process group (a collective itself) before the timing
+    obs.reset()
+    submit_by_member = _timed_submits(col)
+    start = time.perf_counter()
+    handles = col.sync_async()
+    submit_ms = (time.perf_counter() - start) * 1e3
+    if any(h is None for h in handles.values()):
+        raise AssertionError(f"rank {rank}: a member started no async round: {handles}")
+    if rank == 1:
+        for handle in handles.values():
+            handle.wait()
+        backend.stall_secs = 0.0  # the peer recovers: the synchronous syncs below run unstalled
+    start = time.perf_counter()
+    results = col.compute()
+    torch.cuda.synchronize()
+    compute_ms = (time.perf_counter() - start) * 1e3
+    folds = [r for m in col.values() for r in m.sync_report_history if r.get("async")]
+    torch.save({k: v.cpu() for k, v in results.items()}, out / f"rank{rank}.pt")
+    sync = obs.summarize_counters().get("sync", {})
+    diagnosis = _submit_diagnosis(mt, backend, batches[first:stop])
+    (out / f"rank{rank}.json").write_text(json.dumps({
+        "submit_ms": submit_ms, "submit_by_member": submit_by_member, "diagnosis": diagnosis,
+        "compute_ms": compute_ms, "handles": sorted(handles),
+        "errors": [h.error is not None for h in handles.values()],
+        "overlap_secs": [r["overlap_secs"] for r in folds], "fold_errors": [r["error"] for r in folds],
+        "sync": sync, "launches": launches,
+        "devices": sorted({str(v.device) for v in results.values()}),
+    }))
+
+
+def _core_async(mt, batches) -> dict:
+    """(b) the two-rank async scenario against one process's synchronous pass, bitwise."""
+    col = _async_collection(mt)
+    for probs, target in _probability_batches(batches):
+        col.update(probs, target)
+    single = {k: v.cpu() for k, v in col.compute().items()}
+    del col
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_async_") as tmp:
+        where = Path(tmp) / "async"
+        start = time.perf_counter()
+        seen = _wait_ranks("async", _start_ranks("async", where), where)
+        ranks_s = time.perf_counter() - start
+        got = [torch.load(where / f"rank{rank}.pt") for rank in range(SYNC_WORLD)]
+    for rank, (info, res) in enumerate(zip(seen, got)):
+        if info["submit_ms"] >= ASYNC_SUBMIT_LIMIT_MS:
+            raise AssertionError(f"core_obs (b) rank {rank}: sync_async() took {info['submit_ms']} ms")
+        if any(info["errors"]) or any(info["fold_errors"]) or info["devices"] != [str(torch.device(DEVICE, 0) if DEVICE == "cuda" else DEVICE)]:
+            raise AssertionError(f"core_obs (b) rank {rank}: {info}")
+        if info["sync"].get("async_rounds") != len(info["handles"]) or len(info["overlap_secs"]) != len(info["handles"]):
+            raise AssertionError(f"core_obs (b) rank {rank}: {info['sync']} for {len(info['handles'])} rounds")
+        for key, want in single.items():
+            if res[key].dtype != want.dtype or not torch.equal(res[key], want):
+                raise AssertionError(f"core_obs (b) rank {rank}: {key} differs from the synchronous single-process pass")
+    if not seen[0]["sync"].get("catchup_barriers"):
+        raise AssertionError(f"core_obs (b): rank 0 reached compute() before the stalled rounds ended, yet counted "
+                             f"no catch-up barrier: {seen[0]['sync']}")
+    print(f"check core_obs (b): sync_async() returned in {[s['submit_ms'] for s in seen]!r} ms on ranks 0/1 "
+          f"(limit {ASYNC_SUBMIT_LIMIT_MS}), rounds {seen[0]['handles']}, overlap_secs {[s['overlap_secs'] for s in seen]!r}, "
+          f"counters {[s['sync'] for s in seen]}; both ranks' compute() bitwise equal to the synchronous pass "
+          f"({sorted(single)}); two ranks took {ranks_s:.1f} s")
+    for rank, info in enumerate(seen):
+        print(f"core_obs (b) rank {rank} submit ms by member, first submit {info['submit_by_member']!r}; after it, "
+              + "; ".join(f"{label} {d['submit_ms']!r} by member {d['by_member']!r}" for label, d in info["diagnosis"].items()))
+    return {"submit_ms": [s["submit_ms"] for s in seen], "compute_ms": [s["compute_ms"] for s in seen],
+            "submit_by_member": [s["submit_by_member"] for s in seen], "submit_diagnosis": [s["diagnosis"] for s in seen],
+            "overlap_secs": [s["overlap_secs"] for s in seen], "sync_counters": [s["sync"] for s in seen],
+            "stall_secs": ASYNC_STALL_SECS, "rounds": seen[0]["handles"],
+            "logits_launches_per_rank": [s["launches"]["logits"] for s in seen], "ranks_s": ranks_s}
+
+
+def _compositions(mt, device):
+    return {
+        "(f1 + acc) / 2": (mt.F1Score(num_classes=N_CLASSES, average="macro", device=device)
+                           + mt.Accuracy(num_classes=N_CLASSES, device=device)) / 2,
+        "-prec": -mt.Precision(num_classes=N_CLASSES, average="macro", device=device),
+        "acc(None)[7]": mt.Accuracy(num_classes=N_CLASSES, average=None, device=device)[7],
+    }
+
+
+def _core_composition(mt, ops, batches) -> Tuple[dict, int]:
+    """(c) compositions fed by forward per batch: bitwise against the same arithmetic on their
+    operands' own compute() on the card, and against the CPU path."""
+    comps = _compositions(mt, DEVICE)
+    mean = comps["(f1 + acc) / 2"]
+    leaves = [mean.metric_a.metric_a, mean.metric_a.metric_b, comps["-prec"].metric_a, comps["acc(None)[7]"].metric_a]
+
+    def implied() -> dict:
+        expected = {route: 0 for route in _counters(ops)}
+        for leaf in leaves:
+            expected[_route(leaf)] += len(batches)
+        return expected
+
+    def run():
+        steps = [[comp(x, t) for comp in comps.values()] for x, t in batches]
+        return steps, [comp.compute() for comp in comps.values()]
+
+    (card_steps, card_final), secs, counts = _driven(ops, "core_obs (c) compositions", run, implied)
+    f1, acc, two = mean.metric_a.metric_a, mean.metric_a.metric_b, mean.metric_b
+    by_hand = [torch.divide(torch.add(f1.compute(), acc.compute()), two),
+               -torch.abs(comps["-prec"].metric_a.compute()), comps["acc(None)[7]"].metric_a.compute()[7]]
+    for name, got, want in zip(comps, card_final, by_hand):
+        if got.dtype != want.dtype or not _same_values(got, want):
+            raise AssertionError(f"core_obs (c) {name}: {got!r} is not the operands' compute() combined by hand {want!r}")
+    start = time.perf_counter()
+    cpu = _compositions(mt, "cpu")
+    cpu_steps = [[comp(x.cpu(), t.cpu()) for comp in cpu.values()] for x, t in batches]
+    cpu_final = [comp.compute() for comp in cpu.values()]
+    cpu_s = time.perf_counter() - start
+    # acc(None)[7] is a ratio of integer counts: bitwise; the macro means sum 1,000 class scores in an order
+    # the device picks: within C x 2^-24 relative
+    # (a batch without class 7 gives NaN on both sides, the card's NaN with other bits: compared by position)
+    worst = {}
+    for i, name in enumerate(comps):
+        pairs = [(s[i].cpu(), c[i]) for s, c in zip(card_steps, cpu_steps)] + [(card_final[i].cpu(), cpu_final[i])]
+        finite = [(a, b) for a, b in pairs if not (torch.isnan(a) or torch.isnan(b))]
+        diff = max((abs(float(a) - float(b)) / max(abs(float(b)), 1e-30) for a, b in finite), default=0.0)
+        worst[name] = diff
+        exact = name == "acc(None)[7]"
+        if any(a.dtype != b.dtype or bool(torch.isnan(a)) != bool(torch.isnan(b)) for a, b in pairs) \
+                or (exact and any(not _same_values(a, b) for a, b in pairs)) or diff > N_CLASSES * 2.0**-24:
+            raise AssertionError(f"core_obs (c) {name}: the card differs from the CPU path by {diff!r} relative")
+    print(f"check core_obs (c): {list(comps)} over {len(batches)} forward steps, bitwise as their operands' compute() "
+          f"combined by hand on the card; against the CPU path ({cpu_s:.1f} s): worst relative difference {worst} "
+          f"(acc(None)[7] bitwise; macro means within {N_CLASSES} x 2^-24)")
+    values = {name: float(v) for name, v in zip(comps, card_final)}
+    return {"values": values, "vs_cpu_worst_rel": worst, "launches": counts, "samples_per_s": N_SAMPLES / secs}, counts["logits"]
+
+
+def _core_dtype_placement(mt, prob_batches) -> dict:
+    """(d) MeanSquaredError().half() over the NYU-shaped pass, on the card and the CPU; AUROC with
+    compute_on_cpu over the ImageNet probabilities beside a device-resident AUROC."""
+    nyu = _nyu_pass()
+    out = {}
+    results = {}
+    for where in (DEVICE, "cpu"):
+        m = mt.MeanSquaredError(device=where).half()
+        dtypes = {"after_half": str(m.sum_squared_error.dtype)}
+        for p, t in nyu:
+            m.update(p.to(torch.bfloat16).to(where), t.to(torch.bfloat16).to(where))
+        dtypes["after_updates"] = str(m.sum_squared_error.dtype)  # float32: the update accumulates in float32
+        sse32 = m.sum_squared_error.cpu()
+        m.half()
+        dtypes["states"] = str(m.sum_squared_error.dtype)
+        results[str(where)] = (sse32, m.total.cpu(), m.compute().cpu(), m.sum_squared_error.cpu(), dtypes)
+    card, cpu = results[DEVICE], results["cpu"]
+    sse_rel = abs(float(card[0]) - float(cpu[0])) / float(cpu[0])
+    if card[4] != cpu[4] or card[4]["states"] != "torch.bfloat16" or not torch.equal(card[1], cpu[1]):
+        raise AssertionError(f"core_obs (d) MSE: dtypes {card[4]} / {cpu[4]}, totals {card[1]} / {cpu[1]}")
+    if sse_rel > SUM_DEPTH * 2.0**-24:
+        raise AssertionError(f"core_obs (d) MSE: the float32 sums differ by {sse_rel!r} relative")
+    for a, b in ((card[2], cpu[2]), (card[3], cpu[3])):
+        if a.dtype != torch.bfloat16 or abs(float(a) - float(b)) > BF16_RTOL * abs(float(b)):
+            raise AssertionError(f"core_obs (d) MSE: bf16 {a!r} against the CPU's {b!r}")
+    out["mse_half"] = {"dtypes": card[4], "value": float(card[2]), "cpu_value": float(cpu[2]),
+                       "bf16_ulps_apart": abs(int(card[2].view(torch.int16)) - int(cpu[2].view(torch.int16))),
+                       "float32_sum_rel_diff": sse_rel}
+    print(f"check core_obs (d) MSE().half(): dtypes {card[4]} (the update accumulates in float32, as in the JAX "
+          f"package), bf16 value {float(card[2])!r} on the card, {float(cpu[2])!r} on the CPU "
+          f"({out['mse_half']['bf16_ulps_apart']} bf16 ulps apart), float32 sums {sse_rel!r} apart")
+    del nyu
+
+    runs = {}
+    for label, kwargs in (("device_resident", {}), ("compute_on_cpu", {"compute_on_cpu": True})):
+        metric = mt.AUROC(num_classes=N_CLASSES, device=DEVICE, **kwargs)
+        update_ms = []
+
+        def run():
+            for probs, target in prob_batches:
+                torch.cuda.synchronize()
+                start = time.perf_counter()
+                metric.update(probs, target)
+                torch.cuda.synchronize()
+                update_ms.append((time.perf_counter() - start) * 1e3)
+            start = time.perf_counter()
+            value = metric.compute()
+            torch.cuda.synchronize()
+            return value, (time.perf_counter() - start) * 1e3
+
+        (value, compute_ms), peak = _peak_bytes(run)
+        runs[label] = {"value": value, "peak_bytes": peak, "update_ms": _spread(update_ms), "compute_ms": compute_ms,
+                       "buffer_device": str(metric.preds__buf.device)}
+        del metric
+    dev, host = runs["device_resident"], runs["compute_on_cpu"]
+    bitwise = torch.equal(dev["value"].cpu(), host["value"].cpu())
+    rel = abs(float(dev["value"]) - float(host["value"])) / abs(float(dev["value"]))
+    if host["buffer_device"] != "cpu" or host["value"].device.type != "cpu" or not (bitwise or rel <= CURVE_RTOL):
+        raise AssertionError(f"core_obs (d) AUROC(compute_on_cpu=True): {host} against {dev}")
+    out["auroc_compute_on_cpu"] = {
+        label: {k: (float(v) if k == "value" else v) for k, v in r.items()} for label, r in runs.items()
+    }
+    out["auroc_compute_on_cpu"]["bitwise"] = bitwise
+    out["auroc_compute_on_cpu"]["rel_diff"] = rel
+    print(f"check core_obs (d) AUROC: compute_on_cpu keeps the rows in host memory ({host['buffer_device']}), "
+          f"peak device bytes {host['peak_bytes']} against {dev['peak_bytes']} device-resident, ms per update "
+          f"{host['update_ms']['median']!r} against {dev['update_ms']['median']!r}, compute {host['compute_ms']!r} ms "
+          f"(on the CPU) against {dev['compute_ms']!r}; values {'bitwise equal' if bitwise else f'{rel!r} apart (rtol {CURVE_RTOL})'}")
+    return out
+
+
+def _core_windows(mt, ops, batches) -> Tuple[dict, int]:
+    """(e) two windows of one base in a collection (one compute group) against two windows advanced one by one."""
+    def windows():
+        return {f"w{i}": mt.WindowedMetric(mt.Accuracy(num_classes=N_CLASSES, device=DEVICE), window_size=CORE_WINDOW,
+                                           device=DEVICE) for i in (1, 2)}
+
+    def drive(update, advance, compute):
+        trace, step = [], 0
+        for _ in range(2):
+            for x, t in batches:
+                update(x, t)
+                step += 1
+                if step % WINDOW_BUCKET == 0:
+                    trace.append((advance(), compute()))
+        return trace
+
+    col = mt.MetricCollection(windows(), device=DEVICE)
+    total = 2 * len(batches)
+    grouped, _, counts = _driven(
+        ops, "core_obs (e) windows in one compute group",
+        lambda: drive(col.update, col.advance_windows, col.compute),
+        lambda: {"logits": total + 1, "canonical": 0},  # both members on the first batch, then the leader alone
+    )
+    alone = windows()
+    members = list(alone.values())
+    one_by_one = drive(lambda x, t: [m.update(x, t) for m in members], lambda: {k: m.advance() for k, m in alone.items()},
+                       lambda: {k: m.compute() for k, m in alone.items()})
+    for (ev, vals), (ev1, vals1) in zip(grouped, one_by_one):
+        if ev != {"w1": ev1["w1"]} or ev1["w1"] != ev1["w2"] or any(not torch.equal(vals[k], vals1[k]) for k in vals1):
+            raise AssertionError(f"core_obs (e): advance_windows gave {ev} and {vals}, the members one by one {ev1} and {vals1}")
+    if col.compute_groups != {0: ["w1", "w2"]}:
+        raise AssertionError(f"core_obs (e): compute groups {col.compute_groups}")
+    evicted = [ev["w1"] for ev, _ in grouped]
+    print(f"check core_obs (e): {len(grouped)} advances over two passes, evicted {evicted}, every window's value bitwise "
+          f"as the members advanced one by one; {counts['logits']} launches for {total} batches")
+    return {"advances": len(grouped), "evicted": evicted, "launches": counts}, counts["logits"]
+
+
+def _core_done_slices(mt, ops, obs, batches, profiles: dict) -> Tuple[dict, dict]:
+    """(f) small reruns of phases 11 and 12 with obs enabled: their counters reach summarize_counters(),
+    and an update's device operations and host copies are those with obs disabled."""
+    from metrics_tpu_torch.checkpoint import CheckpointManager
+    from metrics_tpu_torch.ops import kll
+    from metrics_tpu_torch.parallel import LoopbackBackend
+
+    counters = _ms_counters(ops, kll)
+    err = [(p - t).abs_().div_(t) for p, t in _nyu_pass()[:CORE_SMALL_BATCHES]]
+    small = batches[:CORE_SMALL_BATCHES]
+    q = mt.StreamingQuantile(q=SKETCH_Q, capacity=SKETCH_CAPACITY, device=DEVICE, sync_backend=LoopbackBackend())
+    win = mt.WindowedMetric(mt.SumMetric(device=DEVICE), window_size=2, device=DEVICE)
+    ms = mt.MultiStreamMetric(mt.Accuracy(num_classes=N_CLASSES, device=DEVICE), num_streams=N_CLASSES, device=DEVICE,
+                              sync_backend=LoopbackBackend())
+    obs.reset()
+    obs.enable()
+
+    def run():
+        for e in err:
+            q.update(e)
+            win.update(e.sum())
+            win.advance()
+        for x, t in small:
+            ms.update(x, t, stream_ids=t)
+        q.compute()
+        ms.top_k(10)
+        ms.where(lambda v: v > 0.5, 10)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+            CheckpointManager(tmp).save(ms)
+            CheckpointManager(tmp).restore(mt.MultiStreamMetric(mt.Accuracy(num_classes=N_CLASSES, device=DEVICE),
+                                                                num_streams=N_CLASSES, device=DEVICE))
+
+    _, launches = _launches_of(counters, run)
+    summary = obs.summarize_counters()
+    obs.disable()
+    obs.reset()
+    need = {"streaming": {"sketch_compactions", "window_evictions", "sketch_merge_calls"},
+            "multistream": {"scatter_updates", "topk_queries", "streams_active", "sync_bytes"},
+            "ckpt": {"saves", "restores", "bytes_written"}}
+    missing = {k: sorted(v - set(summary.get(k, {}))) for k, v in need.items() if v - set(summary.get(k, {}))}
+    if missing:
+        raise AssertionError(f"core_obs (f): counters missing from summarize_counters(): {missing} ({summary})")
+    if launches["kll_fold"] < len(err) or launches["stream_logits"] != len(small):
+        raise AssertionError(f"core_obs (f): launches {launches}")
+    # the host copies are the gate: a sketch update's operation count moves with its state (which levels compact)
+    per_update = {name: profiles[name] for name in ("quantile", "multistream")}
+    for name, seen in per_update.items():
+        if _profiled(seen, f"core_obs (f) {name}") and seen["disabled"][1] != seen["enabled"][1]:
+            raise AssertionError(f"core_obs (f) {name}: obs changed an update's host copies: {seen}")
+    print(f"check core_obs (f): summarize_counters() holds {summary}; per update (device operations, device->host "
+          f"copies) with obs off and on {per_update}; launches {launches}")
+    return {"summarize_counters": summary, "per_update": per_update, "launches": launches}, launches
+
+
+def _large_s_timings(ops) -> list:
+    """The large-S branch of the canonical per-stream entry point against its plain version, in turns, on the
+    operands ``tools/stream_stat_scores_ab.py`` times it on (the same generator draws)."""
+    n, c = BATCH, N_CLASSES
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 24)
+    torch.randn((n, c), generator=gen, device=DEVICE)
+    torch.randint(0, c, (n,), generator=gen, device=DEVICE)
+    torch.randint(0, 64, (n,), generator=gen, device=DEVICE)
+    preds = torch.randint(0, 2, (n, c), generator=gen, device=DEVICE, dtype=torch.int32)
+    target = torch.randint(0, 2, (n, c), generator=gen, device=DEVICE, dtype=torch.int32)
+    out = []
+    for s in LARGE_S_TIMED:
+        ids = torch.randint(0, s, (n,), generator=gen, device=DEVICE)
+        kernel = lambda: ops.fused_stream_stat_scores(preds, target, ids, s)  # noqa: E731
+        plain = lambda: ops.fused_stream_stat_scores_plain(preds, target, ids, s)  # noqa: E731
+        for a, b in zip(kernel(), plain()):
+            if not torch.equal(a, b):
+                raise AssertionError(f"large S = {s}: the kernel differs from its plain version")
+        times = _in_turns({"plain": plain, "kernel": kernel}, ["plain", "kernel", "kernel", "plain"])
+        bound_ms, bound_by = _bound(2 * n * c * 4 + n * 8 + 4 * s * c * 4, 6 * n * c)
+        out.append({"streams": s, "ms": times["kernel"], "plain_ms": times["plain"], "bound_ms": bound_ms, "bound_by": bound_by})
+        print(f"stream_stat_scores large S = {s}: kernel {times['kernel']!r} ms, plain {times['plain']!r} ms, "
+              f"bound {bound_ms!r} ms ({bound_by})")
+    return out
+
+
+def phase_core_obs(mt, ops, single: dict, profiles: dict, card: str) -> Tuple[dict, dict, dict]:
+    """Phase 13: the rest of the Metric core and obs, with the update profiles ``_obs_profiles`` took early.
+    Returns the stat-scores launches by route, the launches of the per-stream and kll_fold kernels, and
+    the core_obs line."""
+    from metrics_tpu_torch import obs
+
+    phase_start = time.perf_counter()
+    logits, labels, batches = _imagenet_pass()
+    obs_main, obs_launches = _core_obs_main_path(mt, ops, obs, batches, single, profiles["config2"])
+    asynchronous = _core_async(mt, batches)
+    composition, comp_launches = _core_composition(mt, ops, batches)
+    prob_batches = _probability_batches(batches)
+    dtype_placement = _core_dtype_placement(mt, prob_batches)
+    del prob_batches
+    windows, window_launches = _core_windows(mt, ops, batches)
+    done_slices, done_launches = _core_done_slices(mt, ops, obs, batches, profiles)
+    del logits, labels, batches
+    large_s = _large_s_timings(ops)
+    secs = time.perf_counter() - phase_start
+    print(f"core_obs phase took {secs:.1f} s")
+    stat = {"logits": obs_launches + comp_launches + window_launches + done_launches["logits"],
+            "canonical": done_launches["canonical"]}
+    line = {"core_obs": {
+        "card": card, "obs_on_main_path": obs_main, "async_two_ranks": asynchronous, "composition": composition,
+        "dtype_and_placement": dtype_placement, "windows": windows, "done_slices": done_slices,
+        "launches": {**stat, "stream_logits": done_launches["stream_logits"],
+                     "stream_canonical": done_launches["stream_canonical"], "kll_fold": done_launches["kll_fold"]},
+        "large_s": large_s, "phase_s": secs,
+    }}
+    others = {k: done_launches[k] for k in ("stream_logits", "stream_canonical", "kll_fold")}
+    return stat, others, line
+
+
 def _device_ops(fn, calls: int = 1) -> Optional[list]:
     """(name, device ms) of each device operation that ``calls`` calls of ``fn`` issue, as
     torch.profiler records them; None where the profiler records no device activity on this machine."""
@@ -4169,6 +4771,9 @@ def main() -> int:
     # the kernels' own times first: torch.profiler sessions after the curve phase's lost events
     kernels = phase_timings(ops, launches, max_abs_err)
     ms_entries = _ms_entry(ops, logits, labels)
+    from metrics_tpu_torch import obs
+
+    obs_profiles = _obs_profiles(mt, obs, logits, labels)
     curve_launches, curve_line = phase_curves(mt, ops, logits, labels, card)
     rest_launches, rest_line = phase_rest(mt, ops, logits, labels, card)
     del logits, labels
@@ -4180,17 +4785,24 @@ def main() -> int:
     streaming_launches, kll_entry, streaming_line = phase_streaming(mt, ops, card)
     torch.cuda.empty_cache()
     ms_launches, ms_counts, ms_line = phase_multistream(mt, ops, card)
+    torch.cuda.empty_cache()
+    core_launches, core_counts, core_line = phase_core_obs(mt, ops, single, obs_profiles, card)
     print(f"launches per entry point: main path {launches}, curve phase {curve_launches}, "
           f"rest of classification {rest_launches}, regression {regression_launches}, "
-          f"wrappers and retrieval {wrapper_launches}, streaming {streaming_launches}, multistream {ms_launches}")
+          f"wrappers and retrieval {wrapper_launches}, streaming {streaming_launches}, multistream {ms_launches}, "
+          f"core and obs {core_launches} and {core_counts}")
     for entry in kernels:
         route = "canonical" if entry["name"] == "stat_scores" else "logits"
         entry["launches"] += (curve_launches[route] + rest_launches[route] + regression_launches[route]
-                              + wrapper_launches[route] + streaming_launches[route] + ms_launches[route])
-    kll_entry["launches"] += ms_counts["kll_fold"]
+                              + wrapper_launches[route] + streaming_launches[route] + ms_launches[route]
+                              + core_launches[route])
+    kll_entry["launches"] += ms_counts["kll_fold"] + core_counts["kll_fold"]
     kernels.append(kll_entry)
     for entry in ms_entries:
-        entry["launches"] = ms_counts[entry.pop("counter")]
+        counter = entry.pop("counter")
+        entry["launches"] = ms_counts[counter] + core_counts[counter]
+        if counter == "stream_canonical":
+            entry["large_s"] = core_line["core_obs"]["large_s"]
     kernels.extend(ms_entries)
     print(json.dumps(sync_line))
     print(json.dumps(curve_line))
@@ -4199,6 +4811,7 @@ def main() -> int:
     print(json.dumps(wrapper_line))
     print(json.dumps(streaming_line))
     print(json.dumps(ms_line))
+    print(json.dumps(core_line))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

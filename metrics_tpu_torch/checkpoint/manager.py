@@ -31,8 +31,8 @@ The on-disk layout (step directories, shard and shard-metadata names, the
 manifest's JSON) is the JAX package's, so either package restores the
 other's checkpoints.
 
-The JAX package also records spans and counters (``ckpt.*``) in its
-observability layer; the port has none yet.
+Saves and restores are timed by the ``ckpt.save`` / ``ckpt.restore`` spans
+and counted under the JAX package's ``ckpt.*`` counter names.
 """
 
 from __future__ import annotations
@@ -56,6 +56,7 @@ from metrics_tpu_torch.checkpoint import codec
 from metrics_tpu_torch.checkpoint.store import ChaosStore, LocalStore
 from metrics_tpu_torch.collections import MetricCollection
 from metrics_tpu_torch.metric import Metric, _pack_state_blob, _unpack_state_blob
+from metrics_tpu_torch.obs import counter_inc, span
 from metrics_tpu_torch.utils.exceptions import (
     CheckpointError,
     CheckpointIntegrityError,
@@ -399,42 +400,45 @@ class CheckpointManager:
             latest = self.latest_step()
             step = 0 if latest is None else latest + 1
         seq = next(self._op_seq)
-        self._barrier(f"save-entry/{seq}/{step}")
-        sdir = _step_dir(step)
-        if encoded is None:
-            encoded = self.encode_target(target)
-        shard_meta = encoded.shard_meta
-        if extra is not None:
-            shard_meta = dict(shard_meta)
-            shard_meta["extra"] = extra
-        manifest_schema = encoded.manifest_schema
-        shard = _pack_state_blob(
-            {key: codec._as_bytes_tensor(blob) for key, blob in encoded.shard_blobs.items()}
-        )
-        self.store.write_atomic(f"{sdir}/{_shard_name(self.rank)}", shard)
-        self.store.write_atomic(
-            f"{sdir}/{_shard_meta_name(self.rank)}",
-            json.dumps(shard_meta, sort_keys=True).encode(),
-        )
-        if self.rank == 0:
-            shards = self._collect_shard_metas(sdir)
-            manifest = {
-                "format_version": codec.FORMAT_VERSION,
-                "step": step,
-                "world_size": self.world_size,
-                "metrics": manifest_schema,
-                "shards": shards,
-            }
-            # the commit point: a step directory without this file is
-            # invisible to restore
-            payload = json.dumps(manifest, sort_keys=True).encode()
-            self.store.write_atomic(f"{sdir}/{MANIFEST_NAME}", payload)
-            self._verify_commit(sdir, step, payload)
-            self._kv_publish(f"commit/{seq}/{step}", "1")
-            if self.keep_last is not None:
-                self._gc(keep_step=step)
-        else:
-            self._await_commit(seq, step, sdir)
+        with span("ckpt.save", step=step, rank=self.rank):
+            self._barrier(f"save-entry/{seq}/{step}")
+            sdir = _step_dir(step)
+            if encoded is None:
+                encoded = self.encode_target(target)
+            shard_meta = encoded.shard_meta
+            if extra is not None:
+                shard_meta = dict(shard_meta)
+                shard_meta["extra"] = extra
+            manifest_schema = encoded.manifest_schema
+            shard = _pack_state_blob(
+                {key: codec._as_bytes_tensor(blob) for key, blob in encoded.shard_blobs.items()}
+            )
+            self.store.write_atomic(f"{sdir}/{_shard_name(self.rank)}", shard)
+            counter_inc("ckpt.bytes_written", value=len(shard))
+            self.store.write_atomic(
+                f"{sdir}/{_shard_meta_name(self.rank)}",
+                json.dumps(shard_meta, sort_keys=True).encode(),
+            )
+            if self.rank == 0:
+                shards = self._collect_shard_metas(sdir)
+                manifest = {
+                    "format_version": codec.FORMAT_VERSION,
+                    "step": step,
+                    "world_size": self.world_size,
+                    "metrics": manifest_schema,
+                    "shards": shards,
+                }
+                # the commit point: a step directory without this file is
+                # invisible to restore
+                payload = json.dumps(manifest, sort_keys=True).encode()
+                self.store.write_atomic(f"{sdir}/{MANIFEST_NAME}", payload)
+                self._verify_commit(sdir, step, payload)
+                self._kv_publish(f"commit/{seq}/{step}", "1")
+                if self.keep_last is not None:
+                    self._gc(keep_step=step)
+            else:
+                self._await_commit(seq, step, sdir)
+            counter_inc("ckpt.saves")
         self._durable_at = time.monotonic()
         return step
 
@@ -487,6 +491,7 @@ class CheckpointManager:
         durability loops — callers stop hand-rolling last-save bookkeeping."""
         if not self.save_due():
             return None
+        counter_inc("ckpt.triggered_saves")
         return self.save_now(target, step=step)
 
     def _verify_commit(self, sdir: str, step: int, payload: bytes) -> None:
@@ -556,22 +561,24 @@ class CheckpointManager:
         :class:`CheckpointRestoreError` when no usable checkpoint exists.
         """
         seq = next(self._op_seq)
-        stale: List[int] = []
-        candidates = self._committed_manifests(stale)
-        if step is not None:
-            candidates = {s: m for s, m in candidates.items() if s == step}
-        chosen = self._quorum(seq, candidates)
-        if chosen is None:
-            raise CheckpointRestoreError(
-                f"no usable checkpoint under {self.store.root!r}"
-                + (f" for step {step}" if step is not None else "")
-                + (f" (skipped uncommitted/stale step(s) {sorted(stale)})" if stale else "")
+        with span("ckpt.restore", rank=self.rank):
+            stale: List[int] = []
+            candidates = self._committed_manifests(stale)
+            if step is not None:
+                candidates = {s: m for s, m in candidates.items() if s == step}
+            chosen = self._quorum(seq, candidates)
+            if chosen is None:
+                raise CheckpointRestoreError(
+                    f"no usable checkpoint under {self.store.root!r}"
+                    + (f" for step {step}" if step is not None else "")
+                    + (f" (skipped uncommitted/stale step(s) {sorted(stale)})" if stale else "")
+                )
+            manifest = candidates[chosen]
+            result = RestoreResult(
+                step=chosen, world_size=int(manifest["world_size"]), stale_steps=sorted(stale)
             )
-        manifest = candidates[chosen]
-        result = RestoreResult(
-            step=chosen, world_size=int(manifest["world_size"]), stale_steps=sorted(stale)
-        )
-        self._restore_from_manifest(target, manifest, result)
+            self._restore_from_manifest(target, manifest, result)
+            counter_inc("ckpt.restores")
         # the restored state IS durable: restart the staleness clock from it
         self._durable_at = time.monotonic()
         return result
@@ -597,6 +604,7 @@ class CheckpointManager:
                 continue  # never committed (crash before manifest) — not stale
             except Exception:
                 stale_out.append(dir_step)
+                counter_inc("ckpt.stale_manifests")
                 continue
             if (
                 not isinstance(manifest, dict)
@@ -604,6 +612,7 @@ class CheckpointManager:
                 or manifest.get("format_version") != codec.FORMAT_VERSION
             ):
                 stale_out.append(dir_step)
+                counter_inc("ckpt.stale_manifests")
                 continue
             out[dir_step] = manifest
         return out
@@ -671,6 +680,7 @@ class CheckpointManager:
                         f"checkpoint step {result.step} is missing shard {s} "
                         f"({sdir}/{_shard_name(s)})"
                     )
+                counter_inc("ckpt.missing_shards")
                 result.missing_shards.append(s)
                 shard_payloads[s] = None
             except Exception:
@@ -679,6 +689,7 @@ class CheckpointManager:
                     raise CheckpointIntegrityError(
                         f"checkpoint step {result.step} shard {s} is unreadable", shard=s
                     )
+                counter_inc("ckpt.missing_shards")
                 result.missing_shards.append(s)
                 shard_payloads[s] = None
 
@@ -709,6 +720,7 @@ class CheckpointManager:
                             state=sorted(decoded.failed)[0],
                             shard=s,
                         )
+                    counter_inc("ckpt.digest_failures", value=len(decoded.failed))
                     if self.on_restore_error == "reset_metric":
                         # one bad blob poisons the metric: any partial state
                         # already merged is discarded, it restarts from zero
@@ -726,6 +738,7 @@ class CheckpointManager:
                     count = int(shard_info.get("update_count", 0))
                     metric.merge_state(other, other_count=count)
                     result.folded_shards.append(s)
+                    counter_inc("ckpt.folded_shards")
                 restored_any = True
             if restored_any:
                 result.restored_metrics.append(key)
@@ -751,6 +764,7 @@ class CheckpointManager:
             if s in survivors or s > min(survivors):
                 continue
             self.store.remove_tree(entry)
+            counter_inc("ckpt.gc_pruned")
         self.store.sweep_trash()
 
     def _kv_client(self) -> Optional["torch.distributed.Store"]:

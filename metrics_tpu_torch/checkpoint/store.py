@@ -27,6 +27,8 @@ import shutil
 import uuid
 from typing import Dict, List, Optional, Tuple
 
+from metrics_tpu_torch.obs import counter_inc
+
 _TRASH_PREFIX = ".trash."
 
 
@@ -169,6 +171,7 @@ class ChaosStore:
             if kind in kinds and substr in path:
                 del self.faults[i]
                 self.injected.append((kind, path))
+                counter_inc("ckpt.chaos_faults", kind=kind)
                 return kind
         return None
 

@@ -13,10 +13,16 @@ before it appends to it.
 from copy import deepcopy
 from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple, Union
 
+import torch
 from torch import nn
 
 from metrics_tpu_torch.metric import Metric, _resolve_device
+from metrics_tpu_torch.obs import core as _obs
 from metrics_tpu_torch.utils.data import _flatten_dict, allclose
+
+
+def _collection_labels(collection: "MetricCollection") -> Dict[str, Any]:
+    return {"members": len(collection._modules)}
 
 
 class MetricCollection(nn.Module):
@@ -175,6 +181,7 @@ class MetricCollection(nn.Module):
             self._groups_checked = False
 
     # ------------------------------------------------------------------ calls
+    @_obs.spanned("collection.forward", _collection_labels)
     def forward(self, *args: Any, **kwargs: Any) -> Dict[str, Any]:
         """Per-metric forward; returns {name: batch value}."""
         res = {k: m(*args, **m._filter_kwargs(**kwargs)) for k, m in self._modules.items()}
@@ -184,10 +191,12 @@ class MetricCollection(nn.Module):
             self._share_group_states()
         return {self._to_key(k): v for k, v in res.items()}
 
+    @_obs.spanned("collection.update", _collection_labels)
     def update(self, *args: Any, **kwargs: Any) -> None:
         """Update once per compute group."""
         self._update_via("update", *args, **kwargs)
 
+    @_obs.spanned("collection.update_batched", _collection_labels)
     def update_batched(self, *args: Any, **kwargs: Any) -> None:
         """Fold a stack of batches (leading ``n_batches`` axis) once per compute group."""
         self._update_via("update_batched", *args, **kwargs)
@@ -264,9 +273,74 @@ class MetricCollection(nn.Module):
                 # the wrong row
                 member._delta_cache = leader._delta_cache
 
+    def advance_windows(self) -> Dict[str, int]:
+        """Rotate every :class:`~metrics_tpu_torch.streaming.WindowedMetric`
+        member to its next bucket.
+
+        Compute-group members alias their leader's states, so only group
+        leaders advance (advancing an aliased member as well would skip a
+        bucket); the leaders' new states are then shared again.  Returns
+        ``{member_name: evicted_update_count}`` for the windows advanced.
+        """
+        from metrics_tpu_torch.streaming.window import WindowedMetric
+
+        evicted: Dict[str, int] = {}
+        if self._groups_checked and self._compute_groups:
+            for group in self._compute_groups.values():
+                leader = self._modules[group[0]]
+                if isinstance(leader, WindowedMetric):
+                    evicted[group[0]] = leader.advance()
+            self._share_group_states()
+        else:
+            for name, m in self._modules.items():
+                if isinstance(m, WindowedMetric):
+                    evicted[name] = m.advance()
+        return evicted
+
+    def sync_async(self, backend: Optional[Any] = None) -> Dict[str, Any]:
+        """Start one background sync round per member (per compute-group
+        leader once groups are formed: the members alias the leader's states
+        and delta cache, so one round covers the group).
+
+        Returns ``{member_name: AsyncSyncHandle | None}``; ``None`` means the
+        member started nothing (see :meth:`Metric.sync_async`).  Each member's
+        next ``sync``/``compute`` folds its round in.
+        """
+        handles: Dict[str, Any] = {}
+        if self._groups_checked and self._compute_groups:
+            for group in self._compute_groups.values():
+                handles[group[0]] = self._modules[group[0]].sync_async(backend=backend)
+        else:
+            for name, m in self._modules.items():
+                handles[name] = m.sync_async(backend=backend)
+        return handles
+
+    # member metric.compute spans nest under this one, which gives
+    # per-member time attribution for the collection call
+    @_obs.spanned("collection.compute", _collection_labels)
     def compute(self) -> Dict[str, Any]:
         res = _flatten_dict({k: m.compute() for k, m in self._modules.items()})
         return {self._to_key(k): v for k, v in res.items()}
+
+    def set_dtype(self, dst_type: torch.dtype) -> "MetricCollection":
+        """:meth:`Metric.set_dtype` on every member; compute groups share the
+        cast states again."""
+        for m in self._modules.values():
+            m.set_dtype(dst_type)
+        if self._groups_checked:
+            self._share_group_states()
+        return self
+
+    def float(self) -> "MetricCollection":  # type: ignore[override]
+        return self.set_dtype(torch.float32)
+
+    def double(self) -> "MetricCollection":  # type: ignore[override]
+        """float32 states, as :meth:`Metric.double`."""
+        return self.set_dtype(torch.float64)
+
+    def half(self) -> "MetricCollection":  # type: ignore[override]
+        """bfloat16 states, as :meth:`Metric.half` (not ``nn.Module.half``'s float16)."""
+        return self.set_dtype(torch.bfloat16)
 
     def reset(self) -> None:
         for m in self._modules.values():
@@ -335,7 +409,8 @@ class MetricCollection(nn.Module):
         """Roll every member's latest sync report into collection totals.
 
         Sums the additive fields (duration, retries, attempts, gather calls,
-        bytes, preflight traffic, backoff) and collects per-member errors, so
+        bytes, preflight traffic, backoff, async overlap) and collects
+        per-member errors, so
         a loop can log one line per collection sync.
         """
         totals: Dict[str, Any] = {
@@ -351,6 +426,7 @@ class MetricCollection(nn.Module):
             "delta_syncs": 0,
             "full_syncs": 0,
             "backoff_secs": 0.0,
+            "overlap_secs": 0.0,
             "errors": [],
         }
         for name, m in self._modules.items():
@@ -358,7 +434,7 @@ class MetricCollection(nn.Module):
             if not rep:
                 continue
             totals["members_reporting"] += 1
-            for key in ("duration_secs", "backoff_secs"):
+            for key in ("duration_secs", "backoff_secs", "overlap_secs"):
                 totals[key] = round(totals[key] + float(rep.get(key) or 0.0), 6)
             for key in (
                 "retries", "attempts", "gather_calls", "bytes_gathered",

@@ -33,12 +33,15 @@ def _pearson_corrcoef_update(
     target = torch.atleast_1d(target).to(torch.float32)
 
     n_obs = preds.numel()
-    mx_new = (n_prior * mean_x + _mean(preds) * n_obs) / (n_prior + n_obs)
-    my_new = (n_prior * mean_y + _mean(target) * n_obs) / (n_prior + n_obs)
+    # the batch terms are one-element tensors, not 0-d ones: against a 0-d
+    # float32 tensor torch keeps a bfloat16 state's dtype (``half()``), where
+    # XLA widens it to float32
+    mx_new = (n_prior * mean_x + _mean(preds).reshape(1) * n_obs) / (n_prior + n_obs)
+    my_new = (n_prior * mean_y + _mean(target).reshape(1) * n_obs) / (n_prior + n_obs)
     n_new = n_prior + n_obs
-    var_x = var_x + ((preds - mx_new) * (preds - mean_x)).sum()
-    var_y = var_y + ((target - my_new) * (target - mean_y)).sum()
-    corr_xy = corr_xy + ((preds - mx_new) * (target - mean_y)).sum()
+    var_x = var_x + ((preds - mx_new) * (preds - mean_x)).sum(0, keepdim=True)
+    var_y = var_y + ((target - my_new) * (target - mean_y)).sum(0, keepdim=True)
+    corr_xy = corr_xy + ((preds - mx_new) * (target - mean_y)).sum(0, keepdim=True)
     return mx_new, my_new, var_x, var_y, corr_xy, n_new
 
 

@@ -24,6 +24,12 @@ state) copies it before its first append.
 (or an explicit ``sync_backend`` is given): a schema preflight, then one
 packed blob gather, reduced in rank order on every rank; ``unsync`` restores
 the local state after.  See :mod:`metrics_tpu_torch.parallel`.
+:meth:`Metric.sync_async` runs such a round on a background thread instead,
+and the next ``sync`` folds it in (the catch-up barrier).
+
+Metrics compose with Python's operators (``(f1 + acc) / 2``, ``-prec``,
+``acc[7]``): each builds a :class:`CompositionalMetric` that updates its
+operands and applies the operator to their computed values.
 """
 
 import copy
@@ -34,20 +40,24 @@ import os
 import struct
 import time
 from abc import ABC, abstractmethod
-from collections import deque
+from collections import OrderedDict, deque
 from contextlib import contextmanager
 from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 from torch import nn
+from torch.nn.modules.module import _IncompatibleKeys
 
+from metrics_tpu_torch.obs import core as _obs
 from metrics_tpu_torch.parallel.backend import (
+    AsyncSyncHandle,
     Backend,
     SyncOptions,
     get_backend,
     reduce_stack,
     reduce_synced_state,
+    submit_async_round,
 )
 from metrics_tpu_torch.utils.data import _squeeze_if_scalar, _x32, _x32_dtype, dim_zero_cat
 from metrics_tpu_torch.utils.exceptions import (
@@ -57,6 +67,12 @@ from metrics_tpu_torch.utils.exceptions import (
     SyncTimeoutError,
 )
 from metrics_tpu_torch.utils.prints import rank_zero_warn
+
+
+
+def _metric_labels(metric: "Metric") -> Dict[str, Any]:
+    return {"metric": type(metric).__name__}
+
 
 _ALLOWED_REDUCE = ("sum", "mean", "max", "min", "cat")
 
@@ -90,6 +106,11 @@ class _DeltaCache:
 
     Compute-group members of a :class:`MetricCollection` alias one cache
     object, which is why :meth:`clear` empties in place rather than rebinding.
+
+    ``inflight`` holds the one background round :meth:`Metric.sync_async`
+    has parked (``None`` when there is none); ``generation`` grows with every
+    :meth:`clear`, so a round submitted before a clear is stale and is
+    dropped, not folded.
     """
 
     def __init__(self) -> None:
@@ -99,12 +120,16 @@ class _DeltaCache:
         # watermark that an update rewrote (not appended to) void the prefix
         self.locals: Dict[str, Any] = {}
         self.round = 0
+        self.inflight: Optional[Dict[str, Any]] = None
+        self.generation = 0
 
     def clear(self) -> None:
         self.prefixes.clear()
         self.watermarks.clear()
         self.locals.clear()
         self.round = 0
+        self.inflight = None
+        self.generation += 1
 
     def token(self, names: Sequence[str]) -> Tuple[int, int, int]:
         """``(round, digest_lo, digest_hi)`` int32-safe vote token over the
@@ -283,6 +308,44 @@ def _unpickled(value: Any) -> Any:
     return value
 
 
+#: the side stream each device's background sync rounds run on
+_WORKER_STREAMS: Dict[torch.device, Any] = {}
+
+
+def _side_stream(device: torch.device) -> Optional[Any]:
+    """The side stream of ``device`` that background sync rounds run on (None
+    off the card), made on the caller's thread at its first round.  The first
+    stream of a process also makes PyTorch's stream pools: that one round's
+    submit pays tens of milliseconds."""
+    if device.type != "cuda":
+        return None
+    stream = _WORKER_STREAMS.get(device)
+    if stream is None:
+        stream = _WORKER_STREAMS[device] = torch.cuda.Stream(device)
+    return stream
+
+
+@contextmanager
+def _on_side_stream(stream: Optional[Any], ready: Any) -> Iterator[None]:
+    """Run a background sync round's device work on ``stream`` after it waits
+    for ``ready`` (recorded after the snapshot on the caller's stream), and
+    wait for the stream before leaving.
+
+    PyTorch's side streams do not synchronize with the legacy default stream,
+    so the round neither reads the snapshot before it is written nor queues
+    behind the kernels the caller launches after it.
+    """
+    if stream is None:
+        yield
+        return
+    with torch.cuda.device(stream.device), torch.cuda.stream(stream):
+        stream.wait_event(ready)
+        try:
+            yield
+        finally:
+            stream.synchronize()
+
+
 class Metric(nn.Module, ABC):
     """Base class for all metrics.
 
@@ -317,6 +380,16 @@ class Metric(nn.Module, ABC):
             states ship only the rows appended since and splice them onto the
             cached gathered prefix, when every rank votes for it in the
             preflight (default on; env kill switch ``METRICS_TPU_DELTA_SYNC=0``).
+        async_sync: ``None`` (default) lets :meth:`sync_async` run rounds on
+            the background worker; ``True`` also overlaps the per-step sync
+            of ``dist_sync_on_step`` (the step's value is then the local
+            batch value); ``False`` turns :meth:`sync_async` into a no-op, as
+            does ``METRICS_TPU_ASYNC_SYNC=0``.
+        compute_on_cpu: move list and buffer states to host memory after
+            every update, so the rows never pile up on the device; their
+            compute runs on the CPU (default False).
+        compute_with_cache: return the cached ``compute`` value until the
+            next update (default True); ``False`` recomputes on every call.
 
     ``compute`` returns its cached value until the next update or reset.
     Each distributed sync records ``last_sync_report`` and appends it to the
@@ -379,6 +452,11 @@ class Metric(nn.Module, ABC):
             "delta_sync",
             os.environ.get("METRICS_TPU_DELTA_SYNC", "").strip().lower() not in ("0", "false", "no"),
         )
+        self.async_sync = kwargs.pop("async_sync", None)
+        if os.environ.get("METRICS_TPU_ASYNC_SYNC", "").strip().lower() in ("0", "false", "no"):
+            self.async_sync = False
+        self.compute_on_cpu = kwargs.pop("compute_on_cpu", False)
+        self.compute_with_cache = kwargs.pop("compute_with_cache", True)
         if kwargs:
             raise ValueError(f"Unexpected keyword arguments: {sorted(kwargs)}")
         self._defaults: Dict[str, Any] = {}
@@ -505,7 +583,8 @@ class Metric(nn.Module, ABC):
         """
         meta = self._buffer_states[name]
         bkey, lkey = name + "__buf", name + "__len"
-        values = _x32(values)
+        where = self._buffer_device()
+        values = _x32(values).to(where)
         if values.ndim == 0:
             values = values[None]
         rows = values.shape[0]
@@ -517,17 +596,21 @@ class Metric(nn.Module, ABC):
                     f"buffer state {name!r} holds rows of shape {tuple(buf.shape[1:])}, "
                     f"got rows of shape {trail}"
                 )
-            buf = torch.zeros((_grown_capacity(meta["capacity"], rows),) + trail, dtype=values.dtype, device=self.device)
+            buf = torch.zeros((_grown_capacity(meta["capacity"], rows),) + trail, dtype=values.dtype, device=where)
         else:
             promoted = _x32_dtype(torch.promote_types(buf.dtype, values.dtype))
             if promoted != buf.dtype or cur + rows > buf.shape[0] or buf is not meta["owned"]:
-                new = torch.zeros((_grown_capacity(buf.shape[0], cur + rows),) + trail, dtype=promoted, device=self.device)
+                new = torch.zeros((_grown_capacity(buf.shape[0], cur + rows),) + trail, dtype=promoted, device=where)
                 new[:cur] = buf[:cur]
                 buf = new
         buf[cur : cur + rows] = values
         setattr(self, bkey, buf)
         setattr(self, lkey, cur + rows)
         meta.update(owned=buf, trail=trail, dtype=buf.dtype, alloc_cap=buf.shape[0])
+
+    def _buffer_device(self) -> torch.device:
+        """Where buffer rows accumulate: host memory with ``compute_on_cpu``, else the metric's device."""
+        return torch.device("cpu") if self.compute_on_cpu else self.device
 
     @staticmethod
     def _extract_buffer_values(buf: torch.Tensor, count: int, name: str) -> torch.Tensor:
@@ -684,6 +767,18 @@ class Metric(nn.Module, ABC):
     def update_count(self) -> int:
         return self._update_count
 
+    @property
+    def state(self) -> Dict[str, Any]:
+        """The raw states, ``{name: value}``: tensors, lists of tensors and the
+        Python-int row counts of buffer states (a fresh dict of the live values)."""
+        self._flush_host_buffers()
+        return {name: getattr(self, name) for name in self._defaults}
+
+    def _flush_host_buffers(self) -> None:
+        """Hook run at every state read (``state``, ``forward``, ``compute``,
+        ``sync``): a subclass settles host-side bookkeeping there, and only
+        there, never per update."""
+
     def _copy_state(self) -> Dict[str, Any]:
         """A snapshot of the states: updates rebind tensors (buffer appends
         write past the snapshot's rows), so references suffice."""
@@ -781,7 +876,7 @@ class Metric(nn.Module, ABC):
                     f"{type(self).__name__} keeps its state on {self.device} but got an input on {where}"
                 )
 
-    def _update_wrapper(self, *args: Any, **kwargs: Any) -> None:
+    def _update_now(self, *args: Any, **kwargs: Any) -> None:
         if self._is_synced:
             raise MetricsTPUUserError(
                 "The Metric has already been synced; re-syncing or updating while synced is forbidden."
@@ -791,6 +886,26 @@ class Metric(nn.Module, ABC):
         self._computed = None
         self._update_count += 1
         self._update_impl(*args, **kwargs)
+        if self.compute_on_cpu:
+            self._move_list_states_to_cpu()
+
+    # the public update; forward's inner updates call _update_now, unspanned
+    _update_wrapper = _obs.spanned("metric.update", _metric_labels)(_update_now)
+
+    def _move_list_states_to_cpu(self) -> None:
+        """Move list and buffer states to host memory (``compute_on_cpu``)."""
+        cpu = torch.device("cpu")
+        for name in self._defaults:
+            value = getattr(self, name)
+            if isinstance(value, list):
+                setattr(self, name, [v.to(cpu) for v in value])
+        for bname, meta in self._buffer_states.items():
+            buf = getattr(self, bname + "__buf")
+            if buf.device != cpu:
+                buf = buf.to(cpu)
+                setattr(self, bname + "__buf", buf)
+                if meta["owned"] is not None:
+                    meta["owned"] = buf
 
     def update_batched(self, *args: Any, **kwargs: Any) -> None:
         """Fold a stack of batches: one :meth:`update` per slice of the leading axis.
@@ -816,16 +931,20 @@ class Metric(nn.Module, ABC):
             )
 
     # ---------------------------------------------------------------- forward
+    @_obs.spanned("metric.forward", _metric_labels)
     def forward(self, *args: Any, **kwargs: Any) -> Any:
         """Update global state AND return the metric on this batch alone.
 
         The fast path merges the pre-update state with the batch state
         through the per-state reductions; the full path re-runs update on
         the cached global state.  With ``dist_sync_on_step`` the batch value
-        is synced across processes (full path).
+        is synced across processes (full path); with ``async_sync=True`` as
+        well, the gather runs on the background worker instead and the value
+        is the local batch's.
         """
         if self._is_synced:
             raise MetricsTPUUserError("Calling forward while the metric is synced is forbidden.")
+        self._flush_host_buffers()
         # custom callables, sketches and None-reduce *tensor* states have no
         # O(1) merge rule — route them through the full re-update path (a
         # sketch's batch value comes from a fresh default state, whose key is
@@ -835,22 +954,26 @@ class Metric(nn.Module, ABC):
             for name, fx in self._reduce_fns.items()
         )
         if self.full_state_update or self.dist_sync_on_step or no_fast_merge:
-            return self._forward_full_state_update(*args, **kwargs)
-        return self._forward_reduce_state_update(*args, **kwargs)
+            value = self._forward_full_state_update(*args, **kwargs)
+        else:
+            value = self._forward_reduce_state_update(*args, **kwargs)
+        if self.compute_on_cpu:
+            self._move_list_states_to_cpu()
+        return value
 
     def _batch_value(self, should_sync: bool, args: tuple, kwargs: dict) -> Any:
         """Reset, update on this batch alone and compute, synced only when ``should_sync``."""
         self.reset()
-        self.update(*args, **kwargs)
+        self._update_now(*args, **kwargs)
         prev_sync = self.sync_on_compute
         self.sync_on_compute = should_sync
         try:
-            return self.compute()
+            return self._compute_wrapper()
         finally:
             self.sync_on_compute = prev_sync
 
     def _forward_full_state_update(self, *args: Any, **kwargs: Any) -> Any:
-        self.update(*args, **kwargs)
+        self._update_now(*args, **kwargs)
         cache = self._copy_state()
         cached_count = self._update_count
         # the batch value syncs and resets a temporary delta cache: the batch
@@ -859,8 +982,11 @@ class Metric(nn.Module, ABC):
         global_dc = self._delta_cache
         self._delta_cache = _DeltaCache()
         self._last_synced_state = None
+        # opting in to an overlapped per-step sync makes the step's value the
+        # local batch's (its gather runs in the background): hence `is True`
+        async_round = self.dist_sync_on_step and self.async_sync is True
         try:
-            batch_val = self._batch_value(self.dist_sync_on_step, args, kwargs)
+            batch_val = self._batch_value(self.dist_sync_on_step and not async_round, args, kwargs)
             batch_synced = self._last_synced_state
             batch_state = self._copy_state()
         finally:
@@ -870,6 +996,10 @@ class Metric(nn.Module, ABC):
         self._update_count = cached_count
         self._computed = None
         self._is_synced = False
+        if async_round:
+            # fold the previous round's gather, then start this step's on the
+            # worker: the step pays the fold, never the wire
+            self.sync_async()
         if batch_synced is not None and self._forward_delta_advance and self.delta_sync:
             self._forward_advance_delta(cache, batch_state, batch_synced)
         return batch_val
@@ -1101,6 +1231,7 @@ class Metric(nn.Module, ABC):
                 tree = {leaf: state.pop(key) for leaf, key in zip(smeta["leaves"], keys)}
                 with backend.annotate(sname):
                     merged_tree = backend.all_gather_merge(tree, smeta["merge"])
+                _obs.counter_inc("streaming.sketch_merge_calls", metric=type(self).__name__)
                 out.update({key: merged_tree[leaf] for leaf, key in zip(smeta["leaves"], keys)})
             for name, value in state.items():
                 with backend.annotate(name):
@@ -1190,6 +1321,7 @@ class Metric(nn.Module, ABC):
             out[name] = reduce_stack(stacked, self._reduce_fns[name])
         for sname in self._sketch_states:
             merged_tree = self._merge_sketches(sname, [{k[2:]: v for k, v in r.items() if k.startswith("s.")} for r in per_rank])
+            _obs.counter_inc("streaming.sketch_merge_calls", metric=type(self).__name__)
             out.update({f"{sname}__sk_{leaf}": value for leaf, value in merged_tree.items()})
         return out
 
@@ -1356,16 +1488,22 @@ class Metric(nn.Module, ABC):
         except Exception:
             dc.clear()
 
-    def _finish_sync_report(self, report: Dict[str, Any], backend: Backend, start: float) -> None:
+    def _finish_sync_report(
+        self, report: Dict[str, Any], backend: Backend, start: float, telemetry: Optional[Dict[str, Any]] = None
+    ) -> None:
+        """Stamp and file one sync's report; ``telemetry`` is the collectives' figures where the
+        caller popped them itself (a background round), else they are popped from ``backend``."""
         report["duration_secs"] = round(time.perf_counter() - start, 6)
-        tel = backend.pop_telemetry() or {}
+        tel = dict(telemetry) if telemetry is not None else backend.pop_telemetry() or {}
         report["retries"] = int(tel.pop("retries", 0))
         report["gather_calls"] = int(tel.pop("gather_calls", 0))
         report["bytes_gathered"] = int(tel.pop("bytes_gathered", 0))
         report.update(tel)
         self.last_sync_report = report
         self.sync_report_history.append(report)
+        _obs.record_sync_report(type(self).__name__, report)
 
+    @_obs.spanned("metric.sync", _metric_labels)
     def sync(
         self,
         dist_sync_fn: Optional[Callable] = None,
@@ -1386,6 +1524,11 @@ class Metric(nn.Module, ABC):
         """
         if self._is_synced:
             raise MetricsTPUUserError("The Metric has already been synced.")
+        self._flush_host_buffers()
+        # the catch-up barrier: fold any round in flight first, so the sync
+        # below ships only the rows past its snapshot and the result is the
+        # bits of a purely synchronous history
+        self._async_catchup()
         self._last_synced_state = None
         saved_options: Any = _UNSET
         if backend is None:
@@ -1502,8 +1645,152 @@ class Metric(nn.Module, ABC):
         finally:
             self.unsync(should_unsync=should_unsync and self._is_synced)
 
+    def sync_async(self, backend: Optional[Backend] = None) -> Optional[AsyncSyncHandle]:
+        """Start one packed sync round on the background sync worker and
+        return at once with its :class:`~metrics_tpu_torch.parallel.AsyncSyncHandle`.
+
+        Double-buffered: at most one round is in flight, and a submit first
+        folds the previous round's result in (the fold advances the delta
+        cache, so the next synchronous sync ships only the rows appended
+        after this call's snapshot).  The delta cache's ``(round, digest)``
+        token orders the fold: the catch-up barrier at the head of
+        :meth:`sync` (which ``compute`` reaches) re-verifies it across ranks,
+        so results are bitwise those of the synchronous path.  A failed round
+        is swallowed at the fold: the cache is cleared and the next sync is a
+        full gather.
+
+        On the card the snapshot is taken on the caller's stream and the
+        round's device work runs on a side stream that waits for it, so the
+        round neither reads a state before it is written nor waits for the
+        kernels launched after this call.
+
+        Returns ``None`` (nothing started) when async sync is off
+        (``async_sync=False`` or ``METRICS_TPU_ASYNC_SYNC=0``), with a custom
+        ``dist_sync_fn``, or when the backend cannot run a packed, delta-voted
+        round off the caller's thread or has no peers.
+        """
+        if self._is_synced:
+            raise MetricsTPUUserError("Cannot start an async sync on a synced Metric.")
+        if self.async_sync is False:
+            return None
+        if backend is None:
+            backend = self.sync_backend
+        if backend is None:
+            backend = get_backend(self.process_group, self._sync_options())
+        if (
+            not getattr(backend, "supports_packed", False)
+            or not getattr(backend, "supports_delta", False)
+            or not getattr(backend, "supports_async", False)
+            or not backend.is_distributed()
+            or self.dist_sync_fn is not None
+        ):
+            return None
+        # double buffer: fold the previous round before parking a new one
+        self._async_catchup()
+        self._flush_host_buffers()
+        round_backend = backend.for_async()
+        snapshot = self._copy_state()
+        count = self._update_count
+        entries = self._schema_entries()
+        delta_plan = self._build_delta_plan()
+        token = self._delta_cache.token(list(delta_plan)) if delta_plan else None
+        dc = self._delta_cache
+        stream, ready = _side_stream(self.device), None
+        if stream is not None:
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(self.device))
+
+        def round_fn() -> Tuple[Optional[Dict[str, Any]], bool, Dict[str, Any], Dict[str, Any]]:
+            # runs on the background worker, through the backend's async twin:
+            # a process group of its own (DistBackend.for_async) and figures
+            # kept apart from the caller's syncs
+            try:
+                with _on_side_stream(stream, ready):
+                    info = round_backend.preflight_check(entries, count, delta_token=token)
+                    delta_ok = bool(delta_plan) and bool((info or {}).get("delta_ok"))
+                    new_state = self._sync_state_pure(snapshot, round_backend, delta_plan if delta_ok else None)
+            except BaseException as err:
+                err.telemetry = round_backend.pop_telemetry() or {}  # the round's figures go with the failure
+                raise
+            return info, delta_ok, new_state, round_backend.pop_telemetry() or {}
+
+        handle = submit_async_round(round_fn, label=type(self).__name__)
+        dc.inflight = {
+            "handle": handle,
+            "snapshot": snapshot,
+            "generation": dc.generation,
+            "backend": backend,
+        }
+        _obs.counter_inc("sync.async_rounds", metric=type(self).__name__)
+        return handle
+
+    def _async_catchup(self) -> None:
+        """Fold in the round in flight, waiting for it if it has not finished
+        (the one catch-up barrier).  The fold installs the gathered rows as
+        the next delta prefix and leaves the local state untouched, so a later
+        synchronous sync gives the bits of a purely synchronous history."""
+        dc = self._delta_cache
+        inflight, dc.inflight = dc.inflight, None
+        if inflight is None:
+            return
+        handle: AsyncSyncHandle = inflight["handle"]
+        backend: Backend = inflight["backend"]
+        waited = 0.0
+        if not handle.done.is_set():
+            _obs.counter_inc("sync.catchup_barriers", metric=type(self).__name__)
+            barrier_start = time.perf_counter()
+            handle.wait()
+            waited = time.perf_counter() - barrier_start
+        completed = handle.completed_at if handle.completed_at is not None else handle.submitted_at
+        overlap = max(0.0, (completed - handle.submitted_at) - waited)
+        report: Dict[str, Any] = {
+            "backend": type(backend).__name__,
+            "world_size": int(backend.world_size()),
+            "fallback": None,
+            "error": None,
+            "async": True,
+            "overlap_secs": round(overlap, 6),
+        }
+        try:
+            info, delta_ok, new_state, telemetry = handle.result()
+        except SyncError as err:
+            # the round failed: drop the prefix induction so the next sync is
+            # a full gather; correctness never rests on a round having landed
+            dc.clear()
+            report["error"] = f"{type(err).__name__}: {err}"
+            report["fallback"] = "full_gather"
+            self._finish_sync_report(report, backend, handle.submitted_at, getattr(err, "telemetry", {}))
+            return
+        except BaseException:
+            dc.clear()
+            raise
+        if inflight["generation"] != dc.generation:
+            return  # the cache was cleared while the round ran: it is stale
+        if self.device.type == "cuda":
+            # made on the worker's side stream, used from here on this one
+            stream = torch.cuda.current_stream(self.device)
+            for value in new_state.values():
+                for leaf in value if isinstance(value, list) else [value]:
+                    if isinstance(leaf, torch.Tensor) and leaf.is_cuda:
+                        leaf.record_stream(stream)
+        if info:
+            report.update(info)
+        if self.delta_sync:
+            # _advance_delta_cache reads the watermarks' row counts and the
+            # rows-unchanged references from self._cache: the submit-time
+            # snapshot is what this round gathered
+            saved_cache = self._cache
+            self._cache = inflight["snapshot"]
+            try:
+                self._advance_delta_cache(new_state, delta_ok, report)
+            finally:
+                self._cache = saved_cache
+        self._finish_sync_report(report, backend, handle.submitted_at, telemetry)
+
     # ---------------------------------------------------------------- compute
+    @_obs.spanned("metric.compute", _metric_labels)
     def _compute_wrapper(self) -> Any:
+        self._flush_host_buffers()
         if self._update_count == 0 and not self._update_called_warned:
             rank_zero_warn(
                 f"The ``compute`` method of metric {type(self).__name__} was called before the "
@@ -1511,7 +1798,7 @@ class Metric(nn.Module, ABC):
                 UserWarning,
             )
             self._update_called_warned = True
-        if self._computed is not None:
+        if self._computed is not None and self.compute_with_cache:
             return self._computed
         with self.sync_context(should_sync=self.sync_on_compute):
             self._computed = _squeeze_if_scalar(self._compute_impl())
@@ -1538,12 +1825,70 @@ class Metric(nn.Module, ABC):
             if meta["trail"] is not None:
                 # keep the grown capacity, trailing shape and dtype across resets
                 cap = max(meta["alloc_cap"], meta["capacity"], 1)
-                buf = torch.zeros((cap,) + meta["trail"], dtype=meta["dtype"], device=self.device)
+                buf = torch.zeros((cap,) + meta["trail"], dtype=meta["dtype"], device=self._buffer_device())
                 setattr(self, bname + "__buf", buf)
                 meta["owned"] = buf
 
     def clone(self) -> "Metric":
         return copy.deepcopy(self)
+
+    # ---------------------------------------------------- device and dtype
+    def to_device(self, device: Union[str, torch.device]) -> "Metric":
+        """Move every state (and the defaults a reset restores) to ``device``,
+        which becomes the metric's device; buffer-state row counts stay host
+        ints.  The delta cache is cleared (its prefixes lived on the old
+        device), so the next sync is a full gather."""
+        device = _resolve_device(device)
+
+        def move(value: Any) -> Any:
+            if isinstance(value, list):
+                return [v.to(device) for v in value]
+            return value.to(device) if isinstance(value, torch.Tensor) else value
+
+        for name in self._defaults:
+            setattr(self, name, move(getattr(self, name)))
+            self._defaults[name] = move(self._defaults[name])
+        for meta in self._buffer_states.values():
+            meta["owned"] = None
+        self.device = device
+        self._computed = None
+        self._delta_cache.clear()
+        return self
+
+    def set_dtype(self, dst_type: torch.dtype) -> "Metric":
+        """Cast the floating states to ``dst_type``; integer states and buffer
+        row counts keep theirs.  As in the JAX package without 64-bit types,
+        ``float64`` narrows to ``float32``.  The delta cache is cleared (its
+        prefixes keep the old dtype).  A reset restores the defaults' dtypes."""
+        dst_type = _x32_dtype(dst_type)
+        self._delta_cache.clear()
+
+        def cast(v: Any) -> Any:
+            if isinstance(v, torch.Tensor) and v.is_floating_point():
+                return v.to(dst_type)
+            return v
+
+        for name in self._defaults:
+            value = getattr(self, name)
+            setattr(self, name, [cast(v) for v in value] if isinstance(value, list) else cast(value))
+        for bname, meta in self._buffer_states.items():
+            self._refresh_buffer_meta(bname)
+            meta["owned"] = getattr(self, bname + "__buf")  # the cast made a copy this metric owns
+        self._computed = None
+        return self
+
+    def float(self) -> "Metric":  # type: ignore[override]
+        return self.set_dtype(torch.float32)
+
+    def double(self) -> "Metric":  # type: ignore[override]
+        """``set_dtype(torch.float64)``: float32 states, as in the JAX package
+        without 64-bit types."""
+        return self.set_dtype(torch.float64)
+
+    def half(self) -> "Metric":  # type: ignore[override]
+        """``bfloat16`` states, as the JAX package defines ``half`` (not
+        ``nn.Module.half``'s float16)."""
+        return self.set_dtype(torch.bfloat16)
 
     # ------------------------------------------------------------ persistence
     def persistent(self, mode: bool = False) -> None:
@@ -1672,3 +2017,248 @@ class Metric(nn.Module, ABC):
         if any(p.kind == p.VAR_KEYWORD for p in params.values()):
             return kwargs
         return {k: v for k, v in kwargs.items() if k in params}
+
+    def __hash__(self) -> int:
+        """The JAX package's hash (the class name and the identities of the
+        state values, so it changes as an update rebinds them) with the
+        instance's own identity added: ``==`` builds a composition here, so a
+        set of modules (``named_modules``, ``.to()``) must never see two
+        members of one compute group, which share their state tensors, as
+        equal hashes."""
+        hash_vals: List[Any] = [type(self).__name__, id(self)]
+        for name in self._defaults:
+            value = getattr(self, name)
+            hash_vals.append(name)
+            if isinstance(value, list):
+                hash_vals.extend(id(v) for v in value)
+            else:
+                hash_vals.append(id(value))
+        return hash(tuple(hash_vals))
+
+    def __repr__(self) -> str:
+        return f"{type(self).__name__}()"
+
+    # ----------------------------------------------------- operator algebra
+    def __add__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.add, self, other)
+
+    def __radd__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.add, other, self)
+
+    def __sub__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.subtract, self, other)
+
+    def __rsub__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.subtract, other, self)
+
+    def __mul__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.multiply, self, other)
+
+    def __rmul__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.multiply, other, self)
+
+    def __truediv__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.divide, self, other)
+
+    def __rtruediv__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.divide, other, self)
+
+    def __floordiv__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(_floor_divide, self, other)
+
+    def __rfloordiv__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(_floor_divide, other, self)
+
+    def __mod__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.remainder, self, other)
+
+    def __rmod__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.remainder, other, self)
+
+    def __pow__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.pow, self, other)
+
+    def __rpow__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.pow, other, self)
+
+    def __matmul__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.matmul, self, other)
+
+    def __rmatmul__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.matmul, other, self)
+
+    def __and__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.bitwise_and, self, other)
+
+    def __rand__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.bitwise_and, other, self)
+
+    def __or__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.bitwise_or, self, other)
+
+    def __ror__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.bitwise_or, other, self)
+
+    def __xor__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.bitwise_xor, self, other)
+
+    def __rxor__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.bitwise_xor, other, self)
+
+    def __eq__(self, other: Any) -> "CompositionalMetric":  # type: ignore[override]
+        return CompositionalMetric(torch.eq, self, other)
+
+    def __ne__(self, other: Any) -> "CompositionalMetric":  # type: ignore[override]
+        return CompositionalMetric(torch.ne, self, other)
+
+    def __lt__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.lt, self, other)
+
+    def __le__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.le, self, other)
+
+    def __gt__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.gt, self, other)
+
+    def __ge__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.ge, self, other)
+
+    def __abs__(self) -> "CompositionalMetric":
+        return CompositionalMetric(torch.abs, self, None)
+
+    # the JAX package's quirks, kept: unary minus is -abs, unary plus is abs
+    def __neg__(self) -> "CompositionalMetric":
+        return CompositionalMetric(_neg, self, None)
+
+    def __pos__(self) -> "CompositionalMetric":
+        return CompositionalMetric(torch.abs, self, None)
+
+    def __invert__(self) -> "CompositionalMetric":
+        return CompositionalMetric(torch.logical_not, self, None)
+
+    def __getitem__(self, idx: Any) -> "CompositionalMetric":
+        return CompositionalMetric(lambda x: x[idx], self, None)
+
+
+def _neg(x: torch.Tensor) -> torch.Tensor:
+    return -torch.abs(x)
+
+
+def _floor_divide(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``jnp.floor_divide``.  On floats it is the JAX package's divmod:
+    ``(x - fmod(x, y)) / y``, one less where the remainder's sign is not
+    ``y``'s, rounded half away from zero; a zero quotient keeps the sign of
+    that division, where ``torch.floor_divide`` gives it the sign of ``x / y``."""
+    x, y = torch.as_tensor(x), torch.as_tensor(y)
+    if not (x.is_floating_point() or y.is_floating_point()):
+        return torch.floor_divide(x, y)
+    mod = torch.fmod(x, y)
+    div = (x - mod) / y
+    div = torch.where((mod != 0) & (torch.sign(y) != torch.sign(mod)), div - 1, div)
+    whole = torch.trunc(div)
+    return torch.where(torch.abs(div - whole) >= 0.5, whole + torch.sign(div), whole)
+
+
+class CompositionalMetric(Metric):
+    """A lazy operator over its operands' computed values (counterpart of the
+    JAX package's ``CompositionalMetric``).
+
+    ``update`` and ``forward`` go to the operands that are metrics, ``compute``
+    applies ``operator`` to their computed values.  A Python number operand
+    becomes a tensor on the metric operands' device (int32 or float32, as the
+    JAX package's ``jnp.asarray``).  The operands are submodules, so
+    ``named_modules()`` and ``.to()`` reach them; its ``state_dict`` holds no
+    state of theirs, as the JAX package's does not (the composition has no
+    state of its own, and each operand keeps its own).
+    """
+
+    def __init__(
+        self,
+        operator: Callable,
+        metric_a: Union[Metric, float, int, torch.Tensor, None],
+        metric_b: Union[Metric, float, int, torch.Tensor, None],
+    ) -> None:
+        operands = [m for m in (metric_a, metric_b) if isinstance(m, Metric)]
+        super().__init__(device=operands[0].device if operands else "cuda")
+        self.op = operator
+        self.metric_a = self._operand(metric_a)
+        self.metric_b = self._operand(metric_b)
+
+    def _operand(self, value: Any) -> Any:
+        if isinstance(value, (numbers.Number, np.ndarray)) and not isinstance(value, Metric):
+            return _to_state_tensor(value, self.device)
+        return value
+
+    def _sync_state_pure(self, state: Dict[str, Any], backend: Backend, delta_plan: Optional[Dict[str, tuple]] = None) -> Dict[str, Any]:
+        return state  # the operands sync their own states
+
+    def update(self, *args: Any, **kwargs: Any) -> None:
+        if isinstance(self.metric_a, Metric):
+            self.metric_a._update_wrapper(*args, **self.metric_a._filter_kwargs(**kwargs))
+        if isinstance(self.metric_b, Metric):
+            self.metric_b._update_wrapper(*args, **self.metric_b._filter_kwargs(**kwargs))
+
+    def _update_wrapper(self, *args: Any, **kwargs: Any) -> None:
+        self._computed = None
+        self._update_count += 1
+        self._update_impl(*args, **kwargs)
+
+    def compute(self) -> Any:
+        val_a = self.metric_a._compute_wrapper() if isinstance(self.metric_a, Metric) else self.metric_a
+        val_b = self.metric_b._compute_wrapper() if isinstance(self.metric_b, Metric) else self.metric_b
+        if val_b is None:
+            return self.op(val_a)
+        return self.op(val_a, val_b)
+
+    def _compute_wrapper(self) -> Any:
+        return self._compute_impl()
+
+    def forward(self, *args: Any, **kwargs: Any) -> Any:
+        val_a = (
+            self.metric_a(*args, **self.metric_a._filter_kwargs(**kwargs))
+            if isinstance(self.metric_a, Metric)
+            else self.metric_a
+        )
+        val_b = (
+            self.metric_b(*args, **self.metric_b._filter_kwargs(**kwargs))
+            if isinstance(self.metric_b, Metric)
+            else self.metric_b
+        )
+        if val_a is None:
+            return None
+        if val_b is None:
+            if self.metric_b is None:
+                return self.op(val_a)
+            return None
+        return self.op(val_a, val_b)
+
+    def reset(self) -> None:
+        if isinstance(self.metric_a, Metric):
+            self.metric_a.reset()
+        if isinstance(self.metric_b, Metric):
+            self.metric_b.reset()
+        self._update_count = 0
+        self._computed = None
+
+    def persistent(self, mode: bool = False) -> None:
+        if isinstance(self.metric_a, Metric):
+            self.metric_a.persistent(mode=mode)
+        if isinstance(self.metric_b, Metric):
+            self.metric_b.persistent(mode=mode)
+
+    def state_dict(self, *args: Any, destination: Optional[Dict[str, Any]] = None, prefix: str = "", keep_vars: bool = False) -> Dict[str, Any]:  # type: ignore[override]
+        """No state of the operands (see the class docstring)."""
+        out: Dict[str, Any] = OrderedDict() if destination is None else destination
+        self._save_to_state_dict(out, prefix, keep_vars)
+        return out
+
+    def load_state_dict(self, state_dict: Dict[str, Any], strict: bool = True, assign: bool = False) -> Any:  # type: ignore[override]
+        """Takes what :meth:`state_dict` gives: nothing of the operands."""
+        unexpected = sorted(state_dict)
+        if strict and unexpected:
+            raise RuntimeError(f"Unexpected key(s) in state_dict of {type(self).__name__}: {unexpected}")
+        return _IncompatibleKeys([], unexpected)
+
+    def __repr__(self) -> str:
+        _op_metrics = f"(\n  {getattr(self.op, '__name__', 'op')}(\n    {self.metric_a!r},\n    {self.metric_b!r}\n  )\n)"
+        return self.__class__.__name__ + _op_metrics

@@ -44,6 +44,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from metrics_tpu_torch.metric import Metric, _flatten_batched_inputs
+from metrics_tpu_torch.obs import core as _obs
 from metrics_tpu_torch.utils.data import _total_order_keys
 from metrics_tpu_torch.utils.exceptions import MetricsTPUUserError
 
@@ -196,6 +197,8 @@ class MultiStreamMetric(Metric):
         self.num_streams = int(num_streams)
         if self.num_streams < 1:
             raise ValueError(f"num_streams must be >= 1, got {num_streams}")
+        # streams already counted under multistream.streams_active (read at a query)
+        self._active_reported = 0
         self.max_rows_per_stream = None if max_rows_per_stream is None else int(max_rows_per_stream)
         if self.max_rows_per_stream is not None and self.max_rows_per_stream < 1:
             raise ValueError(f"max_rows_per_stream must be >= 1, got {max_rows_per_stream}")
@@ -288,6 +291,7 @@ class MultiStreamMetric(Metric):
         self._check_update_inputs(stream_ids, args, kwargs)
         # input-case locking and value checks run on the base, once, on the whole batch
         self._base._pre_update(*args, **kwargs)
+        _obs.counter_inc("multistream.scatter_updates", metric=type(self._base).__name__)
 
     def _check_num_valid(self, num_valid: Any) -> Optional[torch.Tensor]:
         """Validation of the ``num_valid`` row count (shape and dtype only)."""
@@ -420,11 +424,27 @@ class MultiStreamMetric(Metric):
         with self.sync_context(should_sync=True):
             return fn(None)
 
+    def _report_active(self) -> None:
+        """Count the streams that got their first row since the last query
+        under ``multistream.streams_active`` (one device read, at a query)."""
+        active = int(torch.count_nonzero(getattr(self, self._ROWS_STATE)))
+        if active > self._active_reported:
+            _obs.counter_inc(
+                "multistream.streams_active", active - self._active_reported, metric=type(self._base).__name__
+            )
+            self._active_reported = active
+
     def compute_streams(self, stream_ids: Any) -> Any:
         """Base values for just the given streams: gathers ``len(stream_ids)`` state rows on
         the device and computes only those, O(k) not O(S)."""
         ids = torch.as_tensor(stream_ids, device=self.device).reshape(-1).to(torch.int64)
-        return self._with_query_state(lambda state: self._stacked_compute(self._lane_state(state, ids)))
+
+        def query(state: Any) -> Any:
+            values = self._stacked_compute(self._lane_state(state, ids))
+            self._report_active()
+            return values
+
+        return self._with_query_state(query)
 
     def _stream_scores(self, key: Any) -> torch.Tensor:
         values = self._stacked_compute(self._lane_state())
@@ -456,9 +476,11 @@ class MultiStreamMetric(Metric):
         k = int(k)
         if not 1 <= k <= self.num_streams:
             raise ValueError(f"k must be in [1, {self.num_streams}], got {k}")
+        _obs.counter_inc("multistream.topk_queries", metric=type(self._base).__name__)
 
         def query(_: Any) -> Tuple[torch.Tensor, torch.Tensor]:
             values = self._stream_scores(key)
+            self._report_active()
             fill = float("-inf") if largest else float("inf")
             score = torch.where(torch.isnan(values), torch.full_like(values, fill), values).to(torch.float32)
             if not largest:
@@ -484,8 +506,10 @@ class MultiStreamMetric(Metric):
         k = int(k)
         if not 1 <= k <= self.num_streams:
             raise ValueError(f"k must be in [1, {self.num_streams}], got {k}")
+        _obs.counter_inc("multistream.topk_queries", metric=type(self._base).__name__)
 
         def query(_: Any) -> Tuple[torch.Tensor, torch.Tensor]:
+            self._report_active()
             values = self._stream_scores(key)
             mask = torch.as_tensor(pred(values)).to(torch.bool)
             if mask.shape != values.shape:
@@ -593,6 +617,16 @@ class MultiStreamMetric(Metric):
     def reset(self) -> None:
         super().reset()
         self._base.reset()
+        self._active_reported = 0
+
+    def _finish_sync_report(
+        self, report: Dict[str, Any], backend: Any, start: float, telemetry: Optional[Dict[str, Any]] = None
+    ) -> None:
+        super()._finish_sync_report(report, backend, start, telemetry)
+        gathered = int(report.get("bytes_gathered") or 0)
+        if gathered:
+            # attribute the stacked states' sync traffic to the multistream layer
+            _obs.counter_inc("multistream.sync_bytes", gathered, metric=type(self._base).__name__)
 
     def __repr__(self) -> str:
         return f"{type(self).__name__}(base={type(self._base).__name__}, num_streams={self.num_streams})"

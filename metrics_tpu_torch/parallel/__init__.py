@@ -1,6 +1,7 @@
 """Cross-process metric sync on ``torch.distributed`` (counterpart of ``metrics_tpu/parallel``)."""
 
 from metrics_tpu_torch.parallel.backend import (
+    AsyncSyncHandle,
     Backend,
     DistBackend,
     LoopbackBackend,
@@ -11,10 +12,12 @@ from metrics_tpu_torch.parallel.backend import (
     guarded_collective,
     reduce_synced_state,
     schema_digest_rows,
+    submit_async_round,
 )
 from metrics_tpu_torch.parallel.faults import ChaosBackend, ChaosInjectedError, ChaosInjectedSyncError
 
 __all__ = [
+    "AsyncSyncHandle",
     "Backend",
     "ChaosBackend",
     "ChaosInjectedError",
@@ -28,4 +31,5 @@ __all__ = [
     "guarded_collective",
     "reduce_synced_state",
     "schema_digest_rows",
+    "submit_async_round",
 ]

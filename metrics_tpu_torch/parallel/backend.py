@@ -9,6 +9,14 @@
 * :class:`LoopbackBackend` — a world of one with the same accounting.
 * :class:`NullBackend` — single process: sync is the identity.
 
+Async rounds (:meth:`Metric.sync_async`) run on one background thread per
+process (:func:`submit_async_round`).  ``torch.distributed`` pairs
+collectives by their order on a process group, so the worker's collectives
+go over a process group of their own: the round runs through the backend
+that :meth:`DistBackend.for_async` returns, bound to that group and created
+on the main thread before the first round, so a round in flight never pairs
+with a main-thread gather.
+
 ``get_backend()`` picks :class:`DistBackend` when a process group of more than
 one rank is initialised, else :class:`NullBackend`.  ``dist_reduce_fx`` names
 map onto gathers that are reduced in rank order on every rank
@@ -26,6 +34,7 @@ the process group to sync again.
 import dataclasses
 import hashlib
 import os
+import queue
 import threading
 import time
 from contextlib import contextmanager
@@ -35,6 +44,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from metrics_tpu_torch.obs import core as _obs
 from metrics_tpu_torch.utils.exceptions import SyncDesyncError, SyncError, SyncTimeoutError
 
 
@@ -228,6 +238,87 @@ def reduce_stack(stacked: torch.Tensor, reduce_fx: Union[str, Callable]) -> torc
     return out
 
 
+#: the process group the async worker's collectives run over, per sync group:
+#: ``{group: async group}``, keyed as :data:`_BROKEN_GROUPS` is
+_ASYNC_GROUPS: Dict[Any, Any] = {}
+
+
+class AsyncSyncHandle:
+    """Future for one background sync round submitted via :func:`submit_async_round`.
+
+    ``wait`` parks the caller until the worker finishes (the catch-up
+    barrier); ``result`` re-raises whatever the round raised on the worker.
+    Timestamps (``submitted_at`` / ``completed_at``, ``time.perf_counter``
+    domain) let the caller attribute how much of the round's wall time was
+    hidden behind other work (``sync.overlap_secs``).
+    """
+
+    __slots__ = ("label", "done", "value", "error", "submitted_at", "completed_at")
+
+    def __init__(self, label: str) -> None:
+        self.label = label
+        self.done = threading.Event()
+        self.value: Any = None
+        self.error: Optional[BaseException] = None
+        self.submitted_at = time.perf_counter()
+        self.completed_at: Optional[float] = None
+
+    def wait(self, timeout: Optional[float] = None) -> bool:
+        return self.done.wait(timeout)
+
+    def result(self) -> Any:
+        self.done.wait()
+        if self.error is not None:
+            raise self.error
+        return self.value
+
+
+class _AsyncSyncWorker:
+    """The dedicated background sync thread (one per process).
+
+    A single FIFO daemon thread drains whole sync rounds (preflight, packed
+    gather, reassembly) off the caller's thread.  One worker, not one per
+    metric, is a correctness requirement: rounds are submitted in SPMD
+    program order on every rank, and a single FIFO consumer keeps that order,
+    so the worker's collectives pair up across ranks on their process group.
+    While idle the worker parks in an untimed ``queue.get`` holding no lock.
+    """
+
+    def __init__(self) -> None:
+        self._q: "queue.Queue" = queue.Queue()
+        self._thread: Optional[threading.Thread] = None
+        # guards lazy thread (re)start only; never held around queue ops
+        self._start_lock = threading.Lock()
+
+    def submit(self, fn: Callable[[], Any], label: str) -> AsyncSyncHandle:
+        handle = AsyncSyncHandle(label)
+        with self._start_lock:
+            if self._thread is None or not self._thread.is_alive():
+                self._thread = threading.Thread(target=self._run, daemon=True, name="mtpu-async-sync")
+                self._thread.start()
+        self._q.put_nowait((fn, handle))
+        return handle
+
+    def _run(self) -> None:
+        while True:
+            fn, handle = self._q.get()
+            try:
+                handle.value = fn()
+            except BaseException as err:  # noqa: BLE001 — crosses the thread
+                handle.error = err
+            handle.completed_at = time.perf_counter()
+            handle.done.set()
+
+
+_ASYNC_WORKER = _AsyncSyncWorker()
+
+
+def submit_async_round(fn: Callable[[], Any], label: str = "sync") -> AsyncSyncHandle:
+    """Run ``fn`` (one whole sync round) on the process-wide background sync
+    worker and return immediately with its :class:`AsyncSyncHandle`."""
+    return _ASYNC_WORKER.submit(fn, label)
+
+
 class Backend:
     """Protocol for metric-state synchronization."""
 
@@ -240,6 +331,10 @@ class Backend:
     #: byte-blob exchange (:meth:`all_gather_bytes`) instead of two
     #: collectives per state
     supports_packed: bool = False
+
+    #: backends whose collectives may run on the background sync worker
+    #: (:meth:`Metric.sync_async`) while the caller's thread goes on
+    supports_async: bool = False
 
     #: label set by the caller (the metric's per-state sync loop) so timeout
     #: diagnostics and telemetry can name the state being gathered
@@ -276,6 +371,14 @@ class Backend:
     def all_gather_bytes(self, payload: bytes) -> list:
         """Gather one opaque byte blob per rank (packed sync transport)."""
         raise NotImplementedError
+
+    def for_async(self) -> "Backend":
+        """The backend a background round (:meth:`Metric.sync_async`) runs its
+        collectives through, made on the calling thread before the round is
+        submitted.  It keeps its own telemetry and its own ``annotate`` label,
+        so the round never mixes with a sync on the caller's thread.  A
+        backend that keeps no per-call state may return itself."""
+        return self
 
     def pop_telemetry(self) -> Optional[Dict[str, Any]]:
         """Return and reset collective-level telemetry, if the backend keeps any."""
@@ -361,11 +464,12 @@ class DistBackend(Backend):
 
     supports_delta = True
     supports_packed = True
+    supports_async = True
 
     def __init__(self, group: Optional[Any] = None, options: Optional[SyncOptions] = None):
         self.group = group
         self.options = options if options is not None else SyncOptions.from_env()
-        self._telemetry: Dict[str, Any] = {}
+        self._telemetry = {}
 
     def pop_telemetry(self) -> Optional[Dict[str, Any]]:
         out, self._telemetry = self._telemetry, {}
@@ -382,6 +486,18 @@ class DistBackend(Backend):
 
     def _group_key(self) -> Any:
         return self.group if self.group is not None else dist.group.WORLD
+
+    def for_async(self) -> "DistBackend":
+        """A backend over the process group the background worker's
+        collectives run on, made once per sync group.  ``dist.new_group`` is
+        itself a collective over the default group: every rank reaches it
+        from its main thread in the same order, at its first
+        :meth:`Metric.sync_async`."""
+        key = self._group_key()
+        if key not in _ASYNC_GROUPS:
+            ranks = dist.get_process_group_ranks(key)
+            _ASYNC_GROUPS[key] = dist.new_group(ranks=ranks, backend=dist.get_backend(self.group))
+        return DistBackend(_ASYNC_GROUPS[key], self.options)
 
     def _wire_device(self) -> torch.device:
         if dist.get_backend(self.group) == "nccl":
@@ -412,7 +528,8 @@ class DistBackend(Backend):
             )
         self._telemetry["attempts"] = self._telemetry.get("attempts", 0) + 1
         try:
-            out = _call_with_deadline(lambda: self._allgather(x), self.options.timeout, label)
+            with _obs.span("sync.collective", backend=type(self).__name__, state=label):
+                out = _call_with_deadline(lambda: self._allgather(x), self.options.timeout, label)
         except _WatchdogTimeout:
             _BROKEN_GROUPS[key] = f"collective {label!r} timed out"
             raise SyncTimeoutError(
@@ -549,14 +666,18 @@ class LoopbackBackend(Backend):
 
     supports_delta = True
     supports_packed = True
+    supports_async = True
 
     def __init__(self, options: Optional[SyncOptions] = None):
         self.options = options if options is not None else SyncOptions.from_env()
-        self._telemetry: Dict[str, Any] = {}
+        self._telemetry = {}
 
     def pop_telemetry(self) -> Optional[Dict[str, Any]]:
         out, self._telemetry = self._telemetry, {}
         return out
+
+    def for_async(self) -> "LoopbackBackend":
+        return LoopbackBackend(self.options)
 
     def is_distributed(self) -> bool:
         return True

@@ -27,6 +27,7 @@ Usage::
     metric = Accuracy(..., sync_backend=chaos, sync_timeout=0.2, sync_max_retries=1)
 """
 
+import copy
 import threading
 import time
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Union
@@ -34,6 +35,7 @@ from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from metrics_tpu_torch.obs import core as _obs
 from metrics_tpu_torch.parallel.backend import (
     Backend,
     SyncOptions,
@@ -138,29 +140,33 @@ class ChaosBackend(Backend):
         self.options = options if options is not None else SyncOptions.from_env()
         self.op_index = 0
         self.injected: list = []  # (op_index, kind) log for assertions
-        self._telemetry: Dict[str, Any] = {}
+        self._telemetry = {}
         self._drop_event = threading.Event()  # never set: a drop parks here
+        self._fault_lock = threading.Lock()
 
     # ------------------------------------------------------------- scheduling
     def _next_fault(self) -> Tuple[int, Optional[str], Any]:
-        idx = self.op_index
-        self.op_index += 1
-        fault = self.schedule.pop(idx, None)
-        if fault is None and self.fault_probs:
-            draw = self._rng.random()
-            edge = 0.0
-            for kind, prob in self.fault_probs.items():
-                edge += prob
-                if draw < edge:
-                    fault = kind
-                    break
-        if fault is None:
-            if self.stall_secs > 0:
-                fault = ("stall", self.stall_secs)
-            else:
-                return idx, None, None
-        kind, arg = fault if isinstance(fault, tuple) else (fault, None)
-        self.injected.append((idx, kind))
+        # the caller's thread and the async worker (through the twin) draw from one sequence
+        with self._fault_lock:
+            idx = self.op_index
+            self.op_index += 1
+            fault = self.schedule.pop(idx, None)
+            if fault is None and self.fault_probs:
+                draw = self._rng.random()
+                edge = 0.0
+                for kind, prob in self.fault_probs.items():
+                    edge += prob
+                    if draw < edge:
+                        fault = kind
+                        break
+            if fault is None:
+                if self.stall_secs > 0:
+                    fault = ("stall", self.stall_secs)
+                else:
+                    return idx, None, None
+            kind, arg = fault if isinstance(fault, tuple) else (fault, None)
+            self.injected.append((idx, kind))
+        _obs.counter_inc("chaos.faults", kind=kind)
         return idx, kind, arg
 
     def _run(self, op: str, fn: Callable[[], Any]) -> Any:
@@ -208,6 +214,24 @@ class ChaosBackend(Backend):
         # delta slicing changes payload sizes but not the number or order of
         # collectives, so delegating keeps fault schedules stable
         return getattr(self.inner, "supports_delta", False)
+
+    @property
+    def supports_async(self) -> bool:  # type: ignore[override]
+        # chaos injection is thread-agnostic (sleeps and raises work the same
+        # on the background sync worker), so async eligibility is the inner
+        # backend's call
+        return getattr(self.inner, "supports_async", False)
+
+    def for_async(self) -> "ChaosBackend":
+        # the inner backend's twin and telemetry of its own; the fault
+        # schedule stays one sequence across the caller's and the worker's
+        # collectives, as on the JAX package's single instance
+        twin = copy.copy(self)
+        twin.inner = self.inner.for_async()
+        twin._telemetry = {}
+        twin._label = None
+        twin._next_fault = self._next_fault
+        return twin
 
     def is_distributed(self) -> bool:
         return self.inner.is_distributed() or (self._world or 1) > 1

@@ -7,9 +7,10 @@ and a sync rides the ``"sketch"`` reduce: every rank gathers its peers'
 sketches and folds them with :func:`~metrics_tpu_torch.streaming.kll_merge`,
 so the synced estimate is as good as one sketch over the union of the shards.
 
-The JAX package's ``SketchMetric`` also reports the sketch's compaction count
-to its observability counters; the port has no such counters yet, and keeps
-the count in the sketch's ``nc`` leaf.
+A ``SketchMetric`` reports the compactions its sketch ran (the growth of
+the sketch's ``nc`` leaf) under the ``streaming.sketch_compactions``
+counter: one read of ``nc`` per update-count change, at a state read
+(``compute``, ``forward``, ``sync``, ``state``) and never in an update.
 """
 
 from typing import Any, Dict
@@ -18,6 +19,7 @@ import numpy as np
 import torch
 
 from metrics_tpu_torch.metric import Metric
+from metrics_tpu_torch.obs import core as _obs
 from metrics_tpu_torch.streaming._threefry import fma32
 from metrics_tpu_torch.streaming.sketches import (
     DEFAULT_CAPACITY,
@@ -60,6 +62,9 @@ class SketchMetric(Metric):
         self.add_sketch_state(
             "sketch", kll_init(capacity=capacity, seed=seed, max_items=max_items, device=self.device), kll_merge
         )
+        # the compaction count last reported, and the update count it was read at
+        self._nc_seen = 0
+        self._nc_count_mark = -1
 
     def update(self, values) -> None:
         self._store_sketch_tree("sketch", kll_update(self.sketch_tree("sketch"), values))
@@ -72,6 +77,28 @@ class SketchMetric(Metric):
     def rank_error_bound(self) -> float:
         """Worst-case normalized rank error of the current estimates."""
         return kll_rank_error_bound(max(self.n_items, 1), self.capacity)
+
+    def reset(self) -> None:
+        super().reset()
+        # re-arm the baseline: after a reset the update count climbs back
+        # through old values, so a stale mark would gate off every read
+        self._nc_seen = 0
+        self._nc_count_mark = -1
+
+    def _flush_host_buffers(self) -> None:
+        super()._flush_host_buffers()
+        self._report_sketch_compactions()
+
+    def _report_sketch_compactions(self) -> None:
+        # one device read per update-count change, not per state read
+        if self._update_count == self._nc_count_mark:
+            return
+        self._nc_count_mark = self._update_count
+        cur = int(self.sketch__sk_nc)
+        if cur > self._nc_seen:
+            _obs.counter_inc("streaming.sketch_compactions", cur - self._nc_seen, metric=type(self).__name__)
+        # cur < seen means a reset or an unsync restored an older state
+        self._nc_seen = cur
 
 
 class StreamingQuantile(SketchMetric):

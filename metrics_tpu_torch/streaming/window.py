@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from metrics_tpu_torch.metric import Metric
+from metrics_tpu_torch.obs import core as _obs
 from metrics_tpu_torch.utils.exceptions import MetricsTPUUserError
 
 __all__ = ["WindowedMetric", "TimeDecayedMetric"]
@@ -168,6 +169,8 @@ class WindowedMetric(Metric):
         w = self.window_size
         new_ptr = (int(self.w__ptr) + 1) % w
         evicted = int(self.w__count[new_ptr])
+        if evicted > 0:
+            _obs.counter_inc("streaming.window_evictions", metric=type(self._base).__name__)
         for k in self._base_keys:
             ring = getattr(self, "wb_" + k).clone()
             _as_int32(ring)[new_ptr] = _as_int32(self._base._defaults[k])

@@ -2,21 +2,17 @@
 and ``metrics_tpu/obs/logging.py::warn_once``).
 
 The process index comes from ``torch.distributed`` when a process group is
-initialised, else it is 0.
+initialised, else it is 0.  ``warn_once`` lives in :mod:`metrics_tpu_torch.obs.logging`
+(it counts what it suppresses) and is re-exported here for its callers.
 """
 
-import threading
 import warnings
 from functools import wraps
-from typing import Any, Callable, Optional, Set, Tuple, Type
+from typing import Any, Callable
 
-import torch.distributed as dist
+from metrics_tpu_torch.obs.logging import _process_index, warn_once
 
-
-def _process_index() -> int:
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank()
-    return 0
+__all__ = ["_process_index", "rank_zero_only", "rank_zero_warn", "warn_once"]
 
 
 def rank_zero_only(fn: Callable) -> Callable:
@@ -32,28 +28,3 @@ def rank_zero_only(fn: Callable) -> Callable:
 @rank_zero_only
 def rank_zero_warn(message: str, *args: Any, stacklevel: int = 4, **kwargs: Any) -> None:
     warnings.warn(message, *args, stacklevel=stacklevel, **kwargs)
-
-
-_warned: Set[Tuple[str, ...]] = set()
-_lock = threading.Lock()
-
-
-def warn_once(
-    message: str,
-    category: Type[Warning] = UserWarning,
-    key: Optional[str] = None,
-    stacklevel: int = 3,
-    **kwargs: Any,
-) -> bool:
-    """Warn on rank 0, once per process per ``key`` (default: the message).
-
-    Returns True if the warning was newly registered this call.
-    """
-    dedup: Tuple[str, ...] = (category.__name__, key if key is not None else message)
-    with _lock:
-        if dedup in _warned:
-            return False
-        _warned.add(dedup)
-    if _process_index() == 0:
-        warnings.warn(message, category, stacklevel=stacklevel, **kwargs)
-    return True

@@ -874,3 +874,85 @@ def test_multistream_histogram_on_cuda_equals_the_cpu(cuda):
         # the empty stream's edges are inf - inf: NaN on both, with the card's own NaN bits (0x7fffffff)
         assert (np.isnan(got) == np.isnan(want)).all() and np.isnan(got).sum() == (k == "edges") * 21, k
         assert got[~np.isnan(got)].tobytes() == want[~np.isnan(want)].tobytes(), k
+
+
+# ------------------------------------------------- the rest of the core
+@pytest.mark.cuda
+def test_async_sync_on_cuda_states_equals_the_synchronous_twin(cuda):
+    """A round's snapshot is read on the worker's side stream after the
+    caller's kernels, and its results are used on the caller's stream."""
+    import time
+
+    import metrics_tpu_torch.parallel as tp
+
+    chaos = tp.ChaosBackend(tp.LoopbackBackend(), packed=True, stall_secs=0.05)
+    m = mt.CatMetric(sync_backend=chaos, device=cuda)
+    q = mt.StreamingQuantile(q=0.5, capacity=8, max_items=1 << 9, sync_backend=tp.LoopbackBackend(), device=cuda)
+    twin = mt.CatMetric(sync_backend=tp.LoopbackBackend(), device=cuda)
+    q_twin = mt.StreamingQuantile(q=0.5, capacity=8, max_items=1 << 9, sync_backend=tp.LoopbackBackend(), device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    for step in range(4):
+        rows = torch.rand(4096, generator=gen, device=cuda) * (step + 1)
+        m.update(rows)
+        q.update(rows)
+        twin.update(rows)
+        q_twin.update(rows)
+        start = time.perf_counter()
+        handles = m.sync_async(), q.sync_async()
+        submit_secs = time.perf_counter() - start
+        assert submit_secs < 0.1, f"step {step}: two submits took {submit_secs} s"
+        assert None not in handles
+        twin.compute()
+        twin._computed = None
+        for handle in handles:  # a submit folds the previous round, waiting for it if it still runs
+            handle.wait()
+    value, twin_value = m.compute(), twin.compute()
+    assert value.device.type == "cuda" and torch.equal(value, twin_value), (value.shape, twin_value.shape)
+    estimate, twin_estimate = q.compute(), q_twin.compute()
+    assert torch.equal(estimate, twin_estimate), (estimate, twin_estimate)
+
+
+@pytest.mark.cuda
+def test_bf16_states_on_cuda_equal_the_cpu(cuda):
+    rng = np.random.default_rng(1)
+    preds, target = rng.random((4, 4096), dtype=np.float32), rng.random((4, 4096), dtype=np.float32)
+    out = {}
+    for device in ("cpu", cuda):
+        m = mt.MeanSquaredError(device=device)
+        for p, t in zip(preds, target):
+            m.update(torch.from_numpy(p).to(device), torch.from_numpy(t).to(device))
+        m.half()
+        assert m.sum_squared_error.dtype == torch.bfloat16 and m.total.dtype == torch.int32
+        out[str(device)] = (m.sum_squared_error.cpu(), m.compute().cpu())
+    cpu, card = out["cpu"], out[str(cuda)]
+    assert card[1].dtype == torch.bfloat16
+    # float32 sums of another order, then one rounding to bf16: within one bf16 ulp
+    for a, b in zip(card, cpu):
+        torch.testing.assert_close(a.float(), b.float(), rtol=2.0**-8, atol=0)
+
+
+@pytest.mark.cuda
+def test_composition_on_cuda_equals_the_cpu(cuda):
+    rng = np.random.default_rng(2)
+    batches = [(rng.random((512, 10), dtype=np.float32), rng.integers(0, 10, 512)) for _ in range(3)]
+    out = {}
+    for device in ("cpu", cuda):
+        comps = [
+            (mt.F1Score(num_classes=10, average="macro", device=device) + mt.Accuracy(num_classes=10, device=device)) / 2,
+            -mt.Precision(num_classes=10, average="macro", device=device),
+            mt.Accuracy(num_classes=10, average=None, device=device)[7],
+        ]
+        steps = []
+        for p, t in batches:
+            steps.append([c(torch.from_numpy(p).to(device), torch.from_numpy(t).to(device)).cpu() for c in comps])
+        steps.append([c.compute().cpu() for c in comps])
+        out[str(device)] = steps
+    # acc(None)[7] is a ratio of integer counts: bitwise (a NaN where a batch has no class 7, by position);
+    # the macro means sum ten class scores in an order the device picks: within C x 2^-24 relative
+    for a_step, b_step in zip(out[str(cuda)], out["cpu"]):
+        for i, (a, b) in enumerate(zip(a_step, b_step)):
+            assert a.dtype == b.dtype and bool(torch.isnan(a)) == bool(torch.isnan(b))
+            if i == 2:
+                assert torch.isnan(a) or torch.equal(a, b)
+            else:
+                torch.testing.assert_close(a, b, rtol=10 * 2.0**-24, atol=0)

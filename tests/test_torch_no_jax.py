@@ -25,6 +25,10 @@ def test_the_walk_covers_the_sync_modules_and_the_aggregators():
         "metrics_tpu_torch/parallel/__init__.py",
         "metrics_tpu_torch/parallel/backend.py",
         "metrics_tpu_torch/parallel/faults.py",
+        "metrics_tpu_torch/obs/__init__.py",
+        "metrics_tpu_torch/obs/core.py",
+        "metrics_tpu_torch/obs/exporters.py",
+        "metrics_tpu_torch/obs/logging.py",
     } <= walked
 
 

@@ -155,9 +155,9 @@ def test_cosine_similarity_matches_jax(reduction):
 
 def test_degenerate_adjusted_r2_warns_like_jax(recwarn):
     preds, target = _pair((4,), 14, True)
-    from metrics_tpu_torch.utils import prints
+    from metrics_tpu_torch.obs import logging as obs_logging
 
-    prints._warned.discard(("UserWarning", "r2.adjusted_degenerate"))
+    obs_logging._warned.discard(("UserWarning", "r2.adjusted_degenerate"))
     got = tf.r2_score(torch.from_numpy(preds), torch.from_numpy(target), adjusted=3)
     assert any("More independent regressions" in str(w.message) for w in recwarn.list)
     assert_bitwise(got, jf.r2_score(jnp.asarray(preds), jnp.asarray(target), adjusted=3))
