@@ -145,7 +145,25 @@ Phases (each passes or raises; any failure exits non-zero):
      one; (f) small reruns of phases 11 and 12 with obs enabled: their
      counters reach ``summarize_counters()`` and an update's copies do not
      change; and the large-S branch of the canonical per-stream entry point
-     against its plain version.
+     against its plain version;
+ 14. detection and image: (a) a COCO val2017-shaped bbox pass (5,000 images of
+     640 x 480, 80 classes, 36,781 gts with a heavy tail per image, 100
+     detections an image on the card, batches of 16) through
+     ``MeanAveragePrecision`` on its device route (the ``coco_match`` kernel)
+     and its C++ host route: recall bitwise, precision values within 1e-6,
+     images/s and each route's ``last_compute_profile``; (b) the same shapes
+     with masks as COCO RLE strings over 500 of the images (the strings are
+     encoded on the host in setup); (c) ``dist_sync_on_step=True`` over two
+     gloo ranks on ``cuda:0`` for 500 images, each step's value bitwise one
+     process's over both ranks' images, the epoch's served by the IoU cache;
+     (d) the ``coco_match`` kernel bitwise against its plain version on (a)'s
+     and (b)'s operands and planted ties, its time, launches and bound; (e)
+     a DIV2K validation-shaped super-resolution pass (100 RGB images of 1356 x
+     2040, batches of 4) through PSNR, SSIM, MS-SSIM and UQI, and a 4-band
+     pan-sharpening pass (1,000 patches of 256 x 256, batches of 32) through
+     ERGAS, SAM and D-lambda, the card within tolerance of the CPU with TF32
+     allowed and not, and pixels/s.  It fails if the C++ host library did
+     not build.
 The last line is ``{"ok": true, "device": {...}}``.
 
 The sync phases run this script again as their ranks
@@ -274,12 +292,20 @@ def _call_ms(fn, reps: int = 100, warmup: int = 10) -> float:
 
 
 def phase_build(ops) -> None:
-    from metrics_tpu_torch.ops import _build, kll
+    from metrics_tpu_torch import _native
+    from metrics_tpu_torch.ops import _build, coco_match, kll
 
     start = time.perf_counter()
-    built = _build.build(ops._SOURCE, kll._SOURCE)  # one nvcc per source, all started together
+    host = threading.Thread(target=_native.get_lib)  # g++ of the host library beside the nvccs
+    host.start()
+    built = _build.build(ops._SOURCE, kll._SOURCE, coco_match._SOURCE)  # one nvcc per source, all started together
     ops._library()
     kll._library()
+    coco_match._library()
+    host.join()
+    if not _native.native_available():
+        raise AssertionError(f"the C++ host library did not build from {_native.SOURCE.relative_to(ROOT)}")
+    print(f"build: host library {_native.library_path().relative_to(ROOT)}")
     print(f"build: {[str(path.relative_to(ROOT)) for path, _ in built]} in {time.perf_counter() - start:.3f} s")
     for _, log in built:
         for line in log.splitlines():
@@ -694,6 +720,8 @@ def sync_rank(scenario: str, rank: int, where: Path) -> int:
         _rank_streaming(mt, rank, where)
     elif scenario == "checkpoint":
         _rank_checkpoint(mt, rank, where)
+    elif scenario == "detection":
+        _rank_detection(mt, rank, where)
     else:
         _, _, batches = _imagenet_pass()
         if scenario == "stall":
@@ -4597,6 +4625,507 @@ def phase_core_obs(mt, ops, single: dict, profiles: dict, card: str) -> Tuple[di
     return stat, others, line
 
 
+# ---------------------------------------------------------------------------------------------------------------
+# Phase 14: detection (COCO mAP, the coco_match kernel) and the first image metrics
+# ---------------------------------------------------------------------------------------------------------------
+COCO_IMAGES, COCO_H, COCO_W, COCO_CLASSES = 5000, 480, 640, 80  # COCO val2017: images, a common canvas, classes
+COCO_GTS = 36_781  # val2017's instance annotations
+COCO_DETS, COCO_BATCH = 100, 16  # detections per image (the maxDets cap), images per update
+# instance areas below 32^2, between 32^2 and 96^2, above: about 41 %, 34 % and 25 % of COCO's instances
+COCO_AREA_SHARES = (0.41, 0.34, 0.25)
+COCO_SEGM_IMAGES = 500  # (b): the masks' COCO RLE strings are encoded on the host in setup
+COCO_SYNC_STEPS, COCO_SYNC_STEP_IMAGES = 25, 10  # (c): 25 steps of 10 images a rank: 500 images
+MAP_VALUE_TOL = 1e-6  # float32 precision-table values against the float64 host route, averaged into mAP
+DIV2K_IMAGES, DIV2K_H, DIV2K_W, DIV2K_BATCH = 100, 1356, 2040, 4  # DIV2K validation HR: 100 RGB images
+PAN_PATCHES, PAN_BANDS, PAN_SIZE, PAN_BATCH = 1000, 4, 256, 32  # 4-band pan-sharpening patches
+# card against CPU, per image: float32 window sums and means over millions of pixels in another order
+IMAGE_ATOL, IMAGE_RTOL = 1e-5, 1e-5
+MATCH_TIE_CASES = 3  # planted-tie operands of (d), each a new seed
+
+
+def _coco_counts(rng: np.random.Generator, n_images: int, total: int) -> np.ndarray:
+    """Gts per image: geometric (a heavy tail, at most 100), nudged to ``total`` exactly."""
+    counts = np.minimum(rng.geometric(n_images / total, n_images), 100)
+    while (diff := total - int(counts.sum())) != 0:
+        idx = np.unique(rng.integers(0, n_images, abs(diff)))
+        counts[idx] = np.clip(counts[idx] + np.sign(diff), 0, 100)
+    return counts
+
+
+def _coco_boxes(rng: np.random.Generator, n: int) -> np.ndarray:
+    """``n`` integer xyxy boxes on the canvas, their areas drawn log-uniform in COCO's three ranges."""
+    kind = rng.choice(3, n, p=COCO_AREA_SHARES)
+    lo = np.array([16.0, 32.0**2, 96.0**2])[kind]
+    hi = np.array([32.0**2, 96.0**2, 400.0**2])[kind]
+    area = np.exp(rng.uniform(np.log(lo), np.log(hi)))
+    aspect = np.exp(rng.uniform(-0.7, 0.7, n))
+    w = np.clip(np.round(np.sqrt(area * aspect)), 2, COCO_W - 1)
+    h = np.clip(np.round(np.sqrt(area / aspect)), 2, COCO_H - 1)
+    x0 = np.floor(rng.random(n) * (COCO_W - w + 1))
+    y0 = np.floor(rng.random(n) * (COCO_H - h + 1))
+    return np.stack([x0, y0, x0 + w, y0 + h], 1)
+
+
+def _coco_scene(seed: int, n_images: int, n_gts: int) -> dict:
+    """A COCO-val-shaped scene: per image its gts (heavy-tailed counts, 80 classes with a dominant head)
+    and 100 detections, the first up to three per gt jittered copies of it with its class, the rest
+    random boxes of its classes or of others.  Integer pixel coordinates (exact float32 box terms);
+    flat arrays with per-image counts."""
+    rng = np.random.default_rng(seed)
+    g_counts = _coco_counts(rng, n_images, n_gts)
+    class_p = 1.0 / np.arange(1, COCO_CLASSES + 1) ** 0.9
+    class_p /= class_p.sum()
+    gt_boxes = _coco_boxes(rng, n_gts)
+    gt_labels = rng.choice(COCO_CLASSES, n_gts, p=class_p)
+    g_start = np.cumsum(np.r_[0, g_counts[:-1]])
+    img = np.repeat(np.arange(n_images), COCO_DETS)
+    j = np.tile(np.arange(COCO_DETS), n_images)
+    n_g = g_counts[img]
+    matched = j < np.minimum(3 * n_g, COCO_DETS)
+    src = g_start[img] + np.where(n_g > 0, j % np.maximum(n_g, 1), 0)
+    src = np.minimum(src, n_gts - 1)
+    size = np.stack([gt_boxes[src, 2] - gt_boxes[src, 0], gt_boxes[src, 3] - gt_boxes[src, 1]] * 2, 1)
+    jitter = np.round(rng.uniform(-0.15, 0.15, (len(img), 4)) * size)
+    canvas = np.array([COCO_W, COCO_H, COCO_W, COCO_H], np.float64)
+    det_boxes = np.where(matched[:, None], np.clip(gt_boxes[src] + jitter, 0, canvas), _coco_boxes(rng, len(img)))
+    det_boxes[:, 2:] = np.maximum(det_boxes[:, 2:], det_boxes[:, :2] + 1)
+    own_class = (n_g > 0) & (rng.random(len(img)) < 0.5)
+    det_labels = np.where(matched | own_class, gt_labels[src], rng.choice(COCO_CLASSES, len(img), p=class_p))
+    det_scores = np.where(matched, rng.beta(5, 2, len(img)), rng.beta(2, 5, len(img))).astype(np.float32)
+    return {"gt_boxes": gt_boxes, "gt_labels": gt_labels, "gt_counts": g_counts,
+            "det_boxes": det_boxes, "det_labels": det_labels, "det_scores": det_scores,
+            "det_counts": np.full(n_images, COCO_DETS)}
+
+
+def _coco_inputs(scene: dict, device, lo: int = 0, hi: Optional[int] = None, masks: Optional[dict] = None):
+    """Images ``lo:hi`` of ``scene`` as the dict-per-image lists ``update`` takes: tensors on ``device``
+    (a detector's outputs; the gts too), boxes as float32, or COCO RLE dicts in place of boxes."""
+    hi = len(scene["gt_counts"]) if hi is None else hi
+
+    def split(key, counts_key, dtype):
+        counts = scene[counts_key]
+        start = int(counts[:lo].sum())
+        stop = start + int(counts[lo:hi].sum())
+        flat = torch.as_tensor(np.ascontiguousarray(scene[key][start:stop]), dtype=dtype).to(device)
+        return list(torch.split(flat, counts[lo:hi].tolist()))
+
+    preds = [{"scores": s, "labels": lab} for s, lab in zip(split("det_scores", "det_counts", torch.float32),
+                                                           split("det_labels", "det_counts", torch.int64))]
+    target = [{"labels": lab} for lab in split("gt_labels", "gt_counts", torch.int64)]
+    if masks is None:
+        for d, b in zip(preds, split("det_boxes", "det_counts", torch.float32)):
+            d["boxes"] = b
+        for d, b in zip(target, split("gt_boxes", "gt_counts", torch.float32)):
+            d["boxes"] = b
+    else:
+        for side, key in ((preds, "det"), (target, "gt")):
+            strings, counts = masks[key], scene[f"{key}_counts"]
+            offsets = np.cumsum(np.r_[0, counts])
+            for i, d in zip(range(lo, hi), side):
+                d["masks"] = [{"size": [COCO_H, COCO_W], "counts": s} for s in strings[offsets[i] : offsets[i + 1]]]
+    return preds, target
+
+
+def _ellipse_runs(boxes: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Column-major RLE runs of the ellipse inscribed in each box on the COCO canvas: (runs, runs per mask)."""
+    x0, y0, x1, y1 = (boxes[:, i].astype(np.int64) for i in range(4))
+    widths = x1 - x0
+    mask = np.repeat(np.arange(len(boxes)), widths)
+    col = np.arange(int(widths.sum())) - np.repeat(np.cumsum(np.r_[0, widths[:-1]]), widths) + x0[mask]
+    cx, cy = (x0 + x1)[mask] / 2, (y0 + y1)[mask] / 2
+    a, b = widths[mask] / 2, (y1 - y0)[mask] / 2
+    half = b * np.sqrt(np.clip(1 - ((col + 0.5 - cx) / a) ** 2, 0, None))
+    top = np.maximum(np.ceil(cy - half - 0.5), y0[mask]).astype(np.int64)
+    bottom = np.minimum(np.floor(cy + half - 0.5), y1[mask] - 1).astype(np.int64)
+    keep = bottom >= top
+    mask, col, top, bottom = mask[keep], col[keep], top[keep], bottom[keep]
+    start, end = col * COCO_H + top, col * COCO_H + bottom + 1
+    per_mask = np.bincount(mask, minlength=len(boxes))
+    first = np.r_[True, mask[1:] != mask[:-1]]
+    gaps = np.where(first, start, start - np.r_[0, end[:-1]])
+    n_runs = 2 * per_mask + 1  # a 0-run (maybe empty), then (fg, bg) per column, the last bg to the end
+    runs = np.zeros(int(n_runs.sum()), np.int64)
+    base = np.cumsum(np.r_[0, n_runs[:-1]])
+    k = np.arange(len(mask)) - np.repeat(np.cumsum(np.r_[0, per_mask[:-1]]), per_mask)
+    runs[base[mask] + 2 * k] = gaps
+    runs[base[mask] + 2 * k + 1] = end - start
+    last_end = np.zeros(len(boxes), np.int64)
+    last_end[mask] = end  # the last interval of each mask wins
+    runs[base + n_runs - 1] = COCO_H * COCO_W - last_end
+    return runs, n_runs
+
+
+def _coco_strings(runs: np.ndarray, n_runs: np.ndarray) -> list:
+    """pycocotools' compressed RLE strings of many masks at once (the codec of ``rle_to_coco_string``)."""
+    starts = np.cumsum(np.r_[0, n_runs[:-1]])
+    pos = np.arange(len(runs)) - np.repeat(starts, n_runs)
+    x = runs.copy()
+    x[pos > 2] -= runs[np.flatnonzero(pos > 2) - 2]
+    chars, live = [], np.ones(len(x), bool)
+    for _ in range(7):  # a value below 2**31 takes at most 7 five-bit groups
+        c = x & 0x1F
+        x = x >> 5
+        more = np.where((c & 0x10) != 0, x != -1, x != 0) & live
+        chars.append(np.where(live, np.where(more, c | 0x20, c) + 48, -1))
+        live = more
+    table = np.stack(chars, 1).ravel()
+    owner = np.repeat(np.repeat(np.arange(len(n_runs)), n_runs), 7)[table >= 0]
+    data = table[table >= 0].astype(np.uint8).tobytes()
+    bounds = np.r_[0, np.cumsum(np.bincount(owner, minlength=len(n_runs)))]
+    return [data[bounds[i] : bounds[i + 1]] for i in range(len(n_runs))]
+
+
+def _map_pass(mt, preds, target, **kwargs) -> Tuple[dict, dict, float]:
+    """One epoch: updates of COCO_BATCH images, then compute(); its values on the host, profile and seconds."""
+    metric = mt.MeanAveragePrecision(device=DEVICE, **kwargs)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for lo in range(0, len(preds), COCO_BATCH):
+        metric.update(preds[lo : lo + COCO_BATCH], target[lo : lo + COCO_BATCH])
+    update_s = time.perf_counter() - start
+    out = metric.compute()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - start
+    values = {k: v.cpu().numpy() for k, v in out.items()}
+    if any(v.device.type != torch.device(DEVICE).type for v in out.values()):
+        raise AssertionError("MeanAveragePrecision.compute() returned tensors off the metric's device")
+    prof = {k: (round(v, 6) if isinstance(v, float) else v) for k, v in metric.last_compute_profile.items()}
+    prof["update_s"] = update_s
+    return values, prof, secs
+
+
+def _check_routes(name: str, device_vals: dict, host_vals: dict) -> dict:
+    """The device route against the native host route: recall (integer TP counts over float64 npig) and
+    the classes bitwise, precision-based values within MAP_VALUE_TOL."""
+    worst = 0.0
+    for key, host in host_vals.items():
+        got = device_vals[key]
+        if got.shape != host.shape or got.dtype != host.dtype:
+            raise AssertionError(f"{name}: {key} is {got.dtype}{got.shape} on the device route, {host.dtype}{host.shape} on the host's")
+        if key.startswith("mar") or key == "classes":
+            if not np.array_equal(got, host):
+                raise AssertionError(f"{name}: {key} differs between the routes: {got} vs {host}")
+        else:
+            err = float(np.max(np.abs(got.astype(np.float64) - host))) if got.size else 0.0
+            if err > MAP_VALUE_TOL:
+                raise AssertionError(f"{name}: {key} differs by {err} between the routes (limit {MAP_VALUE_TOL})")
+            worst = max(worst, err)
+    print(f"{name}: recall bitwise and precision within {worst!r} of the native host route; map {float(host_vals['map'])!r}")
+    return {"max_value_err": worst, "map": float(host_vals["map"]), "mar_100": float(host_vals["mar_100"])}
+
+
+def _captured_matches(fn):
+    """Run ``fn`` with the device route's matcher call recorded: the operands of each ``match_ranked_blocks``."""
+    from metrics_tpu_torch.detection import device as ddev
+
+    seen, original = [], ddev.match_ranked_blocks
+
+    def recording(ranks, gt_ignore, thr_ranks):
+        seen.append((ranks, gt_ignore, thr_ranks))
+        return original(ranks, gt_ignore, thr_ranks)
+
+    ddev.match_ranked_blocks = recording
+    try:
+        out = fn()
+    finally:
+        ddev.match_ranked_blocks = original
+    return out, seen
+
+
+def _tie_operands(seed: int, device) -> tuple:
+    """Ranks on a grid of five values (ties in every row), padded slots, rows, columns and blocks, more gts
+    than a warp's lanes; odd seeds take a threshold rank of -1, which makes padded slots eligible."""
+    rng = np.random.default_rng(seed)
+    b, d, g = 257, 37, 70
+    ranks = rng.integers(0, 5, (b, d, g)).astype(np.int32)
+    ranks[rng.random((b, d, g)) < 0.2] = -1
+    ranks[:, :, 60:] = -1
+    ranks[:, 30:, :] = -1
+    ranks[::5] = -1
+    gig = rng.random((4, b, g)) < 0.3
+    thr = np.sort(rng.integers(-(seed % 2), 5, 10)).astype(np.int32)
+    return tuple(torch.from_numpy(a).to(device) for a in (ranks, gig, thr))
+
+
+def _phase_coco_match(cm, operands: dict, launches: int) -> dict:
+    """(d): the kernel bitwise against its plain version on the main path's operands and planted ties; its
+    own time, the plain version's, and its bound, on (a)'s operands."""
+    compared = 0
+    cases = dict(operands)
+    for i in range(MATCH_TIE_CASES):
+        cases[f"ties{i}"] = _tie_operands(SEED + 140 + i, DEVICE)
+    for name, (ranks, gig, thr) in cases.items():
+        got = cm.coco_match(ranks, gig, thr)
+        want = cm.coco_match_plain(ranks, gig, thr)
+        torch.cuda.synchronize()
+        if got.dtype != torch.uint8 or not torch.equal(got, want):
+            bad = int((got != want).sum())
+            raise AssertionError(f"coco_match kernel disagrees with its plain version on {name}: {bad} codes")
+        compared += got.numel()
+        print(f"kernel coco_match on {name} {tuple(ranks.shape)} x {gig.shape[0]} areas x {thr.shape[0]} thresholds: "
+              f"bitwise equal to plain")
+    ranks, gig, thr = operands["bbox"]
+    b, d, g = ranks.shape
+    a, t = gig.shape[0], thr.shape[0]
+    pairs = int((ranks >= 0).sum())
+    kernel = lambda: cm.coco_match(ranks, gig, thr)  # noqa: E731
+    ms = _device_ms(kernel, calls=20, per_sleep=10, warmup=3)[0]
+    own_ms = _one_launch("coco_match", kernel, calls=5)
+    plain_ms = _call_ms(lambda: cm.coco_match_plain(ranks, gig, thr), reps=1, warmup=1)
+    # each input read once (the padded rank block, the flags, the thresholds), the codes written once; each
+    # (area, threshold) compares, keys and reduces each real (det, gt) pair: about four integer operations
+    bytes_moved = ranks.numel() * 4 + gig.numel() + t * 4 + a * b * t * d
+    bound_ms, bound_by = _bound(bytes_moved, 4 * a * t * pairs)
+    print(f"coco_match on (a)'s operands ({b}, {d}, {g}) ranks, {pairs} real pairs, {a} x {t}: kernel {ms!r} ms "
+          f"(its own device time {own_ms!r} ms), plain {plain_ms!r} ms, bound {bound_ms!r} ms ({bound_by}); "
+          f"serial chain of {d} steps per (area, block, threshold)")
+    return {
+        "name": "coco_match",
+        "route": "cuda",
+        "source": "metrics_tpu_torch/ops/csrc/coco_match.cu",
+        "replaces": "metrics_tpu/detection/device.py:177",
+        "replaces_kind": "_match_kernel, a lax.fori_loop under jax.vmap (not a Pallas kernel)",
+        "launches": launches,
+        "bitwise": True,
+        "max_abs_err": 0,
+        "codes_compared": compared,
+        "ms": ms,
+        "own_ms": own_ms,
+        "ms_shape": f"(a)'s bbox operands: ranks ({b}, {d}, {g}) int32, {a} areas, {t} thresholds",
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "serial_steps": d,
+        "library_ms": None,
+        "library_note": "no PyTorch call matches greedily",
+    }
+
+
+def _rank_detection(mt, rank: int, out: Path) -> None:
+    """(c): this rank's images of each step through forward with dist_sync_on_step, then the epoch compute."""
+    scene = _coco_scene(SEED + 142, 2 * COCO_SYNC_STEPS * COCO_SYNC_STEP_IMAGES,
+                        round(COCO_GTS * 2 * COCO_SYNC_STEPS * COCO_SYNC_STEP_IMAGES / COCO_IMAGES))
+    metric = mt.MeanAveragePrecision(device=DEVICE, dist_sync_on_step=True)
+    steps, step_ms = [], []
+    for step in range(COCO_SYNC_STEPS):
+        lo = (2 * step + rank) * COCO_SYNC_STEP_IMAGES
+        preds, target = _coco_inputs(scene, DEVICE, lo, lo + COCO_SYNC_STEP_IMAGES)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        value = metric(preds, target)
+        step_ms.append((time.perf_counter() - start) * 1e3)
+        steps.append({k: v.cpu().numpy().tobytes().hex() for k, v in value.items()})
+    start = time.perf_counter()
+    final = metric.compute()
+    compute_ms = (time.perf_counter() - start) * 1e3
+    with metric.sync_context():  # the gathered states stay in host memory too
+        synced_on_host = all(t.device.type == "cpu" for t in (metric.detections, metric.detection_scores))
+    (out / f"rank{rank}.json").write_text(json.dumps({
+        "steps": steps, "final": {k: v.cpu().numpy().tobytes().hex() for k, v in final.items()},
+        "step_ms": step_ms, "compute_ms": compute_ms, "profile": metric.last_compute_profile,
+        "report": {k: metric.last_sync_report.get(k) for k in ("delta", "bytes_gathered", "world_size")},
+        "host_states": synced_on_host and all(t.device.type == "cpu" for t in metric.detections),
+    }, default=float))
+
+
+def phase_detection_sync(mt) -> dict:
+    """(c): two gloo ranks on ``cuda:0``; each step's value must be one process's over both ranks' images of
+    that step, the epoch's one process's over all 500."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_detection_") as tmp:
+        where = Path(tmp) / "detection"
+        ranks = _start_ranks("detection", where)
+        n = 2 * COCO_SYNC_STEPS * COCO_SYNC_STEP_IMAGES
+        scene = _coco_scene(SEED + 142, n, round(COCO_GTS * n / COCO_IMAGES))
+        want_steps = []
+        for step in range(COCO_SYNC_STEPS):
+            lo = 2 * step * COCO_SYNC_STEP_IMAGES
+            values, _, _ = _map_pass(mt, *_coco_inputs(scene, DEVICE, lo, lo + 2 * COCO_SYNC_STEP_IMAGES))
+            want_steps.append({k: v.tobytes().hex() for k, v in values.items()})
+        everything = mt.MeanAveragePrecision(device=DEVICE)
+        everything.update(*_coco_inputs(scene, DEVICE))
+        want_final = {k: v.cpu().numpy().tobytes().hex() for k, v in everything.compute().items()}
+        records = _wait_ranks("detection", ranks, where)
+    for rank, record in enumerate(records):
+        for step, (got, want) in enumerate(zip(record["steps"], want_steps)):
+            if got != want:
+                raise AssertionError(f"detection sync: rank {rank}'s step {step} is not one process's over its images")
+        if record["final"] != want_final:
+            raise AssertionError(f"detection sync: rank {rank}'s epoch value is not one process's")
+        prof = record["profile"]
+        if not (prof["iou_cache_enabled"] and prof["iou_blocks_new"] == 0 and prof["iou_blocks_cached"] > 0):
+            raise AssertionError(f"detection sync: rank {rank}'s epoch compute missed the IoU cache: {prof}")
+        if not record["host_states"]:
+            raise AssertionError(f"detection sync: rank {rank}'s list states left host memory")
+    print(f"detection sync: {COCO_SYNC_STEPS} steps of {2 * COCO_SYNC_STEP_IMAGES} images on two ranks equal one process "
+          f"bitwise; epoch compute served {records[0]['profile']['iou_blocks_cached']} blocks from the IoU cache")
+    return {
+        "images": n, "steps": COCO_SYNC_STEPS, "step_ms_median": [statistics.median(r["step_ms"]) for r in records],
+        "compute_ms": [r["compute_ms"] for r in records],
+        "iou_cache_hits": [r["profile"]["iou_blocks_cached"] for r in records],
+        "epoch_profile": records[0]["profile"], "sync_report": [r["report"] for r in records],
+    }
+
+
+def _image_check(name: str, card_on, card_off, cpu, rtol: float, atol: float) -> dict:
+    """The card's value with TF32 allowed and not, each against the CPU's."""
+    errs = []
+    for tag, got in (("tf32 allowed", card_on), ("tf32 off", card_off)):
+        got = got.detach().cpu().to(torch.float64)
+        want = cpu.detach().to(torch.float64)
+        err = float((got - want).abs().max())
+        if not torch.allclose(got, want, rtol=rtol, atol=atol):
+            raise AssertionError(f"image {name} on the card ({tag}) differs from the CPU by {err}")
+        errs.append(err)
+    return {"max_abs_err_tf32_on": errs[0], "max_abs_err_tf32_off": errs[1],
+            "tf32_bitwise_same": bool(torch.equal(card_on.cpu(), card_off.cpu()))}
+
+
+def _card_vs_cpu_images(fns: dict, preds: torch.Tensor, target: torch.Tensor, tol: dict) -> dict:
+    """Each functional on one batch on the card (TF32 allowed, then not) against the port on the CPU."""
+    cudnn = torch.backends.cudnn
+    before = cudnn.allow_tf32
+    out = {}
+    try:
+        for name, fn in fns.items():
+            cudnn.allow_tf32 = True
+            on = fn(preds, target)
+            cudnn.allow_tf32 = False
+            off = fn(preds, target)
+            cpu = fn(preds.cpu(), target.cpu())
+            out[name] = _image_check(name, on, off, cpu, *tol[name])
+    finally:
+        cudnn.allow_tf32 = before
+    return out
+
+
+def _image_pass(metrics: dict, batch_fn, n_batches: int) -> Tuple[dict, float]:
+    """Every batch through every module metric; values and seconds (updates and computes, synchronized;
+    the batches are made on the card before the clock starts)."""
+    batches = [batch_fn(i) for i in range(n_batches)]
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for preds, target in batches:
+        for metric in metrics.values():
+            metric.update(preds, target)
+    values = {name: metric.compute() for name, metric in metrics.items()}
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - start
+    for name, value in values.items():
+        if not bool(torch.isfinite(value).all()):
+            raise AssertionError(f"image {name}: non-finite value {value}")
+    return {name: float(v) for name, v in values.items()}, secs
+
+
+def _div2k_batch(i: int):
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1400 + i)
+    shape = (DIV2K_BATCH, 3, DIV2K_H, DIV2K_W)
+    target = torch.rand(shape, generator=gen, device=DEVICE)
+    return (target + 0.05 * torch.randn(shape, generator=gen, device=DEVICE)).clamp(0, 1), target
+
+
+def _pan_batch(i: int):
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1500 + i)
+    shape = (PAN_BATCH, PAN_BANDS, PAN_SIZE, PAN_SIZE)
+    target = 0.1 + 0.9 * torch.rand(shape, generator=gen, device=DEVICE)
+    return (target * (1 + 0.05 * torch.randn(shape, generator=gen, device=DEVICE))).clamp(0.05, 1), target
+
+
+def phase_image(mt) -> dict:
+    """(e): a DIV2K-validation-shaped super-resolution pass and a 4-band pan-sharpening pass."""
+    from metrics_tpu_torch.functional import image as fi
+
+    sr = {"psnr": mt.PeakSignalNoiseRatio(data_range=1.0, device=DEVICE),
+          "ssim": mt.StructuralSimilarityIndexMeasure(data_range=1.0, device=DEVICE),
+          "ms_ssim": mt.MultiScaleStructuralSimilarityIndexMeasure(data_range=1.0, device=DEVICE),
+          "uqi": mt.UniversalImageQualityIndex(device=DEVICE)}
+    sr_values, sr_s = _image_pass(sr, _div2k_batch, DIV2K_IMAGES // DIV2K_BATCH)
+    pan = {"ergas": mt.ErrorRelativeGlobalDimensionlessSynthesis(ratio=4, device=DEVICE),
+           "sam": mt.SpectralAngleMapper(device=DEVICE), "d_lambda": mt.SpectralDistortionIndex(device=DEVICE)}
+    pan_values, pan_s = _image_pass(pan, _pan_batch, PAN_PATCHES // PAN_BATCH)
+    sr_pixels = DIV2K_IMAGES * DIV2K_H * DIV2K_W
+    pan_pixels = (PAN_PATCHES // PAN_BATCH) * PAN_BATCH * PAN_SIZE * PAN_SIZE
+    preds, target = _div2k_batch(0)
+    conv = (0.0, IMAGE_ATOL)
+    sr_checks = _card_vs_cpu_images({
+        "psnr": lambda p, t: fi.peak_signal_noise_ratio(p, t, data_range=1.0),
+        "ssim": lambda p, t: fi.structural_similarity_index_measure(p, t, data_range=1.0),
+        "ms_ssim": lambda p, t: fi.multiscale_structural_similarity_index_measure(p, t, data_range=1.0),
+        "uqi": fi.universal_image_quality_index,
+    }, preds[:1], target[:1], {"psnr": (IMAGE_RTOL, 0.0), "ssim": conv, "ms_ssim": conv, "uqi": conv})
+    preds, target = _pan_batch(0)
+    pan_checks = _card_vs_cpu_images({
+        "ergas": lambda p, t: fi.error_relative_global_dimensionless_synthesis(p, t, ratio=4),
+        "sam": fi.spectral_angle_mapper, "d_lambda": fi.spectral_distortion_index,
+    }, preds[:4], target[:4], {"ergas": (IMAGE_RTOL, 0.0), "sam": (IMAGE_RTOL, 0.0), "d_lambda": conv})
+    print(f"image: super-resolution {sr_values} at {sr_pixels / sr_s!r} pixels/s through four metrics; "
+          f"pan-sharpening {pan_values} at {pan_pixels / pan_s!r} pixels/s through three; the card within tolerance "
+          f"of the CPU with TF32 allowed and not")
+    return {
+        "super_resolution": {"images": DIV2K_IMAGES, "shape": [3, DIV2K_H, DIV2K_W], "batch": DIV2K_BATCH,
+                             "values": sr_values, "seconds": sr_s, "pixels_per_s": sr_pixels / sr_s,
+                             "card_vs_cpu": sr_checks},
+        "pan_sharpening": {"patches": PAN_PATCHES // PAN_BATCH * PAN_BATCH, "shape": [PAN_BANDS, PAN_SIZE, PAN_SIZE],
+                           "batch": PAN_BATCH, "values": pan_values, "seconds": pan_s,
+                           "pixels_per_s": pan_pixels / pan_s, "card_vs_cpu": pan_checks},
+    }
+
+
+def phase_detection_image(mt, card: str) -> Tuple[dict, dict]:
+    """Phase 14: (a) COCO-val-shaped bbox mAP on both routes, (b) segm from COCO RLE strings, (c) two ranks
+    with dist_sync_on_step, (d) the coco_match kernel against its plain version, (e) image metrics.
+    Returns the kernels-line entry of coco_match and the phase line."""
+    from metrics_tpu_torch.ops import coco_match as cm
+
+    phase_start = time.perf_counter()
+    scene = _coco_scene(SEED + 141, COCO_IMAGES, COCO_GTS)
+    preds, target = _coco_inputs(scene, DEVICE)
+    cm.coco_match.launches = 0
+    (dev_vals, dev_prof, dev_s), operands = _captured_matches(lambda: _map_pass(mt, preds, target, on_device=True, class_metrics=True))
+    launches = cm.coco_match.launches
+    host_vals, host_prof, host_s = _map_pass(mt, preds, target, on_device=False, class_metrics=True)
+    if launches != len(operands) or launches < 1:
+        raise AssertionError(f"the bbox device route launched coco_match {launches} times for {len(operands)} matches")
+    bbox = {"images": COCO_IMAGES, "gts": COCO_GTS, "dets": COCO_IMAGES * COCO_DETS, "batch": COCO_BATCH,
+            "device_route": {"seconds": dev_s, "images_per_s": COCO_IMAGES / dev_s, "profile": dev_prof},
+            "host_route": {"seconds": host_s, "images_per_s": COCO_IMAGES / host_s, "profile": host_prof},
+            **_check_routes("bbox", dev_vals, host_vals)}
+    print(f"bbox: device route {COCO_IMAGES / dev_s!r} images/s ({dev_prof}), host route {COCO_IMAGES / host_s!r} "
+          f"images/s ({host_prof})")
+    del preds, target
+
+    setup = time.perf_counter()
+    n_det = COCO_SEGM_IMAGES * COCO_DETS
+    n_gt = int(scene["gt_counts"][:COCO_SEGM_IMAGES].sum())
+    strings = {"det": _coco_strings(*_ellipse_runs(scene["det_boxes"][:n_det])),
+               "gt": _coco_strings(*_ellipse_runs(scene["gt_boxes"][:n_gt]))}
+    setup_s = time.perf_counter() - setup
+    preds, target = _coco_inputs(scene, DEVICE, 0, COCO_SEGM_IMAGES, masks=strings)
+    before = cm.coco_match.launches
+    (seg_vals, seg_prof, seg_s), seg_ops = _captured_matches(
+        lambda: _map_pass(mt, preds, target, iou_type="segm", on_device=True, class_metrics=True))
+    launches += cm.coco_match.launches - before
+    seg_host_vals, seg_host_prof, seg_host_s = _map_pass(mt, preds, target, iou_type="segm", on_device=False,
+                                                         class_metrics=True)
+    segm = {"images": COCO_SEGM_IMAGES, "masks": n_det + n_gt, "encode_setup_s": setup_s,
+            "cut": f"{COCO_SEGM_IMAGES} of {COCO_IMAGES} images: the masks' RLE strings are encoded on the host in setup",
+            "device_route": {"seconds": seg_s, "images_per_s": COCO_SEGM_IMAGES / seg_s, "profile": seg_prof},
+            "host_route": {"seconds": seg_host_s, "images_per_s": COCO_SEGM_IMAGES / seg_host_s, "profile": seg_host_prof},
+            **_check_routes("segm", seg_vals, seg_host_vals)}
+    print(f"segm: device route {COCO_SEGM_IMAGES / seg_s!r} images/s ({seg_prof}), host route "
+          f"{COCO_SEGM_IMAGES / seg_host_s!r} images/s ({seg_host_prof}); {n_det + n_gt} masks encoded in {setup_s!r} s")
+    del preds, target, scene
+
+    sync = phase_detection_sync(mt)
+    entry = _phase_coco_match(cm, {"bbox": operands[0], "segm": seg_ops[0]}, launches)
+    del operands, seg_ops
+    torch.cuda.empty_cache()
+    image = phase_image(mt)
+    secs = time.perf_counter() - phase_start
+    print(f"detection_image phase took {secs:.1f} s")
+    line = {"detection_image": {"card": card, "bbox": bbox, "segm": segm, "sync": sync,
+                                "coco_match_launches": launches, "image": image, "phase_s": secs}}
+    return entry, line
+
 def _device_ops(fn, calls: int = 1) -> Optional[list]:
     """(name, device ms) of each device operation that ``calls`` calls of ``fn`` issue, as
     torch.profiler records them; None where the profiler records no device activity on this machine."""
@@ -4787,6 +5316,8 @@ def main() -> int:
     ms_launches, ms_counts, ms_line = phase_multistream(mt, ops, card)
     torch.cuda.empty_cache()
     core_launches, core_counts, core_line = phase_core_obs(mt, ops, single, obs_profiles, card)
+    torch.cuda.empty_cache()
+    match_entry, detection_line = phase_detection_image(mt, card)
     print(f"launches per entry point: main path {launches}, curve phase {curve_launches}, "
           f"rest of classification {rest_launches}, regression {regression_launches}, "
           f"wrappers and retrieval {wrapper_launches}, streaming {streaming_launches}, multistream {ms_launches}, "
@@ -4804,6 +5335,7 @@ def main() -> int:
         if counter == "stream_canonical":
             entry["large_s"] = core_line["core_obs"]["large_s"]
     kernels.extend(ms_entries)
+    kernels.append(match_entry)
     print(json.dumps(sync_line))
     print(json.dumps(curve_line))
     print(json.dumps(rest_line))
@@ -4812,6 +5344,7 @@ def main() -> int:
     print(json.dumps(streaming_line))
     print(json.dumps(ms_line))
     print(json.dumps(core_line))
+    print(json.dumps(detection_line))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

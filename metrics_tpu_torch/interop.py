@@ -14,6 +14,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from metrics_tpu_torch.detection import MeanAveragePrecision
 from metrics_tpu_torch.metric import Metric
 from metrics_tpu_torch.wrappers import BootStrapper, MinMaxMetric
 
@@ -66,6 +67,10 @@ def load_jax_state(metric: Metric, state: Dict[str, Any], extra: Optional[Dict[s
     ``MinMaxMetric``'s ``state`` holds ``_update_count``, ``min_val``,
     ``max_val`` and ``base``, the base metric's ``state_pytree()``; its
     ``extra`` is the base metric's.
+
+    A ``MeanAveragePrecision``'s ``extra`` may carry the JAX metric's route
+    flag under its JAX name, ``device`` (``None``, ``True`` or ``False``):
+    it sets ``on_device``, since ``device`` here names the torch device.
     """
     if isinstance(metric, BootStrapper):
         _load_bootstrapper(metric, state, extra)
@@ -77,6 +82,12 @@ def load_jax_state(metric: Metric, state: Dict[str, Any], extra: Optional[Dict[s
         metric.max_val = torch.as_tensor(np.array(state["max_val"]), dtype=torch.float32, device=metric.device)
         load_jax_state(metric._base_metric, state["base"], extra)
         return
+    if extra and "device" in extra and isinstance(metric, MeanAveragePrecision):
+        extra = dict(extra)
+        route = extra.pop("device")
+        if route is not None and not isinstance(route, bool):
+            raise ValueError(f"the JAX MeanAveragePrecision's `device` is a bool or None, got {route!r}")
+        metric.on_device = route
     tree: Dict[str, Any] = {}
     for name, value in state.items():
         if name == "_update_count":

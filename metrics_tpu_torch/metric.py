@@ -314,9 +314,10 @@ _WORKER_STREAMS: Dict[torch.device, Any] = {}
 
 def _side_stream(device: torch.device) -> Optional[Any]:
     """The side stream of ``device`` that background sync rounds run on (None
-    off the card), made on the caller's thread at its first round.  The first
-    stream of a process also makes PyTorch's stream pools: that one round's
-    submit pays tens of milliseconds."""
+    off the card), made on the caller's thread.  The first stream of a process
+    also makes PyTorch's stream pools, which takes tens of milliseconds, so a
+    metric that may run async rounds makes it when it takes a CUDA device
+    rather than at its first :meth:`Metric.sync_async`."""
     if device.type != "cuda":
         return None
     stream = _WORKER_STREAMS.get(device)
@@ -426,6 +427,12 @@ class Metric(nn.Module, ABC):
     # JAX trace, value checks that read the host are skipped
     _rows_mapped = False
 
+    # True where the list states stay in host memory whatever ``device`` is
+    # (MeanAveragePrecision: its compute runs on the host, so device-resident
+    # entries would cost one device->host copy each); loads, merges and syncs
+    # then keep them there
+    _host_list_states = False
+
     def __init__(self, **kwargs: Any) -> None:
         super().__init__()
         self.device = _resolve_device(kwargs.pop("device", "cuda"))
@@ -455,6 +462,8 @@ class Metric(nn.Module, ABC):
         self.async_sync = kwargs.pop("async_sync", None)
         if os.environ.get("METRICS_TPU_ASYNC_SYNC", "").strip().lower() in ("0", "false", "no"):
             self.async_sync = False
+        if self.async_sync is not False:
+            _side_stream(self.device)
         self.compute_on_cpu = kwargs.pop("compute_on_cpu", False)
         self.compute_with_cache = kwargs.pop("compute_with_cache", True)
         if kwargs:
@@ -764,6 +773,11 @@ class Metric(nn.Module, ABC):
         return specs
 
     @property
+    def _list_device(self) -> torch.device:
+        """Where list-state entries live: host memory with ``_host_list_states``, else the metric's device."""
+        return torch.device("cpu") if self._host_list_states else self.device
+
+    @property
     def update_count(self) -> int:
         return self._update_count
 
@@ -963,7 +977,7 @@ class Metric(nn.Module, ABC):
 
     def _batch_value(self, should_sync: bool, args: tuple, kwargs: dict) -> Any:
         """Reset, update on this batch alone and compute, synced only when ``should_sync``."""
-        self.reset()
+        self._reset_for_forward()
         self._update_now(*args, **kwargs)
         prev_sync = self.sync_on_compute
         self.sync_on_compute = should_sync
@@ -1105,7 +1119,7 @@ class Metric(nn.Module, ABC):
             if isinstance(value, list):
                 merged: Any = list(value)
                 for p in theirs:
-                    merged.extend(p if isinstance(p, list) else [_to_state_tensor(p, self.device)])
+                    merged.extend(p if isinstance(p, list) else [_to_state_tensor(p, self._list_device)])
                 setattr(self, name, merged)
                 continue
             parts = [value] + [_to_state_tensor(p, self.device) for p in theirs]
@@ -1269,6 +1283,7 @@ class Metric(nn.Module, ABC):
         """
         payload: Dict[str, torch.Tensor] = {}
         out: Dict[str, Any] = {}
+        on_host = {"c." + name for name, value in state.items() if isinstance(value, list) and self._host_list_states}
         cat_names: List[str] = []
         reduce_names: List[str] = []
         for key in self._sketch_leaf_key_set():
@@ -1301,7 +1316,8 @@ class Metric(nn.Module, ABC):
             err.synced_states = []  # all or nothing: nothing landed
             raise
         per_rank = [
-            {key: t.to(self.device) for key, t in _unpack_state_blob(s).items()} for s in shards
+            {key: t if key in on_host else t.to(self.device) for key, t in _unpack_state_blob(s).items()}
+            for s in shards
         ]
 
         def cat_ranks(key: str) -> torch.Tensor:
@@ -1829,6 +1845,11 @@ class Metric(nn.Module, ABC):
                 setattr(self, bname + "__buf", buf)
                 meta["owned"] = buf
 
+    def _reset_for_forward(self) -> None:
+        """The reset of ``forward``'s batch value: :meth:`reset`, unless a subclass keeps
+        derived caches across it (MeanAveragePrecision's IoU cache)."""
+        self.reset()
+
     def clone(self) -> "Metric":
         return copy.deepcopy(self)
 
@@ -1842,7 +1863,7 @@ class Metric(nn.Module, ABC):
 
         def move(value: Any) -> Any:
             if isinstance(value, list):
-                return [v.to(device) for v in value]
+                return value if self._host_list_states else [v.to(device) for v in value]
             return value.to(device) if isinstance(value, torch.Tensor) else value
 
         for name in self._defaults:
@@ -1851,6 +1872,8 @@ class Metric(nn.Module, ABC):
         for meta in self._buffer_states.values():
             meta["owned"] = None
         self.device = device
+        if self.async_sync is not False:
+            _side_stream(device)
         self._computed = None
         self._delta_cache.clear()
         return self
@@ -1976,9 +1999,9 @@ class Metric(nn.Module, ABC):
             if name in counts:
                 setattr(self, name, int(value))
             elif isinstance(value, list):
-                setattr(self, name, [_to_state_tensor(v, self.device) for v in value])
+                setattr(self, name, [_to_state_tensor(v, self._list_device) for v in value])
             elif isinstance(self._defaults[name], list):
-                setattr(self, name, [_to_state_tensor(value, self.device)])
+                setattr(self, name, [_to_state_tensor(value, self._list_device)])
             else:
                 setattr(self, name, _to_state_tensor(value, self.device))
         for bname in self._buffer_states:

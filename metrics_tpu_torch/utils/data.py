@@ -5,6 +5,8 @@ from typing import Any, Dict, List, Optional, Union
 import numpy as np
 import torch
 
+from metrics_tpu_torch.utils.compute import _mean
+
 
 def dim_zero_cat(x: Union[torch.Tensor, List[torch.Tensor], tuple]) -> torch.Tensor:
     """Concatenate a list state along dim 0 (identity on a lone tensor)."""
@@ -13,6 +15,17 @@ def dim_zero_cat(x: Union[torch.Tensor, List[torch.Tensor], tuple]) -> torch.Ten
     if len(x) == 0:
         raise ValueError("No samples to concatenate")
     return torch.cat([torch.atleast_1d(v) for v in x], dim=0)
+
+
+def reduce(x: torch.Tensor, reduction: Optional[str] = "elementwise_mean") -> torch.Tensor:
+    """Reduce a score tensor: its mean (``elementwise_mean``), its sum, or itself (``none``/``None``)."""
+    if reduction == "elementwise_mean":
+        return _mean(x)
+    if reduction == "sum":
+        return x.sum()
+    if reduction is None or reduction == "none":
+        return x
+    raise ValueError("Reduction parameter unknown.")
 
 
 _X32 = {torch.int64: torch.int32, torch.float64: torch.float32, torch.complex128: torch.complex64}

@@ -183,6 +183,14 @@ class TestOverlapAndCounters:
         summary = obs.summarize_counters()["sync"]
         assert summary["async_rounds"] >= 1 and summary["overlap_secs"] > 0.1
 
+    def test_a_cpu_metric_makes_no_side_stream(self, monkeypatch):
+        import metrics_tpu_torch.metric as core
+
+        monkeypatch.setattr(core, "_WORKER_STREAMS", {})
+        m = mt.CatMetric(device="cpu")
+        m.to_device("cpu")
+        assert core._side_stream(m.device) is None and not core._WORKER_STREAMS
+
     def test_catchup_barrier_counts_when_round_is_slow(self):
         chaos = tp.ChaosBackend(tp.LoopbackBackend(), packed=True, stall_secs=0.1)
         m = mt.CatMetric(sync_backend=chaos, device="cpu")

@@ -913,6 +913,24 @@ def test_async_sync_on_cuda_states_equals_the_synchronous_twin(cuda):
 
 
 @pytest.mark.cuda
+def test_a_cuda_metric_makes_its_side_stream_when_it_takes_the_device(cuda, monkeypatch):
+    """A process's first stream makes PyTorch's stream pools (tens of ms): a metric that may
+    run async rounds makes its side stream at construction or ``to_device``, not at a submit."""
+    import metrics_tpu_torch.metric as core
+
+    monkeypatch.setattr(core, "_WORKER_STREAMS", {})
+    mt.CatMetric(device=cuda, async_sync=False)
+    assert not core._WORKER_STREAMS
+    m = mt.CatMetric(device="cpu")
+    assert not core._WORKER_STREAMS
+    m.to_device(cuda)
+    assert list(core._WORKER_STREAMS) == [m.device]
+    stream = core._WORKER_STREAMS[m.device]
+    mt.CatMetric(device=cuda)
+    assert core._WORKER_STREAMS == {m.device: stream}
+
+
+@pytest.mark.cuda
 def test_bf16_states_on_cuda_equal_the_cpu(cuda):
     rng = np.random.default_rng(1)
     preds, target = rng.random((4, 4096), dtype=np.float32), rng.random((4, 4096), dtype=np.float32)
@@ -956,3 +974,86 @@ def test_composition_on_cuda_equals_the_cpu(cuda):
                 assert torch.isnan(a) or torch.equal(a, b)
             else:
                 torch.testing.assert_close(a, b, rtol=10 * 2.0**-24, atol=0)
+
+
+def _rank_blocks(b, d, g, seed, levels=4, areas=4, thresholds=10, lowest=0):
+    """IoU ranks on a coarse grid (ties everywhere) with padded slots, rows and columns, ignore flags and
+    threshold ranks from ``lowest`` up (-1 makes padded slots eligible)."""
+    rng = np.random.default_rng(seed)
+    ranks = rng.integers(0, levels + 1, (b, d, g)).astype(np.int32)
+    ranks[rng.random((b, d, g)) < 0.2] = -1
+    ranks[:, :, g - g // 4:] = -1  # padded gt columns
+    ranks[:, d - d // 3:, :] = -1  # padded det rows
+    ranks[::3, :, :] = -1  # all-padding blocks
+    gig = rng.random((areas, b, g)) < 0.3
+    thr = np.sort(rng.integers(lowest, levels + 1, thresholds)).astype(np.int32)
+    return (torch.from_numpy(ranks), torch.from_numpy(gig), torch.from_numpy(thr))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lowest", [0, -1])
+@pytest.mark.parametrize("b,d,g", [(300, 112, 8), (40, 16, 33), (7, 9, 1100), (5, 4, 0), (0, 3, 3)])
+def test_coco_match_kernel_is_bitwise_its_plain_version(cuda, b, d, g, lowest):
+    from metrics_tpu_torch.ops import coco_match as cm
+
+    ranks, gig, thr = _rank_blocks(b, d, g, seed=b + d + g, lowest=lowest)
+    want = cm.coco_match_plain(ranks, gig, thr)
+    before = cm.coco_match.launches
+    got = cm.coco_match(ranks.to(cuda), gig.to(cuda), thr.to(cuda))
+    torch.cuda.synchronize()
+    assert got.dtype == torch.uint8 and torch.equal(got.cpu(), want)
+    assert cm.coco_match.launches == before + (1 if got.numel() else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("iou_type", ["bbox", "segm"])
+def test_map_device_route_on_cuda_equals_the_cpu(cuda, iou_type):
+    rng = np.random.default_rng(3)
+    preds, targets = [], []
+    for _ in range(20):
+        n_g, n_p = int(rng.integers(1, 6)), int(rng.integers(0, 9))
+        gl = rng.integers(0, 4, n_g)
+        idx = rng.integers(0, n_g, max(n_p, 1))[:n_p]
+        if iou_type == "bbox":
+            gb = np.stack([rng.integers(0, 50, n_g), rng.integers(0, 50, n_g),
+                           rng.integers(55, 90, n_g), rng.integers(55, 90, n_g)], 1).astype(np.float32)
+            item, pitem = gb, np.clip(gb[idx] + rng.integers(-8, 9, (n_p, 4)), 0, 100).astype(np.float32)
+        else:
+            item = np.zeros((n_g, 40, 48), np.uint8)
+            for j in range(n_g):
+                y0, x0 = int(rng.integers(0, 34)), int(rng.integers(0, 42))
+                item[j, y0 : y0 + int(rng.integers(2, 14)), x0 : x0 + int(rng.integers(2, 14))] = 1
+            pitem = np.roll(item[idx], 2, axis=2)
+        key = "boxes" if iou_type == "bbox" else "masks"
+        preds.append({key: pitem, "scores": rng.random(n_p).astype(np.float32), "labels": gl[idx]})
+        targets.append({key: item, "labels": gl})
+    out = {}
+    for device in ("cpu", cuda):
+        moved = lambda ds: [{k: torch.from_numpy(np.asarray(v)).to(device) for k, v in d.items()} for d in ds]  # noqa: E731
+        m = mt.MeanAveragePrecision(iou_type=iou_type, on_device=True, device=device)
+        m.update(moved(preds), moved(targets))
+        out[str(device)] = {k: v.cpu() for k, v in m.compute().items()}
+    for key, value in out["cpu"].items():
+        assert torch.equal(out[str(cuda)][key], value), key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["structural_similarity_index_measure", "universal_image_quality_index",
+                                  "spectral_distortion_index", "multiscale_structural_similarity_index_measure"])
+@pytest.mark.parametrize("tf32", [True, False])
+def test_image_convolutions_on_cuda_stay_float32_with_tf32_allowed(cuda, name, tf32):
+    from metrics_tpu_torch.functional import image as fi
+
+    rng = np.random.default_rng(4)
+    preds = rng.random((2, 3, 192, 192)).astype(np.float32)
+    target = np.clip(0.8 * preds + 0.1 * rng.random(preds.shape), 0, 1).astype(np.float32)
+    fn = getattr(fi, name)
+    want = fn(torch.from_numpy(preds), torch.from_numpy(target))
+    before = torch.backends.cudnn.allow_tf32
+    try:
+        torch.backends.cudnn.allow_tf32 = tf32
+        got = fn(torch.from_numpy(preds).to(cuda), torch.from_numpy(target).to(cuda)).cpu()
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+    # float32 window sums in another order than the CPU's: a few ulps, magnified by the variance's cancellation
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)

@@ -70,3 +70,17 @@ WRAPPERS_AND_RETRIEVAL = [
 @pytest.mark.parametrize("name", WRAPPERS_AND_RETRIEVAL)
 def test_each_wrapper_and_retrieval_functional_has_an_example(name):
     assert ">>>" in (getattr(metrics_tpu_torch, name).__doc__ or "")
+
+
+DETECTION_AND_IMAGE = [
+    "MeanAveragePrecision", "PeakSignalNoiseRatio", "StructuralSimilarityIndexMeasure",
+    "MultiScaleStructuralSimilarityIndexMeasure", "UniversalImageQualityIndex", "ErrorRelativeGlobalDimensionlessSynthesis",
+    "SpectralAngleMapper", "SpectralDistortionIndex", "peak_signal_noise_ratio", "structural_similarity_index_measure",
+    "multiscale_structural_similarity_index_measure", "universal_image_quality_index",
+    "error_relative_global_dimensionless_synthesis", "spectral_angle_mapper", "spectral_distortion_index", "image_gradients",
+]
+
+
+@pytest.mark.parametrize("name", DETECTION_AND_IMAGE)
+def test_each_public_name_of_detection_and_image_has_an_example(name):
+    assert ">>>" in (getattr(metrics_tpu_torch, name).__doc__ or "")

@@ -165,3 +165,29 @@ def test_multistream_without_device_raises_when_cuda_is_absent(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         mt.MultiStreamMetric(base, num_streams=2)
     assert mt.MultiStreamMetric(base, num_streams=2, device="cpu").device == torch.device("cpu")
+
+
+DETECTION_AND_IMAGE = (
+    ["metrics_tpu_torch/utils/imports.py", "metrics_tpu_torch/_native/__init__.py", "metrics_tpu_torch/ops/coco_match.py"]
+    + [f"metrics_tpu_torch/detection/{name}.py" for name in ("__init__", "device", "mean_ap")]
+    + [f"metrics_tpu_torch/functional/image/{name}.py"
+       for name in ("__init__", "helper", "psnr", "ssim", "uqi", "ergas", "sam", "d_lambda", "gradients")]
+    + [f"metrics_tpu_torch/image/{name}.py" for name in ("__init__", "psnr", "ssim", "uqi", "ergas", "sam", "d_lambda")]
+)
+
+
+def test_the_walk_covers_detection_the_native_library_and_image():
+    walked = {p.relative_to(ROOT).as_posix() for p in _port_sources()}
+    assert len(DETECTION_AND_IMAGE) == 22 and set(DETECTION_AND_IMAGE) <= walked
+    assert (ROOT / "metrics_tpu_torch" / "ops" / "csrc" / "coco_match.cu").is_file()
+    assert (ROOT / "metrics_tpu_torch" / "_native" / "native.cpp").is_file()
+
+
+def test_detection_and_image_without_device_raise_when_cuda_is_absent(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (mt.MeanAveragePrecision, mt.PeakSignalNoiseRatio, mt.StructuralSimilarityIndexMeasure,
+                 mt.MultiScaleStructuralSimilarityIndexMeasure, mt.UniversalImageQualityIndex,
+                 mt.ErrorRelativeGlobalDimensionlessSynthesis, mt.SpectralAngleMapper, mt.SpectralDistortionIndex):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+    assert mt.MeanAveragePrecision(device="cpu").device == torch.device("cpu")

@@ -13,7 +13,8 @@ of one whose every collective sleeps, as the stalled peer does there), and
 times each member's first submit and, after that round has ended and one more
 batch, its second:
 
-* ``cold``: nothing warmed;
+* ``cold``: nothing warmed but what building the metrics does (their side
+  stream, made when a metric takes a CUDA device);
 * ``profiled``: as ``cold``, the first submit under ``cProfile`` (the
   caller's thread only), whose heaviest functions are printed;
 * ``side_stream``: the side stream and a CUDA event made first;
@@ -22,7 +23,8 @@ batch, its second:
   side stream, as a sync round's device work does.
 
 It prints the card's name and power limit, a line per variant and, last, one
-JSON object with every variant's times.
+JSON object with every variant's times, the collection's construction
+(``construct_ms``) among them.
 """
 
 import cProfile
@@ -84,7 +86,9 @@ def run_variant(variant: str) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
     batches = [(torch.softmax(torch.randn((BATCH, N_CLASSES), generator=gen, device="cuda"), 1),
                 torch.randint(0, N_CLASSES, (BATCH,), generator=gen, device="cuda")) for _ in range(BATCHES + 1)]
+    start = time.perf_counter()
     col = _collection(mt, ChaosBackend(LoopbackBackend(), packed=True, stall_secs=STALL_SECS))
+    construct_ms = (time.perf_counter() - start) * 1e3
     for probs, target in batches[:BATCHES]:
         col.update(probs, target)
     torch.cuda.synchronize()
@@ -117,7 +121,7 @@ def run_variant(variant: str) -> dict:
     second, handles = _timed_submit(col)
     for handle in handles.values():
         handle.result()
-    out = {"first_ms": first, "second_ms": second}
+    out = {"construct_ms": construct_ms, "first_ms": first, "second_ms": second}
     if profile is not None:
         text = io.StringIO()
         pstats.Stats(profile, stream=text).sort_stats("cumulative").print_stats(25)
@@ -143,7 +147,8 @@ def main() -> int:
         if "profile" in seen:
             print(seen.pop("profile"))
         results[variant] = seen
-        print(f"{variant}: first submit ms {seen['first_ms']!r}; second {seen['second_ms']!r}")
+        print(f"{variant}: construction ms {seen['construct_ms']!r}; first submit ms {seen['first_ms']!r}; "
+              f"second {seen['second_ms']!r}")
     print(json.dumps(results))
     return 0
 
