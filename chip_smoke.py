@@ -163,7 +163,27 @@ Phases (each passes or raises; any failure exits non-zero):
      pan-sharpening pass (1,000 patches of 256 x 256, batches of 32) through
      ERGAS, SAM and D-lambda, the card within tolerance of the CPU with TF32
      allowed and not, and pixels/s.  It fails if the C++ host library did
-     not build.
+     not build;
+ 15. generation, LPIPS and text (no kernel of the port lies on this path: the
+     JAX package runs these metrics without Pallas): (a) 10,000 real and
+     10,000 generated CIFAR-10 test-shaped images (3 x 32 x 32 uint8, made on
+     the card from the seed, batches of 100) through FID (2048 features),
+     KID (100 subsets of 1,000) and IS (10 splits over the unbiased logits of
+     the generated set) on the built-in Inception-v3 (random init from the
+     seed, FID variant, resized to 299), each at the caller's batch and with
+     ``extractor_batch=500``, equal within tolerance, and FID once more in
+     bfloat16; one batch's features on the card against the CPU's, and FID
+     from the same states on the CPU; images/s, the extractor's ms per image
+     and FID's ``compute()`` ms; (b) 5,000 BAPPS-shaped 64 x 64 patch pairs
+     (batches of 50) through LPIPS on ``alex``, ``vgg`` and ``squeeze``, the
+     card against the CPU, pairs/s; (c) FID and KID over two gloo ranks on
+     ``cuda:0``, each rank half of (a), equal to (a)'s one process, and the
+     bytes KID's cat states gather; (d) 2,620 LibriSpeech test-clean-shaped
+     utterance pairs (seeded words, about 5 % substitutions, insertions and
+     deletions) through WER, CER, MER, WIL and WIP in one collection (batches
+     of 32): the card's values bitwise the CPU's, WER as a plain edit
+     distance gives it, the updates issue no device operation (profiler),
+     utterances/s.
 The last line is ``{"ok": true, "device": {...}}``.
 
 The sync phases run this script again as their ranks
@@ -722,6 +742,8 @@ def sync_rank(scenario: str, rank: int, where: Path) -> int:
         _rank_checkpoint(mt, rank, where)
     elif scenario == "detection":
         _rank_detection(mt, rank, where)
+    elif scenario == "generation":
+        _rank_generation(mt, rank, where)
     else:
         _, _, batches = _imagenet_pass()
         if scenario == "stall":
@@ -5126,6 +5148,419 @@ def phase_detection_image(mt, card: str) -> Tuple[dict, dict]:
                                 "coco_match_launches": launches, "image": image, "phase_s": secs}}
     return entry, line
 
+# ---------------------------------------------------------------------------------------------------------------
+# Phase 15: FID, KID, IS and LPIPS on their extractors, and the WER family
+# ---------------------------------------------------------------------------------------------------------------
+GEN_IMAGES, GEN_SIDE, GEN_BATCH = 10_000, 32, 100  # CIFAR-10 test: 10,000 RGB images of 32 x 32; a caller's batch
+GEN_CHUNK = 500  # extractor_batch of the chunked runs
+GEN_CPU_IMAGES = 16  # the card-against-CPU feature check (the CPU runs Inception at 299 x 299)
+GEN_SYNC_BATCHES = GEN_IMAGES // GEN_BATCH // 4  # (c): each rank a quarter of (a)'s batches of each set, the two
+# ranks together its first half
+KID_SUBSETS, KID_SUBSET_SIZE = 100, 1000  # KID's defaults
+IS_SPLITS = 10
+LPIPS_PAIRS, LPIPS_SIDE, LPIPS_BATCH = 5_000, 64, 50  # BAPPS patches are 64 x 64; pairs cut to the phase's budget
+LPIPS_NETS = ("alex", "vgg", "squeeze")
+LPIPS_CPU_PAIRS = 4
+LIBRI_UTTERANCES, LIBRI_BATCH = 2_620, 32  # LibriSpeech test-clean: 2,620 utterances
+LIBRI_VOCAB = 8_000
+LIBRI_EDIT_RATE = 0.05  # substitutions, insertions and deletions together, per reference word
+# the card against the CPU, and the batch against the chunked runs: Inception features to the parity tests'
+# tolerance (float32 through ~95 convolutions summed in other orders); FID within a share of the magnitudes of
+# the terms its formula sums (the float32 eigh of a 2048 x 2048 covariance on the card carries ~1e-3 of them in
+# the square roots of its small eigenvalues: 8.3e-4 against the CPU's 6.8e-5 in tools/inception_probe.py),
+# KID within a share of its kernel sums' scale (the kernel values are about 1 here), IS's mean relative and its
+# deviation within that share of the mean
+FEATURE_RTOL, FEATURE_ATOL = 1e-4, 1e-5
+FID_TERM_SHARE = 5e-3
+KID_ATOL = 1e-5
+IS_RTOL = 1e-5
+LPIPS_RTOL, LPIPS_ATOL = 1e-4, 1e-6
+
+
+def _gen_batch(real: bool, i: int) -> torch.Tensor:
+    """Batch ``i`` of (a)'s real or generated images, made on the card from the seed (any rank makes the same)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1600 + (0 if real else 100_000) + i)
+    shape = (GEN_BATCH, 3, GEN_SIDE, GEN_SIDE)
+    base = torch.randint(0, 256, shape, generator=gen, device=DEVICE, dtype=torch.int32)
+    if real:
+        return base.to(torch.uint8)
+    noise = torch.randint(-24, 25, shape, generator=gen, device=DEVICE, dtype=torch.int32)
+    return (base * 7 // 8 + 16 + noise).clamp(0, 255).to(torch.uint8)  # a generator's blurred, shifted copy
+
+
+def _gen_pass(metric, sides, n_batches: int, lo: int = 0, snapshots: Optional[dict] = None):
+    """Batches ``lo .. lo + n_batches`` of each set in ``sides`` (``None``: the generated set, unlabelled)
+    through ``metric``, then its value: ``(value, seconds of the whole pass, ms of the compute)``, synchronized.
+    ``snapshots`` maps batch counts to None: each is set to a clone of the metric after that many batches."""
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for i in range(lo, lo + n_batches):
+        for real in sides:
+            if real is None:
+                metric.update(_gen_batch(False, i))
+            else:
+                metric.update(_gen_batch(real, i), real)
+        if snapshots is not None and i + 1 - lo in snapshots:
+            snapshots[i + 1 - lo] = metric.clone()
+    torch.cuda.synchronize()
+    mid = time.perf_counter()
+    value = metric.compute()
+    torch.cuda.synchronize()
+    end = time.perf_counter()
+    return value, end - start, (end - mid) * 1e3
+
+
+def _scores(value) -> list:
+    return [float(v) for v in (value if isinstance(value, tuple) else (value,))]
+
+
+def _score_bits(value) -> list:
+    return [v.cpu().numpy().tobytes().hex() for v in (value if isinstance(value, tuple) else (value,))]
+
+
+def _fid_reference(metric) -> Tuple[float, float]:
+    """FID from the metric's states in float64 on the host (the same formula), and its tolerance: a share of
+    the magnitudes of the terms the formula cancels, ``|mu1 - mu2|^2 + tr S1 + tr S2 + 2 tr sqrt(S1 S2)``."""
+    from metrics_tpu_torch.image.fid import FrechetInceptionDistance, _trace_sqrt_product
+
+    states = {k: v.detach().cpu().double() for k, v in metric.state_pytree().items() if isinstance(v, torch.Tensor)}
+    mu1, s1 = FrechetInceptionDistance._mean_cov(states["real_sum"], states["real_outer"], states["real_n"])
+    mu2, s2 = FrechetInceptionDistance._mean_cov(states["fake_sum"], states["fake_outer"], states["fake_n"])
+    diff = float((mu1 - mu2) @ (mu1 - mu2))
+    tr1, tr2, cross = float(torch.trace(s1)), float(torch.trace(s2)), float(_trace_sqrt_product(s1, s2))
+    return diff + tr1 + tr2 - 2 * cross, FID_TERM_SHARE * (abs(diff) + abs(tr1) + abs(tr2) + 2 * abs(cross))
+
+
+def _check_scores(name: str, got: list, want: list, kind: str, slack: float = 0.0) -> float:
+    """``got`` against ``want`` (FID, KID or IS values) by the kind's tolerance; the largest difference."""
+    diffs = [abs(g - w) for g, w in zip(got, want)]
+    if kind == "fid":
+        ok = diffs[0] <= slack
+    elif kind == "kid":
+        ok = all(d <= KID_ATOL for d in diffs)
+    else:
+        ok = diffs[0] <= IS_RTOL * abs(want[0]) and diffs[1] <= IS_RTOL * abs(want[0])
+    if not ok or not all(np.isfinite(got)):
+        raise AssertionError(f"{name}: {got} against {want} (differences {diffs}, FID slack {slack})")
+    return max(diffs)
+
+
+def _extractor_ms(extractor, batch: torch.Tensor, reps: int = 3) -> float:
+    """Device ms per image of one extractor call on ``batch`` (warm, CUDA events, median of ``reps``)."""
+    extractor(batch)
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        extractor(batch)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times) / batch.shape[0]
+
+
+def phase_generation(mt) -> Tuple[dict, dict]:
+    """(a): FID, KID and IS over CIFAR-10 test-shaped real and generated sets through the built-in Inception.
+    Returns the line's entry and the single-process values that (c) is held to."""
+    from metrics_tpu_torch.image.backbones import InceptionFeatureExtractor
+
+    n_batches = GEN_IMAGES // GEN_BATCH
+    out, single = {}, {}
+    specs = {
+        "fid": (lambda **kw: mt.FrechetInceptionDistance(feature=2048, device=DEVICE, **kw), (True, False)),
+        "kid": (lambda **kw: mt.KernelInceptionDistance(feature=2048, subsets=KID_SUBSETS, subset_size=KID_SUBSET_SIZE,
+                                                        device=DEVICE, **kw), (True, False)),
+        "is": (lambda **kw: mt.InceptionScore(feature="logits_unbiased", splits=IS_SPLITS, device=DEVICE, **kw), (None,)),
+    }
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)  # random init: "no converted weights installed"
+        for name, (make, sides) in specs.items():
+            runs = {}
+            for tag, kwargs in (("batch", {}), ("chunked", {"extractor_batch": GEN_CHUNK})):
+                metric = make(**kwargs)
+                # (c)'s one process: the first half of each set, the batches the two ranks take
+                half = {2 * GEN_SYNC_BATCHES: None} if tag == "batch" and name != "is" else None
+                value, secs, compute_ms = _gen_pass(metric, sides, n_batches, snapshots=half)
+                if half is not None:
+                    sync_value = half[2 * GEN_SYNC_BATCHES].compute()
+                    single[name + "_half"], single[name + "_half_bits"] = _scores(sync_value), _score_bits(sync_value)
+                    if name == "fid":
+                        single["fid_half_slack"] = _fid_reference(half[2 * GEN_SYNC_BATCHES])[1]
+                    del half
+                images = n_batches * GEN_BATCH * len(sides)
+                runs[tag] = {"value": _scores(value), "seconds": secs, "images_per_s": images / secs,
+                             "compute_ms": compute_ms}
+                if tag == "batch":
+                    single[name], single[name + "_bits"] = _scores(value), _score_bits(value)
+                    if name == "fid":
+                        fid = metric
+                        reference, single["fid_slack"] = _fid_reference(metric)
+                        _check_scores("FID against its float64 reference", single["fid"], [reference], "fid",
+                                      single["fid_slack"])
+                        runs["float64_reference"] = reference
+                del metric
+            runs["chunked_vs_batch"] = _check_scores(f"{name} chunked against the caller's batch",
+                                                     runs["chunked"]["value"], runs["batch"]["value"], name,
+                                                     single.get("fid_slack", 0.0))
+            out[name] = runs
+            print(f"{name}: {runs['batch']['value']} at {runs['batch']['images_per_s']!r} images/s (caller's batch "
+                  f"{GEN_BATCH}), {runs['chunked']['images_per_s']!r} (extractor_batch {GEN_CHUNK}); compute "
+                  f"{runs['batch']['compute_ms']!r} ms")
+        bf16 = mt.FrechetInceptionDistance(feature=2048, extractor_dtype=torch.bfloat16, device=DEVICE)
+        value, secs, _ = _gen_pass(bf16, (True, False), n_batches)
+        out["fid_bf16"] = {"value": float(value), "seconds": secs, "images_per_s": 2 * GEN_IMAGES / secs,
+                           "relative_to_float32": float(value) / single["fid"][0] - 1}
+        print(f"fid bf16: {float(value)!r} at {out['fid_bf16']['images_per_s']!r} images/s")
+        del bf16
+        # the card against the CPU: one batch's features, and FID from the same states
+        batch = _gen_batch(True, 0)
+        card = fid.extractor(batch[:GEN_CPU_IMAGES]).cpu()
+        cpu_extractor = InceptionFeatureExtractor("2048", device="cpu")
+        cpu = cpu_extractor(batch[:GEN_CPU_IMAGES].cpu())
+        err = float((card - cpu).abs().max())
+        if not torch.allclose(card, cpu, rtol=FEATURE_RTOL, atol=FEATURE_ATOL):
+            raise AssertionError(f"Inception features on the card differ from the CPU's by {err}")
+        cpu_fid = mt.FrechetInceptionDistance(feature=cpu_extractor, feature_dim=2048, device="cpu")
+        cpu_fid.load_state_pytree({k: v.cpu() if isinstance(v, torch.Tensor) else v
+                                   for k, v in fid.state_pytree().items()})
+        cpu_value = float(cpu_fid.compute())
+        fid_err = _check_scores("FID on the CPU from the card's states", [cpu_value], single["fid"], "fid",
+                                single["fid_slack"])
+        out["card_vs_cpu"] = {"features_max_abs_err": err, "fid_cpu": cpu_value, "fid_abs_err": fid_err,
+                              "fid_slack": single["fid_slack"]}
+        print(f"generation: features on the card within {err!r} of the CPU's; FID from the same states on the CPU "
+              f"{cpu_value!r} (card {single['fid'][0]!r}, slack {single['fid_slack']!r})")
+        per_image = {}
+        for tag, size, dtype in (("float32_batch", GEN_BATCH, None), ("float32_chunk", GEN_CHUNK, None),
+                                 ("bf16_chunk", GEN_CHUNK, torch.bfloat16)):
+            extractor = fid.extractor if dtype is None else InceptionFeatureExtractor("2048", compute_dtype=dtype,
+                                                                                      device=DEVICE)
+            images = torch.cat([_gen_batch(True, i) for i in range(size // GEN_BATCH)])
+            per_image[tag] = _extractor_ms(extractor, images)
+        out["extractor_ms_per_image"] = per_image
+        print(f"extractor ms per image: {per_image}")
+    line = {"images": GEN_IMAGES, "shape": [3, GEN_SIDE, GEN_SIDE], "batch": GEN_BATCH, "chunk": GEN_CHUNK, **out,
+            "fid_compute_ms": out["fid"]["batch"]["compute_ms"]}
+    return line, single
+
+
+def _lpips_batch(i: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1700 + i)
+    shape = (LPIPS_BATCH, 3, LPIPS_SIDE, LPIPS_SIDE)
+    ref = torch.rand(shape, generator=gen, device=DEVICE) * 2 - 1
+    return ref, (ref + 0.2 * torch.randn(shape, generator=gen, device=DEVICE)).clamp(-1, 1)
+
+
+def phase_lpips(mt) -> dict:
+    """(b): BAPPS-shaped patch pairs through LPIPS on each built-in net."""
+    n_batches = LPIPS_PAIRS // LPIPS_BATCH
+    batches = [_lpips_batch(i) for i in range(n_batches)]
+    out = {}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        for net_type in LPIPS_NETS:
+            metric = mt.LearnedPerceptualImagePatchSimilarity(net_type=net_type, device=DEVICE)
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            for a, b in batches:
+                metric.update(a, b)
+            value = float(metric.compute())
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - start
+            cpu = mt.LearnedPerceptualImagePatchSimilarity(net_type=net_type, device="cpu")
+            a, b = batches[0]
+            card = metric._net(a[:LPIPS_CPU_PAIRS], b[:LPIPS_CPU_PAIRS]).cpu()
+            want = cpu._net(a[:LPIPS_CPU_PAIRS].cpu(), b[:LPIPS_CPU_PAIRS].cpu())
+            err = float((card - want).abs().max())
+            if not np.isfinite(value) or not torch.allclose(card, want, rtol=LPIPS_RTOL, atol=LPIPS_ATOL):
+                raise AssertionError(f"lpips {net_type}: {value}; the card's distances differ from the CPU's by {err}")
+            out[net_type] = {"value": value, "seconds": secs, "pairs_per_s": LPIPS_PAIRS / secs, "card_vs_cpu": err}
+            print(f"lpips {net_type}: {value!r} at {LPIPS_PAIRS / secs!r} pairs/s; the card within {err!r} of the CPU")
+    return {"pairs": LPIPS_PAIRS, "side": LPIPS_SIDE, "batch": LPIPS_BATCH, **out}
+
+
+def _rank_generation(mt, rank: int, out: Path) -> None:
+    """(c): this rank's quarter of (a)'s batches of each set through FID and KID, synced at compute."""
+    record = {}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        for name, metric in (("fid", mt.FrechetInceptionDistance(feature=2048, device=DEVICE)),
+                             ("kid", mt.KernelInceptionDistance(feature=2048, subsets=KID_SUBSETS,
+                                                                subset_size=KID_SUBSET_SIZE, device=DEVICE))):
+            value, secs, compute_ms = _gen_pass(metric, (True, False), GEN_SYNC_BATCHES, rank * GEN_SYNC_BATCHES)
+            report = metric.last_sync_report or {}
+            record[name] = {"value": _scores(value), "bits": _score_bits(value), "seconds": secs,
+                            "compute_ms": compute_ms, "bytes_gathered": report.get("bytes_gathered"),
+                            "world_size": report.get("world_size")}
+    (out / f"rank{rank}.json").write_text(json.dumps(record))
+
+
+def phase_generation_sync(single: dict) -> dict:
+    """(c): FID and KID over two gloo ranks on ``cuda:0``, together the first half of (a)'s batches of each set;
+    equal to one process over them (a snapshot of (a)'s pass)."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_generation_") as tmp:
+        where = Path(tmp) / "generation"
+        start = time.perf_counter()
+        records = _wait_ranks("generation", _start_ranks("generation", where), where)
+        secs = time.perf_counter() - start
+    for rank, record in enumerate(records):
+        if record["fid"]["world_size"] != SYNC_WORLD or record["kid"]["world_size"] != SYNC_WORLD:
+            raise AssertionError(f"generation sync: rank {rank} did not sync over {SYNC_WORLD} ranks: {record}")
+        _check_scores(f"FID synced on rank {rank}", record["fid"]["value"], single["fid_half"], "fid",
+                      single["fid_half_slack"])
+        _check_scores(f"KID synced on rank {rank}", record["kid"]["value"], single["kid_half"], "kid")
+    kid_bitwise = all(r["kid"]["bits"] == single["kid_half_bits"] for r in records)
+    print(f"generation sync: FID and KID over two ranks equal one process (KID bitwise: {kid_bitwise}); "
+          f"KID gathered {records[0]['kid']['bytes_gathered']} bytes a rank; {secs:.1f} s with the ranks' start")
+    return {"images_per_rank": 2 * GEN_SYNC_BATCHES * GEN_BATCH, "seconds": secs, "kid_bitwise": kid_bitwise,
+            "one_process": {"fid": single["fid_half"], "kid": single["kid_half"]}, "ranks": records}
+
+
+def _libri_corpus() -> Tuple[list, list, dict]:
+    """LibriSpeech test-clean-shaped pairs: references of 1-80 words (about 20 on average) over a Zipf
+    vocabulary, hypotheses with substitutions, insertions and deletions at ``LIBRI_EDIT_RATE`` in all."""
+    rng = np.random.default_rng(SEED + 1800)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz'"))
+    vocab = ["".join(rng.choice(letters[:26], size=int(rng.integers(1, 11)))) for _ in range(LIBRI_VOCAB)]
+    weights = 1.0 / np.arange(1, LIBRI_VOCAB + 1)
+    weights /= weights.sum()
+    preds, target = [], []
+    edits = {"sub": 0, "ins": 0, "del": 0, "words": 0}
+    for _ in range(LIBRI_UTTERANCES):
+        n = int(np.clip(rng.lognormal(np.log(17.0), 0.6), 1, 80))
+        ref = [vocab[i] for i in rng.choice(LIBRI_VOCAB, size=n, p=weights)]
+        hyp = []
+        for word in ref:
+            u = rng.random()
+            if u < LIBRI_EDIT_RATE / 3:
+                hyp.append(vocab[int(rng.integers(LIBRI_VOCAB))])
+                edits["sub"] += 1
+            elif u < 2 * LIBRI_EDIT_RATE / 3:
+                edits["del"] += 1
+            else:
+                hyp.append(word)
+            if rng.random() < LIBRI_EDIT_RATE / 3:
+                hyp.append(vocab[int(rng.integers(LIBRI_VOCAB))])
+                edits["ins"] += 1
+        edits["words"] += n
+        preds.append(" ".join(hyp))
+        target.append(" ".join(ref))
+    return preds, target, edits
+
+
+def _levenshtein(a: list, b: list) -> int:
+    """A plain dynamic program, the independent reference of the native edit distance."""
+    prev = list(range(len(b) + 1))
+    for i, x in enumerate(a, 1):
+        cur = [i] + [0] * len(b)
+        for j, y in enumerate(b, 1):
+            cur[j] = min(prev[j] + 1, cur[j - 1] + 1, prev[j - 1] + (x != y))
+        prev = cur
+    return prev[-1]
+
+
+def _text_collection(mt, device: str):
+    return mt.MetricCollection({"wer": mt.WordErrorRate(device=device), "cer": mt.CharErrorRate(device=device),
+                                "mer": mt.MatchErrorRate(device=device), "wil": mt.WordInfoLost(device=device),
+                                "wip": mt.WordInfoPreserved(device=device)}, device=device)
+
+
+def _updates_issue_no_device_operation(col, batches) -> Optional[int]:
+    """Profile the collection's updates, then one canary addition on the card: the session must record
+    the canary's one device operation and nothing else.  None where no session recorded even the canary."""
+    from torch.profiler import ProfilerActivity, profile
+
+    canary = torch.ones(1, device=DEVICE)
+    for _ in range(PROFILER_ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for preds, target in batches:
+                col.update(preds, target)
+            canary = canary + 1
+            torch.cuda.synchronize()
+        seen = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if seen:
+            if len(seen) != 1:
+                raise AssertionError(f"text: the updates issued device operations: {seen[:10]}")
+            return len(seen)
+    print("text: device operations of the updates not profiled (no session recorded the canary)")
+    return None
+
+
+def _libri_batches() -> Tuple[list, list, list, dict]:
+    preds, target, edits = _libri_corpus()
+    batches = [(preds[i : i + LIBRI_BATCH], target[i : i + LIBRI_BATCH]) for i in range(0, len(preds), LIBRI_BATCH)]
+    return preds, target, batches, edits
+
+
+def _text_update_profile(mt) -> Optional[int]:
+    """(d)'s profile of the WER family's updates on the card (see :func:`_updates_issue_no_device_operation`).
+    ``main`` takes it early: profiler sessions after the curve phase lose events."""
+    _, _, batches, _ = _libri_batches()
+    col = _text_collection(mt, DEVICE)
+    col.update(*batches[0])  # the first update forms the compute groups
+    seen = _updates_issue_no_device_operation(col, batches[1:])
+    if not all(m._host_buffers_dirty for m in col.values()):  # no state was written: the sums wait on the host
+        raise AssertionError("text: an update wrote a state on the card")
+    return seen
+
+
+def phase_text(mt, device_ops: Optional[int]) -> dict:
+    """(d): LibriSpeech test-clean-shaped transcripts through the WER family in one collection.
+    ``device_ops`` is :func:`_text_update_profile`'s result."""
+    preds, target, batches, edits = _libri_batches()
+    col = _text_collection(mt, DEVICE)
+    col.update(*batches[0])  # the first update forms the compute groups
+    start = time.perf_counter()
+    for p, t in batches[1:]:
+        col.update(p, t)
+    values = col.compute()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - start
+    if not all(v.device.type == torch.device(DEVICE).type for v in values.values()):
+        raise AssertionError("text: values left the card")
+    cpu = _text_collection(mt, "cpu")
+    for p, t in batches:
+        cpu.update(p, t)
+    cpu_values = cpu.compute()
+    for name, value in values.items():
+        if value.cpu().numpy().tobytes() != cpu_values[name].numpy().tobytes():
+            raise AssertionError(f"text {name}: the card's {float(value)} is not the CPU's {float(cpu_values[name])}")
+    errors = sum(_levenshtein(p.split(), t.split()) for p, t in zip(preds, target))
+    words = sum(len(t.split()) for t in target)
+    if float(values["wer"]) != float(np.float32(errors) / np.float32(words)):
+        raise AssertionError(f"text: WER {float(values['wer'])} against a plain edit distance's {errors / words}")
+    chars = 200
+    char_errors = sum(_levenshtein(list(p), list(t)) for p, t in zip(preds[:chars], target[:chars]))
+    char_total = sum(len(t) for t in target[:chars])
+    if float(mt.char_error_rate(preds[:chars], target[:chars])) != float(np.float32(char_errors) / np.float32(char_total)):
+        raise AssertionError("text: CER of the first utterances against a plain edit distance's")
+    profiled = "not profiled" if device_ops is None else "no device operation (the profiler saw its canary alone)"
+    print(f"text: {({k: float(v) for k, v in values.items()})} at {LIBRI_UTTERANCES / secs!r} utterances/s; the "
+          f"card's values bitwise the CPU's; WER {errors}/{words} as a plain edit distance; the updates: {profiled}; "
+          f"groups {col.compute_groups}")
+    return {"utterances": LIBRI_UTTERANCES, "words": words, "batch": LIBRI_BATCH, "edits_applied": edits,
+            "values": {k: float(v) for k, v in values.items()}, "seconds": secs,
+            "utterances_per_s": LIBRI_UTTERANCES / secs, "device_ops_in_updates": 0 if device_ops else None,
+            "compute_groups": {str(k): v for k, v in col.compute_groups.items()}}
+
+
+def phase_generation_text(mt, card: str, text_profile: Optional[int] = None) -> dict:
+    """Phase 15: (a) FID, KID and IS on CIFAR-10 test-shaped sets, (b) LPIPS on BAPPS-shaped patches, (c) FID and
+    KID over two gloo ranks, (d) the WER family on LibriSpeech test-clean-shaped transcripts.  ``text_profile``
+    is :func:`_text_update_profile`'s result where ``main`` took it early, else (d) takes it."""
+    phase_start = time.perf_counter()
+    generation, single = phase_generation(mt)
+    torch.cuda.empty_cache()
+    lpips = phase_lpips(mt)
+    torch.cuda.empty_cache()
+    sync = phase_generation_sync(single)
+    text = phase_text(mt, _text_update_profile(mt) if text_profile is None else text_profile)
+    secs = time.perf_counter() - phase_start
+    print(f"generation_text phase took {secs:.1f} s")
+    return {"generation_text": {"card": card, "generation": generation, "lpips": lpips, "sync": sync, "text": text,
+                                "phase_s": secs}}
+
+
 def _device_ops(fn, calls: int = 1) -> Optional[list]:
     """(name, device ms) of each device operation that ``calls`` calls of ``fn`` issue, as
     torch.profiler records them; None where the profiler records no device activity on this machine."""
@@ -5303,6 +5738,7 @@ def main() -> int:
     from metrics_tpu_torch import obs
 
     obs_profiles = _obs_profiles(mt, obs, logits, labels)
+    text_profile = _text_update_profile(mt)  # phase 15 (d)'s, early too
     curve_launches, curve_line = phase_curves(mt, ops, logits, labels, card)
     rest_launches, rest_line = phase_rest(mt, ops, logits, labels, card)
     del logits, labels
@@ -5318,6 +5754,8 @@ def main() -> int:
     core_launches, core_counts, core_line = phase_core_obs(mt, ops, single, obs_profiles, card)
     torch.cuda.empty_cache()
     match_entry, detection_line = phase_detection_image(mt, card)
+    torch.cuda.empty_cache()
+    generation_line = phase_generation_text(mt, card, text_profile)
     print(f"launches per entry point: main path {launches}, curve phase {curve_launches}, "
           f"rest of classification {rest_launches}, regression {regression_launches}, "
           f"wrappers and retrieval {wrapper_launches}, streaming {streaming_launches}, multistream {ms_launches}, "
@@ -5345,6 +5783,7 @@ def main() -> int:
     print(json.dumps(ms_line))
     print(json.dumps(core_line))
     print(json.dumps(detection_line))
+    print(json.dumps(generation_line))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -258,14 +258,18 @@ class MetricCollection(nn.Module):
             leader = self._modules[group[0]]
             for name in group[1:]:
                 member = self._modules[name]
-                for key in member._defaults:
-                    value = getattr(leader, key)
-                    # lists are appended to in place: each member gets its own list
-                    setattr(member, key, list(value) if isinstance(value, list) else value)
-                for bname, meta in member._buffer_states.items():
-                    # the leader alone appends in place into the shared buffers
-                    member._refresh_buffer_meta(bname)
-                    meta["owned"] = None
+                if leader._host_buffers_dirty:
+                    # the leader's host sums wait for a read: so does the member's copy of them
+                    member._follow_leader(leader)
+                else:
+                    for key in member._defaults:
+                        value = getattr(leader, key)
+                        # lists are appended to in place: each member gets its own list
+                        setattr(member, key, list(value) if isinstance(value, list) else value)
+                    for bname, meta in member._buffer_states.items():
+                        # the leader alone appends in place into the shared buffers
+                        member._refresh_buffer_meta(bname)
+                        meta["owned"] = None
                 member._update_count = leader._update_count
                 member._computed = None
                 # shared states share ONE synced watermark: a member syncing

@@ -4,6 +4,8 @@
 ``.state_dict()`` returns (arrays, read here through ``numpy.asarray``) and
 what ``._ckpt_extra_state()`` returns (plain JSON), and loads them into the
 matching metric of this package.  It needs neither JAX nor the JAX package.
+:func:`inception_state_dict_from_flax` and :func:`lpips_state_dict_from_flax`
+carry the image extractors' weights across (they are weights, not states).
 The two wrappers that carry more than their base metric's state,
 ``BootStrapper`` and ``MinMaxMetric``, take a dict of their parts (see
 :func:`load_jax_state`).
@@ -15,6 +17,10 @@ import numpy as np
 import torch
 
 from metrics_tpu_torch.detection import MeanAveragePrecision
+from metrics_tpu_torch.image.backbones.convert import (  # noqa: F401  (re-exported: the extractors' weights)
+    inception_state_dict_from_flax,
+    lpips_state_dict_from_flax,
+)
 from metrics_tpu_torch.metric import Metric
 from metrics_tpu_torch.wrappers import BootStrapper, MinMaxMetric
 

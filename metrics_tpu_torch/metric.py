@@ -27,6 +27,14 @@ the local state after.  See :mod:`metrics_tpu_torch.parallel`.
 :meth:`Metric.sync_async` runs such a round on a background thread instead,
 and the next ``sync`` folds it in (the catch-up barrier).
 
+Host-orchestrated metrics (the string metrics) sum their per-update
+statistics on the host (:meth:`Metric._host_accumulate`, numpy float64) and
+fold them into their states at the next read.  While sums are pending, the
+states are held out of the instance's ``__dict__``, so that a direct read of
+one (``m.errors``) passes through ``__getattr__`` and flushes first, as every
+other read surface does (``state``, ``forward``, ``compute``, ``sync``,
+``merge_state``, ``state_dict``, pickling).
+
 Metrics compose with Python's operators (``(f1 + acc) / 2``, ``-prec``,
 ``acc[7]``): each builds a :class:`CompositionalMetric` that updates its
 operands and applies the operator to their computed values.
@@ -485,6 +493,8 @@ class Metric(nn.Module, ABC):
         self._last_synced_state: Optional[Dict[str, Any]] = None
         self.last_sync_report: Optional[Dict[str, Any]] = None
         self.sync_report_history: deque = deque(maxlen=16)
+        self._host_buffers_dirty = False
+        self._state_swapped = False
         self._install_wrappers()
 
     def _install_wrappers(self) -> None:
@@ -788,10 +798,111 @@ class Metric(nn.Module, ABC):
         self._flush_host_buffers()
         return {name: getattr(self, name) for name in self._defaults}
 
+    # ------------------------------------------------------- host-side buffers
+    def _host_accumulate(self, **increments: Any) -> None:
+        """Sum per-update host statistics (Python or numpy numbers) into the named
+        states at the next read instead of now: the sums wait on the host in
+        float64, and the states take one add each when read.
+
+        Under the pure state API (:meth:`apply_update`) the increments land in
+        the swapped-in state at once.
+        """
+        if self._state_swapped:
+            for name, inc in increments.items():
+                self._fold_host_sum(name, np.asarray(inc, np.float64))
+            return
+        acc = self.__dict__.setdefault("_host_scalar_acc", {})
+        for name, inc in increments.items():
+            inc = np.asarray(inc, np.float64)
+            prev = acc.get(name)
+            acc[name] = inc if prev is None else prev + inc
+        self._hold_states()
+
+    def _fold_host_sum(self, name: str, inc: np.ndarray) -> None:
+        # cast to the state's dtype first, then add: float32 states match the
+        # JAX package's `state + jnp.asarray(inc, state.dtype)` bit for bit
+        state = getattr(self, name)
+        setattr(self, name, state + torch.as_tensor(inc, dtype=state.dtype).to(state.device))
+
+    def _hold_states(self) -> None:
+        """Mark host-side buffers pending: every state leaves ``__dict__``, so a
+        read of any of them reaches ``__getattr__``, which flushes first."""
+        self._host_buffers_dirty = True
+        held = self.__dict__.setdefault("_held_states", {})
+        live = self.__dict__
+        for name in self._defaults:
+            if name in live:
+                held[name] = live.pop(name)
+
+    def _release_states(self) -> None:
+        """Put the held states back into ``__dict__`` as they are (no flush)."""
+        held = self.__dict__.get("_held_states")
+        if held:
+            self.__dict__.update(held)
+            held.clear()
+
+    def __getattr__(self, name: str) -> Any:
+        held = self.__dict__.get("_held_states")
+        if held and name in held:
+            self._flush_host_buffers()
+            # a flush already running (an image queue's drain) leaves it held
+            return held[name] if name in held else self.__dict__[name]
+        return super().__getattr__(name)
+
+    def __setattr__(self, name: str, value: Any) -> None:
+        held = self.__dict__.get("_held_states")
+        if held and name in held:
+            held[name] = value
+            return
+        super().__setattr__(name, value)
+
+    def _follow_leader(self, leader: "Metric") -> None:
+        """A compute-group member whose leader has pending host buffers takes the
+        leader's states at its own next read, not at every collection update."""
+        self.__dict__["_leader_pending"] = leader
+        self._hold_states()
+
     def _flush_host_buffers(self) -> None:
-        """Hook run at every state read (``state``, ``forward``, ``compute``,
-        ``sync``): a subclass settles host-side bookkeeping there, and only
-        there, never per update."""
+        """Fold the host-side buffers into the states.  Runs at every read
+        surface (``state``, ``forward``, ``compute``, ``sync``, ``merge_state``,
+        pickling, and a direct read of a held state), never at update entry, so
+        sums accumulate across updates.  The base folds the
+        :meth:`_host_accumulate` sums; subclasses with buffers of their own
+        (an image queue, a sketch's compaction count) extend it.  A swapped-in
+        state never absorbs the instance's pending sums."""
+        if self._state_swapped or not self._host_buffers_dirty:
+            return
+        self._release_states()
+        leader = self.__dict__.pop("_leader_pending", None)
+        if leader is not None:
+            for key in self._defaults:
+                value = getattr(leader, key)
+                setattr(self, key, list(value) if isinstance(value, list) else value)
+            for bname, meta in self._buffer_states.items():
+                self._refresh_buffer_meta(bname)
+                meta["owned"] = None
+        acc = self.__dict__.get("_host_scalar_acc")
+        if acc:
+            self.__dict__["_host_scalar_acc"] = {}
+            for name, inc in acc.items():
+                self._fold_host_sum(name, inc)
+        self._host_buffers_dirty = False
+
+    def _stash_host_buffers(self) -> Tuple[Dict[str, Any], Any, bool]:
+        """Set the pending host buffers aside (the states stay as they are) for a swapped-in state."""
+        pending = (self.__dict__.pop("_host_scalar_acc", {}), self.__dict__.pop("_leader_pending", None),
+                   self._host_buffers_dirty)
+        self._release_states()
+        self._host_buffers_dirty = False
+        return pending
+
+    def _unstash_host_buffers(self, pending: Tuple[Dict[str, Any], Any, bool]) -> None:
+        acc, leader, dirty = pending
+        self.__dict__["_host_scalar_acc"] = acc
+        if leader is not None:
+            self.__dict__["_leader_pending"] = leader
+        if dirty:
+            self._hold_states()
 
     def _copy_state(self) -> Dict[str, Any]:
         """A snapshot of the states: updates rebind tensors (buffer appends
@@ -820,18 +931,23 @@ class Metric(nn.Module, ABC):
     def _run_with_state(self, state: Dict[str, Any], fn: Callable, args: tuple, kwargs: dict) -> Tuple[Any, Dict[str, Any]]:
         """Run ``fn`` against ``state`` swapped in; the instance's own state (and buffer
         bookkeeping) is swapped back in a ``finally``.  Returns ``fn``'s result and the new state."""
+        pending = self._stash_host_buffers()
         own = self._copy_state()
         metas = {bname: dict(meta) for bname, meta in self._buffer_states.items()}
+        swapped = self._state_swapped
         try:
             self._restore_state({**self.init_state(), **state})
             for meta in self._buffer_states.values():
                 meta["owned"] = None  # an append copies the given buffer, never writes into it
+            self._state_swapped = True
             out = fn(*args, **kwargs)
             return out, {name: getattr(self, name) for name in state}
         finally:
+            self._state_swapped = swapped
             self._restore_state(own)
             for bname, meta in metas.items():
                 self._buffer_states[bname].update(meta)
+            self._unstash_host_buffers(pending)
 
     def apply_update(self, state: Dict[str, Any], *args: Any, **kwargs: Any) -> Dict[str, Any]:
         """Pure update: ``(state, batch) -> state``.  Neither ``state`` nor the instance's
@@ -1071,6 +1187,7 @@ class Metric(nn.Module, ABC):
         equally.  Buffer, list and ``cat`` states concatenate in order; sketch
         states fold through their ``merge_fn``.
         """
+        self._flush_host_buffers()
         others = [dict(other_state)] if isinstance(other_state, dict) else [dict(s) for s in other_state]
         for other in others:
             other.pop("_update_count", None)
@@ -1823,6 +1940,10 @@ class Metric(nn.Module, ABC):
     # ------------------------------------------------------------------ reset
     def reset(self) -> None:
         """Reset state to fresh copies of the defaults."""
+        self.__dict__["_host_scalar_acc"] = {}  # pending host sums belong to the cleared epoch
+        self.__dict__.pop("_leader_pending", None)
+        self._release_states()
+        self._host_buffers_dirty = False
         self._update_count = 0
         self._computed = None
         self._cache = None
@@ -1920,6 +2041,7 @@ class Metric(nn.Module, ABC):
 
     def _save_to_state_dict(self, destination: Dict[str, Any], prefix: str, keep_vars: bool) -> None:
         """Add the persistent states to ``state_dict()``."""
+        self._flush_host_buffers()
         super()._save_to_state_dict(destination, prefix, keep_vars)
         trimmed = self._trimmed_buffers()
         for name in self._defaults:
@@ -1983,6 +2105,7 @@ class Metric(nn.Module, ABC):
     def state_pytree(self) -> Dict[str, Any]:
         """The full state as a flat dict: ``_update_count`` and every state,
         list states concatenated, buffer states trimmed to their valid rows."""
+        self._flush_host_buffers()
         out: Dict[str, Any] = {"_update_count": self._update_count}
         for name in self._defaults:
             value = getattr(self, name)
@@ -2018,6 +2141,7 @@ class Metric(nn.Module, ABC):
 
     # -------------------------------------------------------------- pickling
     def __getstate__(self) -> Dict[str, Any]:
+        self._flush_host_buffers()
         d = {key: _picklable(value) for key, value in self.__dict__.items()}
         # bound-method wrappers are reinstalled in __setstate__
         for key in ("update", "compute", "_update_impl", "_compute_impl"):

@@ -9,6 +9,8 @@ leaf for leaf, the key included:
 * :func:`seed` is ``jax.random.PRNGKey(seed)``: ``[0, seed mod 2**32]``;
 * :func:`split` is ``jax.random.split(key)``: the new key is
   ``threefry(key, (0, 0))`` and the subkey ``threefry(key, (0, 1))``;
+* ``split(key, num)`` is ``jax.random.split(key, num)``: key ``i`` is ``threefry(key, (0, i))``;
+* :func:`permutation` is ``jax.random.permutation(key, n)`` (KID's subsets, IS's shuffle);
 * :func:`fold_in` is ``jax.random.fold_in(key, data)``: ``threefry(key, (0, data))``;
 * :func:`randint_bits` is ``jax.random.randint(sub, (n,), 0, 2)``: with a
   span of 2 the high word's multiplier is 0, so bit ``i`` is
@@ -24,8 +26,9 @@ serial chain of keys runs on the host without a launch per step.
 ``ops/csrc/kll_fold.cu`` computes the same function in its kernel.
 """
 
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 MASK = 0xFFFFFFFF
@@ -75,13 +78,15 @@ def seed(value: int, device: Union[str, torch.device] = "cpu") -> torch.Tensor:
     return as_uint32(torch.tensor([0, int(value) & MASK], dtype=torch.int64, device=device))
 
 
-def split(key: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``jax.random.split(key)``: ``(new_key, subkey)``, each ``(..., 2)`` int64 words."""
+def split(key: torch.Tensor, num: Optional[int] = None) -> Union[Tuple[torch.Tensor, torch.Tensor], torch.Tensor]:
+    """``jax.random.split(key)``: ``(new_key, subkey)``, each ``(..., 2)`` int64 words; with
+    ``num``, ``jax.random.split(key, num)``: the ``(..., num, 2)`` keys, the i-th ``threefry(key, (0, i))``."""
     w = as_words(key)
     k0, k1 = w[..., 0:1], w[..., 1:2]
-    counter = torch.arange(2, dtype=torch.int64, device=w.device)
-    y0, y1 = threefry2x32(k0, k1, torch.zeros_like(counter), counter)  # (..., 2) each: counters 0 and 1
-    return torch.stack([y0[..., 0], y1[..., 0]], -1), torch.stack([y0[..., 1], y1[..., 1]], -1)
+    counter = torch.arange(2 if num is None else num, dtype=torch.int64, device=w.device)
+    y0, y1 = threefry2x32(k0, k1, torch.zeros_like(counter), counter)  # (..., n) each: counters 0 .. n - 1
+    keys = torch.stack([y0, y1], -1)
+    return (keys[..., 0, :], keys[..., 1, :]) if num is None else keys
 
 
 def fold_in(key: torch.Tensor, data: Word) -> torch.Tensor:
@@ -103,6 +108,23 @@ def _bits(key: torch.Tensor, n: int) -> torch.Tensor:
     counter = torch.arange(n, dtype=torch.int64, device=w.device)
     y0, y1 = threefry2x32(w[..., 0:1], w[..., 1:2], torch.zeros_like(counter), counter)
     return y0 ^ y1
+
+
+def permutation(key: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.permutation(key, n)`` for ``(..., 2)`` keys: ``(..., n)`` int64 indices.
+
+    JAX shuffles ``arange(n)`` by ``ceil(3 ln n / ln(2**32 - 1))`` rounds; each
+    splits the key and sorts the positions stably by 32-bit bits drawn from the
+    subkey.  The bits sort as int64, so their order stays unsigned.
+    """
+    w = as_words(key)
+    perm = torch.arange(n, dtype=torch.int64, device=w.device).expand(*w.shape[:-1], n)
+    rounds = int(np.ceil(3 * np.log(max(1, n)) / np.log(np.iinfo(np.uint32).max)))
+    for _ in range(rounds):
+        w, sub = split(w)
+        order = torch.sort(_bits(sub, n), dim=-1, stable=True).indices
+        perm = torch.gather(perm, -1, order)
+    return perm
 
 
 def randint_bits(sub: torch.Tensor, n: int) -> torch.Tensor:

@@ -191,3 +191,18 @@ def test_detection_and_image_without_device_raise_when_cuda_is_absent(monkeypatc
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             make()
     assert mt.MeanAveragePrecision(device="cpu").device == torch.device("cpu")
+
+
+GENERATION_AND_TEXT = (
+    ["metrics_tpu_torch/image/_batching.py"]
+    + [f"metrics_tpu_torch/image/backbones/{name}.py" for name in ("__init__", "inception", "weights", "convert")]
+    + [f"metrics_tpu_torch/image/{name}.py" for name in ("fid", "kid", "inception", "lpip")]
+    + [f"metrics_tpu_torch/{layer}/{name}.py" for layer in ("functional/text", "text")
+       for name in ("__init__", "wer", "cer", "mer", "wil", "wip")]
+    + ["metrics_tpu_torch/functional/text/helper.py"]
+)
+
+
+def test_the_walk_covers_the_extractor_metrics_their_backbones_and_the_wer_family():
+    walked = {p.relative_to(ROOT).as_posix() for p in _port_sources()}
+    assert len(GENERATION_AND_TEXT) == 22 and set(GENERATION_AND_TEXT) <= walked
