@@ -183,7 +183,29 @@ Phases (each passes or raises; any failure exits non-zero):
      deletions) through WER, CER, MER, WIL and WIP in one collection (batches
      of 32): the card's values bitwise the CPU's, WER as a plain edit
      distance gives it, the updates issue no device operation (profiler),
-     utterances/s.
+     utterances/s;
+ 16. the rest of text and audio (no kernel of the port lies on this path
+     either): (a) a WMT newstest-shaped corpus (3,000 segments of 15-40 Zipf
+     words, one reference, batches of 100) through BLEU, SacreBLEU (13a),
+     chrF++, TER and EED, each timed alone; (b) 11,490 CNN/DailyMail-shaped
+     summary pairs (about 56 words in 3-4 newline-separated sentences)
+     through ROUGE-1/2/L/Lsum and 10,570 SQuAD v1.1 dev-shaped questions
+     (1-3 answers) through SQuAD; the states of (a) and (b) bitwise those of
+     a CPU twin that runs meanwhile as a process of its own (``chip_smoke.py
+     --text-cpu-twin DIR``), and their updates issue no device operation
+     (profiler, taken early); (c) BERTScore on an encoder of roberta-large's
+     shape (24 layers, hidden 1024, 16 heads, FFN 4096, vocabulary 50,265;
+     random weights from the seed) with the ported WordPiece tokenizer built
+     from the corpus, ``num_layers=17``, ``max_length=128``,
+     ``batch_size=64`` over 1,000 of (a)'s pairs, then ``idf=True`` and
+     ``all_layers=True`` on 64 pairs; the card against the CPU port on 16
+     pairs and the matching alone on identical embeddings; pairs/s and
+     ``last_compute_breakdown``; (d) 3,000 WSJ0-2mix-shaped pairs (8 kHz,
+     4 s, batches of 16) through SNR, SI-SNR, SI-SDR and SDR (512 taps), the
+     card against the CPU port and SDR against a float64 solve; PIT with
+     SI-SDR over 2- and 3-speaker mixtures (exhaustive on the card) and
+     8-speaker ones (the host LAP), every mixture unscrambled; the PESQ and
+     STOI gates raise.
 The last line is ``{"ok": true, "device": {...}}``.
 
 The sync phases run this script again as their ranks
@@ -199,8 +221,10 @@ import sys
 import tempfile
 import threading
 import time
+import types
 import warnings
 from datetime import timedelta
+from functools import lru_cache
 from pathlib import Path
 from typing import Optional, Tuple
 
@@ -5466,24 +5490,13 @@ def _text_collection(mt, device: str):
 
 
 def _updates_issue_no_device_operation(col, batches) -> Optional[int]:
-    """Profile the collection's updates, then one canary addition on the card: the session must record
-    the canary's one device operation and nothing else.  None where no session recorded even the canary."""
-    from torch.profiler import ProfilerActivity, profile
+    """The collection's updates issue no device operation (see :func:`_issues_no_device_operation`)."""
 
-    canary = torch.ones(1, device=DEVICE)
-    for _ in range(PROFILER_ATTEMPTS):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for preds, target in batches:
-                col.update(preds, target)
-            canary = canary + 1
-            torch.cuda.synchronize()
-        seen = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-        if seen:
-            if len(seen) != 1:
-                raise AssertionError(f"text: the updates issued device operations: {seen[:10]}")
-            return len(seen)
-    print("text: device operations of the updates not profiled (no session recorded the canary)")
-    return None
+    def run():
+        for preds, target in batches:
+            col.update(preds, target)
+
+    return _issues_no_device_operation("text", run)
 
 
 def _libri_batches() -> Tuple[list, list, list, dict]:
@@ -5559,6 +5572,522 @@ def phase_generation_text(mt, card: str, text_profile: Optional[int] = None) -> 
     print(f"generation_text phase took {secs:.1f} s")
     return {"generation_text": {"card": card, "generation": generation, "lpips": lpips, "sync": sync, "text": text,
                                 "phase_s": secs}}
+
+
+WMT_SEGMENTS = 3_000  # a WMT newstest set: one reference a segment
+WMT_BATCH = 100
+WMT_VOCAB = 32_000
+WMT_WORDS = (15, 40)  # a segment's words, uniform
+CNNDM_PAIRS = 11_490  # the CNN/DailyMail test split
+CNNDM_BATCH = 100
+CNNDM_WORDS = 56  # about this many words a summary, in 3 or 4 newline-separated sentences
+SQUAD_QUESTIONS = 10_570  # SQuAD v1.1 dev
+SQUAD_BATCH = 500
+BERT_SHAPE = {"layers": 24, "hidden": 1024, "heads": 16, "ffn": 4096, "vocab": 50_265, "positions": 514}  # roberta-large
+BERT_NUM_LAYERS = 17  # the reference's layer for roberta-large
+BERT_MAX_LENGTH = 128
+BERT_BATCH = 64
+BERT_PAIRS = 1_000  # (a)'s first segments, in (a)'s batches
+BERT_SIDE_PAIRS = 64  # the idf and all_layers runs
+BERT_CPU_PAIRS = 16  # the card against the CPU port
+BERT_CPU_ATOL = 1e-4  # precision, recall and F1: a float32 encoder of 24 layers on two devices
+MATCH_ATOL = 1e-6  # the greedy matching from identical embeddings on the card and the CPU
+WSJ_PAIRS = 3_000  # WSJ0-2mix's test mixtures
+WSJ_SAMPLES = 32_000  # 4 s at 8 kHz
+WSJ_BATCH = 16
+SDR_FILTER = 512
+PIT_MIXTURES = {2: 1_500, 3: 1_000, 8: 48}  # speakers: mixtures (8 takes the host LAP)
+AUDIO_CPU_BATCHES = 2  # (d)'s batches the CPU port scores again
+SNR_ATOL_DB = 1e-4  # SNR, SI-SNR, SI-SDR: float32 sums of 32,000 squares added in another order
+SDR_ATOL_DB = 2e-3  # SDR: and a float32 solve of 512 taps
+SDR64_ATOL_DB = 2e-3  # SDR against a float64 solve of the same system
+
+
+def _zipf_vocab(rng: np.random.Generator, size: int) -> Tuple[list, np.ndarray]:
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    vocab = ["".join(rng.choice(letters, size=int(rng.integers(1, 11)))) for _ in range(size)]
+    weights = 1.0 / np.arange(1, size + 1)
+    return vocab, np.cumsum(weights / weights.sum())
+
+
+def _draw(rng: np.random.Generator, vocab: list, cdf: np.ndarray, n: int) -> list:
+    return [vocab[i] for i in np.minimum(np.searchsorted(cdf, rng.random(n)), len(vocab) - 1)]
+
+
+@lru_cache(maxsize=1)
+def _wmt_corpus() -> Tuple[list, list]:
+    """Newstest-shaped segments: references of 15-40 Zipf words with commas and a full stop, and
+    hypotheses with 15 % substitutions, 5 % deletions, 5 % insertions and a moved phrase in three of ten."""
+    rng = np.random.default_rng(SEED + 1900)
+    vocab, cdf = _zipf_vocab(rng, WMT_VOCAB)
+    preds, target = [], []
+    for _ in range(WMT_SEGMENTS):
+        ref = _draw(rng, vocab, cdf, int(rng.integers(WMT_WORDS[0], WMT_WORDS[1] + 1)))
+        ref = [w + "," if rng.random() < 0.06 else w for w in ref]
+        hyp = []
+        for word in ref:
+            u = rng.random()
+            if u < 0.15:
+                hyp.append(_draw(rng, vocab, cdf, 1)[0])
+            elif u >= 0.20:
+                hyp.append(word)
+            if rng.random() < 0.05:
+                hyp.append(_draw(rng, vocab, cdf, 1)[0])
+        if len(hyp) > 6 and rng.random() < 0.3:
+            at, span = int(rng.integers(0, len(hyp) - 4)), int(rng.integers(2, 5))
+            phrase = hyp[at : at + span]
+            del hyp[at : at + span]
+            to = int(rng.integers(0, len(hyp) + 1))
+            hyp[to:to] = phrase
+        preds.append(" ".join(hyp).capitalize() + ".")
+        target.append(" ".join(ref).capitalize() + ".")
+    return preds, target
+
+
+def _cnndm_corpus() -> Tuple[list, list]:
+    """CNN/DailyMail-shaped pairs: summaries of about 56 words in 3-4 newline-separated sentences; the
+    candidate shares about half its words with the reference."""
+    rng = np.random.default_rng(SEED + 1901)
+    vocab, cdf = _zipf_vocab(rng, WMT_VOCAB)
+
+    def summary(words: list) -> str:
+        cuts = np.sort(rng.choice(np.arange(3, len(words) - 2), size=int(rng.integers(2, 4)), replace=False))
+        return "\n".join(" ".join(part).capitalize() + "." for part in np.split(np.array(words, dtype=object), cuts))
+
+    preds, target = [], []
+    for _ in range(CNNDM_PAIRS):
+        ref = _draw(rng, vocab, cdf, max(12, int(rng.normal(CNNDM_WORDS, 10))))
+        fresh = _draw(rng, vocab, cdf, len(ref))
+        cand = [r if rng.random() < 0.5 else f for r, f in zip(ref, fresh)]
+        preds.append(summary(cand))
+        target.append(summary(ref))
+    return preds, target
+
+
+def _squad_corpus() -> Tuple[list, list]:
+    """SQuAD v1.1 dev-shaped questions: 1-3 answers of 1-6 words each; predictions that match an answer,
+    overlap one, or miss."""
+    rng = np.random.default_rng(SEED + 1902)
+    vocab, cdf = _zipf_vocab(rng, WMT_VOCAB)
+    preds, target = [], []
+    for q in range(SQUAD_QUESTIONS):
+        answers = [" ".join(_draw(rng, vocab, cdf, int(rng.integers(1, 7)))) for _ in range(int(rng.integers(1, 4)))]
+        target.append({"answers": {"answer_start": [0] * len(answers), "text": answers}, "id": f"q{q}"})
+        u, base = rng.random(), answers[int(rng.integers(0, len(answers)))].split()
+        if u < 0.6:
+            text = " ".join(base)
+        elif u < 0.9:
+            text = " ".join(base[: max(1, len(base) - 1)] + _draw(rng, vocab, cdf, 2))
+        else:
+            text = " ".join(_draw(rng, vocab, cdf, 3))
+        preds.append({"prediction_text": "The " + text if rng.random() < 0.1 else text, "id": f"q{q}"})
+    return preds, target
+
+
+def _mt_metrics(mt, device: str) -> dict:
+    return {"bleu": mt.BLEUScore(device=device), "sacrebleu": mt.SacreBLEUScore(tokenize="13a", device=device),
+            "chrf++": mt.CHRFScore(device=device), "ter": mt.TranslationEditRate(device=device),
+            "eed": mt.ExtendedEditDistance(device=device)}
+
+
+def _summary_metrics(mt, device: str) -> dict:
+    return {"rouge": mt.ROUGEScore(rouge_keys=("rouge1", "rouge2", "rougeL", "rougeLsum"), device=device),
+            "squad": mt.SQuAD(device=device)}
+
+
+@lru_cache(maxsize=1)
+def _text_batches() -> dict:
+    """(a)'s and (b)'s batches: each metric's name to its list of (preds, target)."""
+    wmt_p, wmt_t = _wmt_corpus()
+    cnn_p, cnn_t = _cnndm_corpus()
+    sq_p, sq_t = _squad_corpus()
+    wmt = [(wmt_p[i : i + WMT_BATCH], wmt_t[i : i + WMT_BATCH]) for i in range(0, WMT_SEGMENTS, WMT_BATCH)]
+    out = {name: wmt for name in ("bleu", "sacrebleu", "chrf++", "ter", "eed")}
+    out["rouge"] = [(cnn_p[i : i + CNNDM_BATCH], cnn_t[i : i + CNNDM_BATCH]) for i in range(0, CNNDM_PAIRS, CNNDM_BATCH)]
+    out["squad"] = [(sq_p[i : i + SQUAD_BATCH], sq_t[i : i + SQUAD_BATCH]) for i in range(0, SQUAD_QUESTIONS, SQUAD_BATCH)]
+    return out
+
+
+def _state_bits(metric) -> dict:
+    return {name: [str(getattr(metric, name).dtype), getattr(metric, name).cpu().numpy().tobytes().hex()]
+            for name in metric._defaults}
+
+
+def text_cpu_twin(where: Path) -> int:
+    """(a) and (b) through the port on the CPU (``--text-cpu-twin DIR``): each metric's states as
+    hex bytes in ``DIR/twin.json``, for the card's to be held against."""
+    sys.path.insert(0, str(ROOT))
+    import metrics_tpu_torch as mt
+
+    batches = _text_batches()
+    metrics = {**_mt_metrics(mt, "cpu"), **_summary_metrics(mt, "cpu")}
+    states = {}
+    for name, metric in metrics.items():
+        for preds, target in batches[name]:
+            metric.update(preds, target)
+        states[name] = _state_bits(metric)
+    (where / "twin.json").write_text(json.dumps(states))
+    return 0
+
+
+def _issues_no_device_operation(where: str, run) -> Optional[int]:
+    """Profile ``run()``, then one canary addition on the card: the session must record the canary's
+    one device operation and nothing else.  None where no session recorded even the canary."""
+    from torch.profiler import ProfilerActivity, profile
+
+    canary = torch.ones(1, device=DEVICE)
+    for _ in range(PROFILER_ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+            canary = canary + 1
+            torch.cuda.synchronize()
+        seen = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if seen:
+            if len(seen) != 1:
+                raise AssertionError(f"{where}: the updates issued device operations: {seen[:10]}")
+            return len(seen)
+    print(f"{where}: device operations of the updates not profiled (no session recorded the canary)")
+    return None
+
+
+def _text_audio_update_profile(mt) -> Optional[int]:
+    """Phase 16's profile of (a)'s and (b)'s updates on the card, two batches a metric; ``main`` takes it
+    early (profiler sessions after the curve phase lose events)."""
+    batches = _text_batches()
+    metrics = {**_mt_metrics(mt, DEVICE), **_summary_metrics(mt, DEVICE)}
+
+    def run():
+        for name, metric in metrics.items():
+            for preds, target in batches[name][:2]:
+                metric.update(preds, target)
+
+    seen = _issues_no_device_operation("text (phase 16)", run)
+    if not all(m._host_buffers_dirty for m in metrics.values()):
+        raise AssertionError("text (phase 16): an update wrote a state on the card")
+    return seen
+
+
+def _on_card(name: str, value) -> None:
+    tensors = list(value.values()) if isinstance(value, dict) else [value]
+    for t in tensors:
+        if not isinstance(t, torch.Tensor) or t.device.type != torch.device(DEVICE).type:
+            raise AssertionError(f"{name}: a value left the card: {t!r}")
+        if not torch.isfinite(t).all():
+            raise AssertionError(f"{name}: a value is not finite: {t!r}")
+
+
+def phase_mt_summaries(mt) -> Tuple[dict, dict]:
+    """(a) and (b) on the card: each metric's pass timed alone (updates and ``compute()``), its value
+    on the card and finite.  Returns the line and each metric's states for the CPU twin."""
+    batches = _text_batches()
+    metrics = {**_mt_metrics(mt, DEVICE), **_summary_metrics(mt, DEVICE)}
+    line, states = {}, {}
+    for name, metric in metrics.items():
+        items = sum(len(p) for p, _ in batches[name])
+        start = time.perf_counter()
+        for preds, target in batches[name]:
+            metric.update(preds, target)
+        value = metric.compute()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - start
+        _on_card(name, value)
+        states[name] = _state_bits(metric)
+        shown = {k: float(v) for k, v in value.items()} if isinstance(value, dict) else float(value)
+        line[name] = {"items": items, "seconds": secs, "items_per_s": items / secs, "value": shown}
+        print(f"text {name}: {shown} over {items} items at {items / secs!r} items/s")
+    return line, states
+
+
+class _RobertaShaped(torch.nn.Module):
+    """An encoder of roberta-large's shape from plain ``torch.nn`` layers, Hugging Face style:
+    ``forward(input_ids=, attention_mask=, output_hidden_states=)`` returns ``last_hidden_state`` and,
+    when asked, the embeddings' and every layer's output in ``hidden_states``.  Its weights are random
+    (normal, 0.02, from a seeded generator on the card; layer norms the identity)."""
+
+    def __init__(self, seed: int) -> None:
+        super().__init__()
+        s = BERT_SHAPE
+        self.word = torch.nn.Embedding(s["vocab"], s["hidden"])
+        self.position = torch.nn.Embedding(s["positions"], s["hidden"])
+        self.token_type = torch.nn.Embedding(1, s["hidden"])
+        self.norm = torch.nn.LayerNorm(s["hidden"], eps=1e-5)
+        self.layers = torch.nn.ModuleList(
+            torch.nn.TransformerEncoderLayer(s["hidden"], s["heads"], s["ffn"], dropout=0.0, activation="gelu",
+                                             layer_norm_eps=1e-5, batch_first=True)
+            for _ in range(s["layers"]))
+        gen = torch.Generator(device=DEVICE).manual_seed(seed)
+        with torch.no_grad():
+            for name, param in self.named_parameters():
+                if "norm" in name:
+                    param.fill_(1.0 if name.endswith("weight") else 0.0)
+                elif name.endswith("bias"):
+                    param.zero_()
+                else:
+                    param.normal_(0.0, 0.02, generator=gen)
+
+    def forward(self, input_ids, attention_mask, output_hidden_states=False):
+        positions = torch.arange(2, 2 + input_ids.shape[1], device=input_ids.device)  # past roberta's padding index
+        h = self.norm(self.word(input_ids) + self.position(positions)[None] + self.token_type.weight[0])
+        hidden = [h]
+        pad = attention_mask == 0
+        for layer in self.layers:
+            h = layer(h, src_key_padding_mask=pad)
+            hidden.append(h)
+        return types.SimpleNamespace(last_hidden_state=h, hidden_states=tuple(hidden) if output_hidden_states else None)
+
+
+def _bert_score(mt, model, tok, device: str, batches: list, **kwargs) -> Tuple[dict, float, dict]:
+    metric = mt.BERTScore(model=model, user_tokenizer=tok, max_length=BERT_MAX_LENGTH, batch_size=BERT_BATCH,
+                          device=device, **kwargs)
+    metric.profile_compute = True
+    start = time.perf_counter()
+    for preds, target in batches:
+        metric.update(preds, target)
+    out = metric.compute()
+    if device != "cpu":
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - start, dict(metric.last_compute_breakdown)
+
+
+def _check_bert(name: str, out: dict, shape: tuple) -> None:
+    for key in ("precision", "recall", "f1"):
+        values = np.asarray(out[key], np.float64)
+        if values.shape != shape or not np.isfinite(values).all() or np.abs(values).max() > 1.0 + 1e-5:
+            raise AssertionError(f"{name} {key}: shape {values.shape} (want {shape}) or values out of [-1, 1]")
+
+
+def phase_bert(mt) -> dict:
+    """(c) BERTScore at roberta-large's shape on the card."""
+    import copy
+
+    from metrics_tpu_torch.functional.text.bert import _greedy_match
+    from metrics_tpu_torch.functional.text.wordpiece import WordPieceTokenizer, build_wordpiece_vocab
+
+    preds, target = _wmt_corpus()
+    preds, target = preds[:BERT_PAIRS], target[:BERT_PAIRS]
+    start = time.perf_counter()
+    tok = WordPieceTokenizer(build_wordpiece_vocab(preds + target, size=BERT_SHAPE["vocab"]))
+    with torch.device(DEVICE):
+        model = _RobertaShaped(SEED).eval()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - start
+    batches = [(preds[i : i + WMT_BATCH], target[i : i + WMT_BATCH]) for i in range(0, BERT_PAIRS, WMT_BATCH)]
+    out, secs, breakdown = _bert_score(mt, model, tok, DEVICE, batches, num_layers=BERT_NUM_LAYERS)
+    _check_bert("bertscore", out, (BERT_PAIRS,))
+    side = [(preds[:BERT_SIDE_PAIRS], target[:BERT_SIDE_PAIRS])]
+    idf, idf_s, _ = _bert_score(mt, model, tok, DEVICE, side, num_layers=BERT_NUM_LAYERS, idf=True)
+    _check_bert("bertscore idf", idf, (BERT_SIDE_PAIRS,))
+    layers, layers_s, _ = _bert_score(mt, model, tok, DEVICE, side, all_layers=True)
+    _check_bert("bertscore all_layers", layers, (BERT_SHAPE["layers"] + 1, BERT_SIDE_PAIRS))
+    # the card against the CPU port on the first pairs, the same weights
+    cpu_model = copy.deepcopy(model).to("cpu")
+    few = [(preds[:BERT_CPU_PAIRS], target[:BERT_CPU_PAIRS])]
+    cpu_out, cpu_s, _ = _bert_score(mt, cpu_model, tok, "cpu", few, num_layers=BERT_NUM_LAYERS)
+    card_few, _, _ = _bert_score(mt, model, tok, DEVICE, few, num_layers=BERT_NUM_LAYERS)
+    cpu_err = max(float(np.abs(np.asarray(card_few[k]) - np.asarray(cpu_out[k])).max()) for k in ("precision", "recall", "f1"))
+    if cpu_err > BERT_CPU_ATOL:
+        raise AssertionError(f"bertscore: the card is {cpu_err} from the CPU port on {BERT_CPU_PAIRS} pairs")
+    # the matching alone, from identical embeddings
+    enc = tok(preds[:BERT_CPU_PAIRS] + target[:BERT_CPU_PAIRS], max_length=BERT_MAX_LENGTH)
+    ids = torch.tensor(enc["input_ids"], device=DEVICE)
+    mask = torch.tensor(enc["attention_mask"], device=DEVICE)
+    with torch.no_grad():
+        emb = model(input_ids=ids, attention_mask=mask, output_hidden_states=True).hidden_states[BERT_NUM_LAYERS]
+    n = BERT_CPU_PAIRS
+    fmask, weights = mask.float(), torch.ones_like(mask, dtype=torch.float32)
+    args = (emb[:n], fmask[:n], emb[n:], fmask[n:], weights[:n], weights[n:])
+    card_match = _greedy_match(*args)
+    cpu_match = _greedy_match(*(a.cpu() for a in args))
+    match_err = max(float((card_match[k].cpu() - cpu_match[k]).abs().max()) for k in card_match)
+    if match_err > MATCH_ATOL:
+        raise AssertionError(f"bertscore: the matching on the card is {match_err} from the CPU's on the same embeddings")
+    del cpu_model
+    torch.cuda.empty_cache()
+    print(f"bertscore: F1 mean {float(np.mean(out['f1']))!r} over {BERT_PAIRS} pairs at {BERT_PAIRS / secs!r} pairs/s "
+          f"(roberta-large's shape, layer {BERT_NUM_LAYERS}); breakdown {breakdown}; idf and all_layers runs of "
+          f"{BERT_SIDE_PAIRS} pairs in {idf_s:.2f} and {layers_s:.2f} s; the card {cpu_err!r} from the CPU port "
+          f"(limit {BERT_CPU_ATOL}), the matching {match_err!r} (limit {MATCH_ATOL})")
+    return {"pairs": BERT_PAIRS, "shape": BERT_SHAPE, "num_layers": BERT_NUM_LAYERS, "max_length": BERT_MAX_LENGTH,
+            "batch_size": BERT_BATCH, "setup_s": setup_s, "seconds": secs, "pairs_per_s": BERT_PAIRS / secs,
+            "f1_mean": float(np.mean(out["f1"])), "last_compute_breakdown": breakdown,
+            "idf": {"pairs": BERT_SIDE_PAIRS, "seconds": idf_s, "f1_mean": float(np.mean(idf["f1"]))},
+            "all_layers": {"pairs": BERT_SIDE_PAIRS, "seconds": layers_s,
+                           "f1_mean_by_layer": np.asarray(layers["f1"]).mean(1).tolist()},
+            "cpu": {"pairs": BERT_CPU_PAIRS, "max_abs_err": cpu_err, "atol": BERT_CPU_ATOL, "cpu_seconds": cpu_s},
+            "matching": {"max_abs_err": match_err, "atol": MATCH_ATOL}}
+
+
+def _wsj_signals() -> Tuple[torch.Tensor, torch.Tensor]:
+    """WSJ0-2mix-shaped pairs (8 kHz, 4 s): a target of low-passed noise (an 8-sample moving average, so
+    most of its power lies below 1 kHz), and an estimate that is the target scaled, smoothed by one more
+    tap and with noise at about 10 dB below it.  The noise comes from the seed on the host; the shaping
+    runs where the data lives."""
+    rng = np.random.default_rng(SEED + 1903)
+    white = torch.from_numpy(rng.standard_normal((WSJ_PAIRS, WSJ_SAMPLES + 8), dtype=np.float32)).to(DEVICE)
+    noise = torch.from_numpy(rng.standard_normal((WSJ_PAIRS, WSJ_SAMPLES), dtype=np.float32)).to(DEVICE)
+    gain = torch.from_numpy(rng.uniform(0.5, 2.0, size=(WSJ_PAIRS, 1)).astype(np.float32)).to(DEVICE)
+    run = torch.cumsum(white.double(), dim=1)
+    target = ((run[:, 8:] - run[:, :-8]) / np.sqrt(8.0)).float()
+    del white, run
+    est = target.clone()
+    est[:, 1:] = 0.85 * target[:, 1:] + 0.15 * target[:, :-1]
+    return (est + 0.3 * noise) * gain, target
+
+
+def _sdr64(preds: torch.Tensor, target: torch.Tensor) -> np.ndarray:
+    """SDR from a float64 solve of the same normal equations (numpy FFTs, a dense solve)."""
+    p, t = preds.double().cpu().numpy(), target.double().cpu().numpy()
+    t = t / np.linalg.norm(t, axis=-1, keepdims=True)
+    p = p / np.linalg.norm(p, axis=-1, keepdims=True)
+    n_fft = 1 << (2 * t.shape[-1] - 2).bit_length()
+    tf, pf = np.fft.rfft(t, n_fft), np.fft.rfft(p, n_fft)
+    r0 = np.fft.irfft(np.abs(tf) ** 2, n_fft)[:, :SDR_FILTER]
+    b = np.fft.irfft(np.conj(tf) * pf, n_fft)[:, :SDR_FILTER]
+    idx = np.abs(np.arange(SDR_FILTER)[:, None] - np.arange(SDR_FILTER)[None, :])
+    sol = np.linalg.solve(r0[:, idx], b[..., None])[..., 0]
+    coh = (b * sol).sum(-1)
+    return 10 * np.log10(coh / (1 - coh))
+
+
+def _pit_mixtures(spk: int, est: torch.Tensor, target: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``PIT_MIXTURES[spk]`` mixtures of ``spk`` speakers from the pairs, the estimates of each mixture
+    in a seeded order; returns (estimates, targets, the order)."""
+    n = PIT_MIXTURES[spk]
+    rng = np.random.default_rng(SEED + 1904 + spk)
+    order = torch.from_numpy(np.stack([rng.permutation(spk) for _ in range(n)])).to(DEVICE)
+    tgt = target[: n * spk].reshape(n, spk, -1)
+    ests = est[: n * spk].reshape(n, spk, -1)
+    return torch.take_along_dim(ests, order[:, :, None], dim=1), tgt, order
+
+
+def phase_audio(mt) -> dict:
+    """(d) SNR, SI-SNR, SI-SDR and SDR over the WSJ0-2mix-shaped pairs, PIT with SI-SDR, the PESQ and STOI gates."""
+    import metrics_tpu_torch.functional as F
+
+    start = time.perf_counter()
+    est, target = _wsj_signals()
+    setup_s = time.perf_counter() - start
+    makers = {"snr": lambda d: mt.SignalNoiseRatio(device=d), "si_snr": lambda d: mt.ScaleInvariantSignalNoiseRatio(device=d),
+              "si_sdr": lambda d: mt.ScaleInvariantSignalDistortionRatio(device=d),
+              "sdr": lambda d: mt.SignalDistortionRatio(filter_length=SDR_FILTER, device=d)}
+    line = {"pairs": WSJ_PAIRS, "samples": WSJ_SAMPLES, "batch": WSJ_BATCH, "setup_s": setup_s}
+    for name, make in makers.items():
+        metric = make(DEVICE)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(0, WSJ_PAIRS, WSJ_BATCH):
+            metric.update(est[i : i + WSJ_BATCH], target[i : i + WSJ_BATCH])
+        value = metric.compute()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        _on_card(name, value)
+        if int(metric.total) != WSJ_PAIRS or metric.total.dtype != torch.int32:
+            raise AssertionError(f"audio {name}: total {metric.total!r}")
+        # the card against the CPU port, batch by batch
+        cpu, card = make("cpu"), make(DEVICE)
+        for i in range(0, AUDIO_CPU_BATCHES * WSJ_BATCH, WSJ_BATCH):
+            cpu.update(est[i : i + WSJ_BATCH].cpu(), target[i : i + WSJ_BATCH].cpu())
+            card.update(est[i : i + WSJ_BATCH], target[i : i + WSJ_BATCH])
+        atol = SDR_ATOL_DB if name == "sdr" else SNR_ATOL_DB
+        err = abs(float(card.compute()) - float(cpu.compute()))
+        if err > atol:
+            raise AssertionError(f"audio {name}: the card is {err} dB from the CPU port (limit {atol})")
+        line[name] = {"value_db": float(value), "seconds": secs, "signals_per_s": WSJ_PAIRS / secs,
+                      "cpu_abs_err_db": err, "atol_db": atol}
+        print(f"audio {name}: {float(value)!r} dB at {WSJ_PAIRS / secs!r} signals/s; the card {err!r} dB from the CPU")
+    per_signal = F.signal_distortion_ratio(est[:WSJ_BATCH], target[:WSJ_BATCH], filter_length=SDR_FILTER)
+    err64 = float(np.abs(per_signal.cpu().numpy() - _sdr64(est[:WSJ_BATCH], target[:WSJ_BATCH])).max())
+    if err64 > SDR64_ATOL_DB:
+        raise AssertionError(f"audio sdr: {err64} dB from a float64 solve (limit {SDR64_ATOL_DB})")
+    line["sdr"]["float64_abs_err_db"] = err64
+    pit = {}
+    for spk in sorted(PIT_MIXTURES):
+        mixed, tgt, order = _pit_mixtures(spk, est, target)
+        metric = mt.PermutationInvariantTraining(F.scale_invariant_signal_distortion_ratio, "max", device=DEVICE)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        perms = []
+        for i in range(0, len(mixed), WSJ_BATCH):
+            metric.update(mixed[i : i + WSJ_BATCH], tgt[i : i + WSJ_BATCH])
+            perms.append(F.permutation_invariant_training(mixed[i : i + WSJ_BATCH], tgt[i : i + WSJ_BATCH],
+                                                          F.scale_invariant_signal_distortion_ratio)[1])
+        value = metric.compute()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        _on_card(f"pit{spk}", value)
+        perm = torch.cat(perms)
+        if perm.device.type != torch.device(DEVICE).type:
+            raise AssertionError(f"pit {spk}: the permutation left the card")
+        # estimate order[b, s] is target s's, so target s's estimate sits where order is s
+        want = torch.argsort(order, dim=1).to(torch.int32)
+        if not torch.equal(perm, want):
+            raise AssertionError(f"pit {spk}: {int((perm != want).any(1).sum())} mixtures not unscrambled")
+        k = min(WSJ_BATCH, len(mixed))
+        cpu_best = F.permutation_invariant_training(mixed[:k].cpu(), tgt[:k].cpu(), F.scale_invariant_signal_distortion_ratio)[0]
+        card_best = F.permutation_invariant_training(mixed[:k], tgt[:k], F.scale_invariant_signal_distortion_ratio)[0]
+        err = float((card_best.cpu() - cpu_best).abs().max())
+        if err > SNR_ATOL_DB:
+            raise AssertionError(f"pit {spk}: the card is {err} dB from the CPU port")
+        route = "host LAP" if spk > 6 else "exhaustive on the card"
+        pit[str(spk)] = {"mixtures": len(mixed), "value_db": float(value), "seconds": secs,
+                         "mixtures_per_s": len(mixed) / secs, "route": route, "cpu_abs_err_db": err}
+        print(f"audio pit {spk} speakers ({route}): {float(value)!r} dB, every mixture unscrambled, "
+              f"{len(mixed) / secs!r} mixtures/s; the card {err!r} dB from the CPU")
+    line["pit"] = pit
+    gates = {}
+    for name, make in (("pesq", lambda: mt.PerceptualEvaluationSpeechQuality(8000, "nb", device=DEVICE)),
+                       ("stoi", lambda: mt.ShortTimeObjectiveIntelligibility(8000, device=DEVICE))):
+        try:
+            make()
+        except ModuleNotFoundError as err:
+            gates[name] = str(err)
+        else:
+            raise AssertionError(f"audio {name}: the gate did not raise (is the optional package installed?)")
+    line["gates"] = gates
+    print(f"audio: the PESQ and STOI gates raise: {list(gates)}")
+    return line
+
+
+def phase_text_audio(mt, card: str, update_profile: Optional[int] = None) -> dict:
+    """Phase 16: (a) the MT metrics over a newstest-shaped corpus, (b) ROUGE and SQuAD, (c) BERTScore at
+    roberta-large's shape, (d) SNR, SI-SNR, SI-SDR, SDR, PIT and the PESQ/STOI gates.  A CPU twin of (a) and
+    (b) runs in a process of its own meanwhile; the card's states must equal its bitwise.  ``update_profile``
+    is :func:`_text_audio_update_profile`'s result where ``main`` took it early, else it is taken here."""
+    phase_start = time.perf_counter()
+    if update_profile is None:
+        update_profile = _text_audio_update_profile(mt)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_text_") as tmp:
+        twin_log = open(Path(tmp) / "twin.txt", "w")
+        twin = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--text-cpu-twin", tmp], cwd=ROOT,
+                                stdout=twin_log, stderr=subprocess.STDOUT, env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+        try:
+            text, states = phase_mt_summaries(mt)
+            torch.cuda.empty_cache()
+            bert = phase_bert(mt)
+            torch.cuda.empty_cache()
+            audio = phase_audio(mt)
+            torch.cuda.empty_cache()
+            waited = time.perf_counter()
+            code = twin.wait(timeout=SYNC_LIMIT)
+            waited = time.perf_counter() - waited
+        finally:
+            twin.kill()
+            twin.wait()
+            twin_log.close()
+        if code != 0:
+            raise AssertionError(f"text: the CPU twin exited {code}:\n{(Path(tmp) / 'twin.txt').read_text()[-4000:]}")
+        cpu_states = json.loads((Path(tmp) / "twin.json").read_text())
+    for name, bits in states.items():
+        if bits != cpu_states[name]:
+            diff = [k for k in bits if bits[k] != cpu_states[name].get(k)]
+            raise AssertionError(f"text {name}: the card's states {diff} are not the CPU port's bitwise")
+    print(f"text: every state of (a) and (b) bitwise the CPU port's (waited {waited:.1f} s for the twin); the "
+          f"updates: {'not profiled' if update_profile is None else 'no device operation'}")
+    secs = time.perf_counter() - phase_start
+    print(f"text_audio phase took {secs:.1f} s")
+    return {"text_audio": {"card": card, "text": text, "states_bitwise_cpu": True,
+                           "device_ops_in_updates": 0 if update_profile else None, "bert": bert, "audio": audio,
+                           "twin_wait_s": waited, "phase_s": secs}}
 
 
 def _device_ops(fn, calls: int = 1) -> Optional[list]:
@@ -5739,6 +6268,7 @@ def main() -> int:
 
     obs_profiles = _obs_profiles(mt, obs, logits, labels)
     text_profile = _text_update_profile(mt)  # phase 15 (d)'s, early too
+    text_audio_profile = _text_audio_update_profile(mt)  # phase 16 (a)'s and (b)'s, early too
     curve_launches, curve_line = phase_curves(mt, ops, logits, labels, card)
     rest_launches, rest_line = phase_rest(mt, ops, logits, labels, card)
     del logits, labels
@@ -5756,6 +6286,8 @@ def main() -> int:
     match_entry, detection_line = phase_detection_image(mt, card)
     torch.cuda.empty_cache()
     generation_line = phase_generation_text(mt, card, text_profile)
+    torch.cuda.empty_cache()
+    text_audio_line = phase_text_audio(mt, card, text_audio_profile)
     print(f"launches per entry point: main path {launches}, curve phase {curve_launches}, "
           f"rest of classification {rest_launches}, regression {regression_launches}, "
           f"wrappers and retrieval {wrapper_launches}, streaming {streaming_launches}, multistream {ms_launches}, "
@@ -5784,6 +6316,7 @@ def main() -> int:
     print(json.dumps(core_line))
     print(json.dumps(detection_line))
     print(json.dumps(generation_line))
+    print(json.dumps(text_audio_line))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -5795,4 +6328,6 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 5 and sys.argv[1] == "--sync-rank":
         sys.exit(sync_rank(sys.argv[2], int(sys.argv[3]), Path(sys.argv[4])))
+    if len(sys.argv) == 3 and sys.argv[1] == "--text-cpu-twin":
+        sys.exit(text_cpu_twin(Path(sys.argv[2])))
     sys.exit(main())

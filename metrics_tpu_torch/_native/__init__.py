@@ -1,14 +1,17 @@
-"""The host kernels in C++ (``native.cpp``, bound with ``ctypes``), each with its pure-Python fallback.
+"""The host kernels in C++ (``native.cpp`` and ``text.cpp``, bound with ``ctypes``), each with its
+pure-Python fallback.
 
 Counterpart of ``metrics_tpu/_native``, whose C++ source ``native.cpp`` is a
 verbatim copy.  They cover the host-sequential algorithms of the metrics: the
 edit distance of the text metrics, the COCO RLE mask codec, the greedy COCO
 matcher and the precision tables of ``MeanAveragePrecision``'s host route,
 and the linear assignment of the audio metrics' permutation search.
+``text.cpp`` adds the port's own: the extended edit distance's grid, which the
+JAX package runs in Python.
 
-The library is compiled with ``g++ -O3`` at first use into ``build/native/``
-at the root of the checkout, named by a hash of the source: an edited source
-builds anew, an unchanged one loads what is there.  Where it cannot be built
+The library is compiled with ``g++ -O3 -ffp-contract=off`` at first use into
+``build/native/`` at the root of the checkout, named by a hash of the
+sources: an edited source builds anew, an unchanged one loads what is there.  Where it cannot be built
 (no compiler) every function takes its pure-Python fallback, which computes
 the same values; those that return ``None`` instead tell their caller to run
 its own fallback.  :func:`native_available` says which it is.  Every function
@@ -26,13 +29,16 @@ from typing import List, Optional, Sequence
 import numpy as np
 
 SOURCE = Path(__file__).resolve().parent / "native.cpp"
+TEXT_SOURCE = SOURCE.with_name("text.cpp")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
 
 _P_I64 = ctypes.POINTER(ctypes.c_int64)
 _P_U32 = ctypes.POINTER(ctypes.c_uint32)
 _P_U8 = ctypes.POINTER(ctypes.c_uint8)
 _P_F64 = ctypes.POINTER(ctypes.c_double)
+_P_I32 = ctypes.POINTER(ctypes.c_int32)
 _I64 = ctypes.c_int64
+_F64 = ctypes.c_double
 
 #: each entry point's (restype, argtypes)
 _SIGNATURES = {
@@ -52,12 +58,13 @@ _SIGNATURES = {
         None, [_P_U8, _I64, _P_I64, _P_U8, _P_I64, _P_I64, _P_F64, _P_F64, _I64, _I64, _I64, _P_F64, _P_F64],
     ),
     "mtpu_coco_match_blocks": (None, [_P_F64, _P_I64, _P_I64, _I64, _P_U8, _P_F64, _I64, _I64, _P_U8]),
+    "mtpu_eed_batch": (None, [_P_I32, _P_I64, _P_I32, _P_I64, _I64, _F64, _F64, _F64, _F64, _P_F64]),
 }
 
 
 def library_path() -> Path:
-    """Where the shared library of the current source lives once built."""
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
+    """Where the shared library of the current sources lives once built."""
+    digest = hashlib.sha256(SOURCE.read_bytes() + TEXT_SOURCE.read_bytes()).hexdigest()[:16]
     return BUILD_DIR / f"libnative_{digest}.so"
 
 
@@ -69,7 +76,8 @@ def build() -> Path:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")  # concurrent builds never share a file
         subprocess.run(
-            ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", str(SOURCE), "-o", str(tmp)],
+            ["g++", "-O3", "-ffp-contract=off", "-shared", "-fPIC", "-std=c++17", str(SOURCE), str(TEXT_SOURCE),
+             "-o", str(tmp)],
             check=True, capture_output=True, timeout=120,
         )
         os.replace(tmp, out)
@@ -167,6 +175,29 @@ def edit_distance_batch(preds: Sequence[Sequence[str]], targets: Sequence[Sequen
     lib.mtpu_edit_distance_batch(
         _ptr(a_flat, _P_I64), _ptr(a_lens, _P_I64), _ptr(b_flat, _P_I64), _ptr(b_lens, _P_I64), n, _ptr(out, _P_I64)
     )
+    return out
+
+
+def _code_points(texts: Sequence[str]) -> np.ndarray:
+    return np.frombuffer("".join(texts).encode("utf-32-le"), dtype=np.int32)
+
+
+def eed_batch(
+    hyps: Sequence[str], refs: Sequence[str], alpha: float, rho: float, deletion: float, insertion: float
+) -> Optional[np.ndarray]:
+    """Each (hyp, ref) pair's extended edit distance in one native call (float64), or ``None`` where the
+    library is missing: the caller then runs its Python grid, which gives the same bits."""
+    if len(hyps) != len(refs):
+        raise ValueError(f"eed_batch takes as many references as hypotheses, got {len(hyps)} and {len(refs)}")
+    lib = get_lib()
+    if lib is None:
+        return None
+    h, r = _code_points(hyps), _code_points(refs)
+    h_lens = np.asarray([len(x) for x in hyps], dtype=np.int64)
+    r_lens = np.asarray([len(x) for x in refs], dtype=np.int64)
+    out = np.empty(len(hyps), dtype=np.float64)
+    lib.mtpu_eed_batch(_ptr(h, _P_I32), _ptr(h_lens, _P_I64), _ptr(r, _P_I32), _ptr(r_lens, _P_I64), len(hyps),
+                       alpha, rho, deletion, insertion, _ptr(out, _P_F64))
     return out
 
 

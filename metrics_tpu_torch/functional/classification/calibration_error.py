@@ -12,6 +12,7 @@ from typing import Tuple
 import torch
 
 from metrics_tpu_torch.utils.checks import _as_tensor, _checked_inputs
+from metrics_tpu_torch.utils.compute import _sqrt
 from metrics_tpu_torch.utils.data import _linspace_thresholds
 from metrics_tpu_torch.utils.enums import DataType
 
@@ -66,7 +67,7 @@ def _ce_compute(
     if debias:
         debias_bins = (acc_bin * (acc_bin - 1) * prop_bin) / (prop_bin * accuracies.numel() - 1)
         ce = ce + torch.nan_to_num(debias_bins).sum()
-    return torch.where(ce > 0, torch.sqrt(torch.clamp(ce, min=0.0)), 0.0)
+    return torch.where(ce > 0, _sqrt(torch.clamp(ce, min=0.0)), 0.0)
 
 
 def _ce_update(preds: torch.Tensor, target: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

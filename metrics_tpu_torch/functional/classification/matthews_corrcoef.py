@@ -4,6 +4,7 @@
 import torch
 
 from metrics_tpu_torch.functional.classification.confusion_matrix import _confusion_matrix_update
+from metrics_tpu_torch.utils.compute import _sqrt
 
 _matthews_corrcoef_update = _confusion_matrix_update
 
@@ -21,7 +22,7 @@ def _matthews_corrcoef_compute(confmat: torch.Tensor) -> torch.Tensor:
 
     denom = cov_ypyp * cov_ytyt
     zero = denom == 0
-    return torch.where(zero, 0.0, cov_ytyp / torch.sqrt(torch.where(zero, 1.0, denom)))
+    return torch.where(zero, 0.0, cov_ytyp / _sqrt(torch.where(zero, 1.0, denom)))
 
 
 def matthews_corrcoef(

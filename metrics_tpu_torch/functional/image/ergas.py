@@ -6,7 +6,7 @@ from typing import Optional, Tuple, Union
 import torch
 
 from metrics_tpu_torch.utils.checks import _as_tensor, _check_same_shape
-from metrics_tpu_torch.utils.compute import _mean
+from metrics_tpu_torch.utils.compute import _mean, _sqrt
 from metrics_tpu_torch.utils.data import reduce
 
 
@@ -34,9 +34,9 @@ def _ergas_per_image(preds: torch.Tensor, target: torch.Tensor, ratio: Union[int
     target = target.reshape(b, c, h * w)
     diff = preds - target
     sum_squared_error = torch.sum(diff * diff, dim=2)
-    rmse_per_band = torch.sqrt(sum_squared_error / (h * w))
+    rmse_per_band = _sqrt(sum_squared_error / (h * w))
     mean_target = _mean(target, dim=2)
-    return 100 * ratio * torch.sqrt(torch.sum((rmse_per_band / mean_target) ** 2, dim=1) / c)
+    return 100 * ratio * _sqrt(torch.sum((rmse_per_band / mean_target) ** 2, dim=1) / c)
 
 
 def error_relative_global_dimensionless_synthesis(

@@ -9,10 +9,11 @@ from typing import Optional
 import torch
 
 from metrics_tpu_torch.functional.pairwise.helpers import _check_input, _reduce_distance_matrix, _zero_diagonal
+from metrics_tpu_torch.utils.compute import _norm
 
 
 def _unit_rows(x: torch.Tensor) -> torch.Tensor:
-    return x / torch.sqrt((x * x).sum(1, keepdim=True)).clamp_min(1e-30)
+    return x / _norm(x, 1, keepdim=True).clamp_min(1e-30)
 
 
 def _pairwise_cosine_similarity_compute(

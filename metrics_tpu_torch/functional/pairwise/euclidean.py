@@ -11,6 +11,7 @@ from typing import Optional
 import torch
 
 from metrics_tpu_torch.functional.pairwise.helpers import _check_input, _reduce_distance_matrix, _zero_diagonal
+from metrics_tpu_torch.utils.compute import _sqrt
 
 
 def _pairwise_euclidean_distance_compute(
@@ -20,7 +21,7 @@ def _pairwise_euclidean_distance_compute(
     x_norm = (x * x).sum(1, keepdim=True)
     y_norm = x_norm if y is x else (y * y).sum(1, keepdim=True)
     sq = x_norm + y_norm.T - 2 * (x @ y.T)
-    return _zero_diagonal(torch.sqrt(sq.clamp_min(0.0)), zero_diag)
+    return _zero_diagonal(_sqrt(sq.clamp_min(0.0)), zero_diag)
 
 
 def pairwise_euclidean_distance(

@@ -5,7 +5,7 @@ from typing import Optional, Tuple
 import torch
 
 from metrics_tpu_torch.utils.checks import _as_tensor, _check_same_shape
-from metrics_tpu_torch.utils.compute import _mean
+from metrics_tpu_torch.utils.compute import _mean, _norm
 
 
 def _cosine_similarity_update(preds: torch.Tensor, target: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -19,8 +19,8 @@ def _cosine_similarity_update(preds: torch.Tensor, target: torch.Tensor) -> Tupl
 
 def _cosine_similarity_compute(preds: torch.Tensor, target: torch.Tensor, reduction: Optional[str] = "sum") -> torch.Tensor:
     dot_product = (preds * target).sum(-1)
-    preds_norm = torch.sqrt((preds * preds).sum(-1))
-    target_norm = torch.sqrt((target * target).sum(-1))
+    preds_norm = _norm(preds)
+    target_norm = _norm(target)
     similarity = dot_product / (preds_norm * target_norm)
     if reduction == "sum":
         return similarity.sum()

@@ -5,7 +5,7 @@ from typing import Tuple
 import torch
 
 from metrics_tpu_torch.utils.checks import _as_tensor, _check_same_shape
-from metrics_tpu_torch.utils.compute import _count
+from metrics_tpu_torch.utils.compute import _count, _sqrt
 
 
 def _mean_squared_error_update(preds: torch.Tensor, target: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -18,7 +18,7 @@ def _mean_squared_error_update(preds: torch.Tensor, target: torch.Tensor) -> Tup
 
 def _mean_squared_error_compute(sum_squared_error: torch.Tensor, n_obs: torch.Tensor, squared: bool = True) -> torch.Tensor:
     out = sum_squared_error / n_obs
-    return out if squared else torch.sqrt(out)
+    return out if squared else _sqrt(out)
 
 
 def mean_squared_error(preds: torch.Tensor, target: torch.Tensor, squared: bool = True) -> torch.Tensor:

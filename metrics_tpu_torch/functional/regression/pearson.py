@@ -10,7 +10,7 @@ from typing import Tuple
 import torch
 
 from metrics_tpu_torch.utils.checks import _as_tensor, _check_same_shape
-from metrics_tpu_torch.utils.compute import _mean
+from metrics_tpu_torch.utils.compute import _mean, _sqrt
 
 
 def _pearson_corrcoef_update(
@@ -49,7 +49,7 @@ def _pearson_corrcoef_compute(var_x: torch.Tensor, var_y: torch.Tensor, corr_xy:
     var_x = var_x / (nb - 1)
     var_y = var_y / (nb - 1)
     corr_xy = corr_xy / (nb - 1)
-    corrcoef = (corr_xy / torch.sqrt(var_x * var_y)).squeeze()
+    corrcoef = (corr_xy / _sqrt(var_x * var_y)).squeeze()
     return corrcoef.clamp(-1.0, 1.0)
 
 

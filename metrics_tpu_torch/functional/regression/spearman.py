@@ -15,7 +15,7 @@ import torch
 
 from metrics_tpu_torch.functional.classification.precision_recall_curve import _sort_keys
 from metrics_tpu_torch.utils.checks import _as_tensor, _check_same_shape
-from metrics_tpu_torch.utils.compute import _mean
+from metrics_tpu_torch.utils.compute import _mean, _sqrt
 
 
 def _rank_data(data: torch.Tensor) -> torch.Tensor:
@@ -49,8 +49,8 @@ def _spearman_corrcoef_compute(preds: torch.Tensor, target: torch.Tensor, eps: f
     preds_diff = preds - _mean(preds)
     target_diff = target - _mean(target)
     cov = _mean(preds_diff * target_diff)
-    preds_std = torch.sqrt(_mean(preds_diff * preds_diff))
-    target_std = torch.sqrt(_mean(target_diff * target_diff))
+    preds_std = _sqrt(_mean(preds_diff * preds_diff))
+    target_std = _sqrt(_mean(target_diff * target_diff))
     corrcoef = cov / (preds_std * target_std + eps)
     return corrcoef.clamp(-1.0, 1.0)
 

@@ -14,6 +14,7 @@ import torch
 
 from metrics_tpu_torch.image._batching import ChunkedExtractorMixin
 from metrics_tpu_torch.metric import Metric
+from metrics_tpu_torch.utils.compute import _sqrt
 from metrics_tpu_torch.utils.prints import rank_zero_warn
 
 
@@ -31,7 +32,7 @@ def _psd_sqrt(mat: torch.Tensor) -> torch.Tensor:
     """Symmetric PSD square root through an eigendecomposition."""
     vals, vecs = _eigh((mat + mat.T) / 2.0)
     vals = torch.clamp(vals, min=0.0)
-    return (vecs * torch.sqrt(vals)[None, :]) @ vecs.T
+    return (vecs * _sqrt(vals)[None, :]) @ vecs.T
 
 
 def _trace_sqrt_product(sigma1: torch.Tensor, sigma2: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -40,7 +41,7 @@ def _trace_sqrt_product(sigma1: torch.Tensor, sigma2: torch.Tensor, eps: float =
     s1_half = _psd_sqrt(sigma1 + eps * torch.eye(sigma1.shape[0], dtype=sigma1.dtype, device=sigma1.device))
     inner = s1_half @ sigma2 @ s1_half
     vals = _eigh((inner + inner.T) / 2.0, vectors=False)
-    return torch.sqrt(torch.clamp(vals, min=0.0)).sum()
+    return _sqrt(torch.clamp(vals, min=0.0)).sum()
 
 
 def _compute_fid(mu1: torch.Tensor, sigma1: torch.Tensor, mu2: torch.Tensor, sigma2: torch.Tensor) -> torch.Tensor:

@@ -74,6 +74,12 @@ def load_jax_state(metric: Metric, state: Dict[str, Any], extra: Optional[Dict[s
     ``max_val`` and ``base``, the base metric's ``state_pytree()``; its
     ``extra`` is the base metric's.
 
+    A list state loads from a list of arrays or from one concatenated array
+    (as ``state_pytree`` gives it): BERTScore's four int32 token lists and
+    the ``sentence_*`` scores of TER, EED and chrF continue as they would in
+    the JAX package; so do the text metrics' host-summed states and the audio
+    metrics' float32 sums with their int32 ``total``.
+
     A ``MeanAveragePrecision``'s ``extra`` may carry the JAX metric's route
     flag under its JAX name, ``device`` (``None``, ``True`` or ``False``):
     it sets ``on_device``, since ``device`` here names the torch device.

@@ -818,6 +818,12 @@ class Metric(nn.Module, ABC):
             acc[name] = inc if prev is None else prev + inc
         self._hold_states()
 
+    def _append_list_state(self, name: str, value: torch.Tensor) -> None:
+        """Append to a list state without folding the pending host sums (a held
+        list takes the entry where it waits)."""
+        held = self.__dict__.get("_held_states")
+        (held[name] if held and name in held else getattr(self, name)).append(value)
+
     def _fold_host_sum(self, name: str, inc: np.ndarray) -> None:
         # cast to the state's dtype first, then add: float32 states match the
         # JAX package's `state + jnp.asarray(inc, state.dtype)` bit for bit

@@ -31,6 +31,7 @@ once (``on_sync_error="local"`` then keeps ``compute()`` alive).  Re-create
 the process group to sync again.
 """
 
+import atexit
 import dataclasses
 import hashlib
 import os
@@ -239,8 +240,12 @@ def reduce_stack(stacked: torch.Tensor, reduce_fx: Union[str, Callable]) -> torc
 
 
 #: the process group the async worker's collectives run over, per sync group:
-#: ``{group: async group}``, keyed as :data:`_BROKEN_GROUPS` is
-_ASYNC_GROUPS: Dict[Any, Any] = {}
+#: ``{group: (async group, the default group it was made under)}``, keyed as
+#: :data:`_BROKEN_GROUPS` is
+_ASYNC_GROUPS: Dict[Any, Tuple[Any, Any]] = {}
+
+#: seconds the exit hook waits for the worker's rounds in flight
+_EXIT_DRAIN_SECS = 10.0
 
 
 class AsyncSyncHandle:
@@ -289,6 +294,7 @@ class _AsyncSyncWorker:
         self._thread: Optional[threading.Thread] = None
         # guards lazy thread (re)start only; never held around queue ops
         self._start_lock = threading.Lock()
+        self._last: Optional[AsyncSyncHandle] = None
 
     def submit(self, fn: Callable[[], Any], label: str) -> AsyncSyncHandle:
         handle = AsyncSyncHandle(label)
@@ -296,8 +302,14 @@ class _AsyncSyncWorker:
             if self._thread is None or not self._thread.is_alive():
                 self._thread = threading.Thread(target=self._run, daemon=True, name="mtpu-async-sync")
                 self._thread.start()
+            self._last = handle
         self._q.put_nowait((fn, handle))
         return handle
+
+    def wait_idle(self, timeout: float) -> bool:
+        """Wait up to ``timeout`` seconds for every submitted round (FIFO: the last one) to finish."""
+        last = self._last
+        return last is None or last.done.wait(timeout)
 
     def _run(self) -> None:
         while True:
@@ -311,6 +323,27 @@ class _AsyncSyncWorker:
 
 
 _ASYNC_WORKER = _AsyncSyncWorker()
+
+
+def _release_async_groups() -> None:
+    """At interpreter exit: let the worker finish its rounds, then let go of the async groups.
+
+    A gloo group whose last reference outlives ``destroy_process_group()``
+    is torn down in the interpreter's finalization, where its destructor
+    aborts the process ("terminate called without an active exception").
+    So each group goes here, while the interpreter is whole: destroyed if the
+    default group it was made under is still the live one, else released
+    (``destroy_process_group()`` took it down with the default group).
+    """
+    _ASYNC_WORKER.wait_idle(_EXIT_DRAIN_SECS)
+    entries = list(_ASYNC_GROUPS.values())
+    _ASYNC_GROUPS.clear()
+    for group, world in entries:
+        if dist.is_initialized() and dist.group.WORLD is world:
+            dist.destroy_process_group(group)
+
+
+atexit.register(_release_async_groups)
 
 
 def submit_async_round(fn: Callable[[], Any], label: str = "sync") -> AsyncSyncHandle:
@@ -496,8 +529,9 @@ class DistBackend(Backend):
         key = self._group_key()
         if key not in _ASYNC_GROUPS:
             ranks = dist.get_process_group_ranks(key)
-            _ASYNC_GROUPS[key] = dist.new_group(ranks=ranks, backend=dist.get_backend(self.group))
-        return DistBackend(_ASYNC_GROUPS[key], self.options)
+            group = dist.new_group(ranks=ranks, backend=dist.get_backend(self.group))
+            _ASYNC_GROUPS[key] = (group, dist.group.WORLD)
+        return DistBackend(_ASYNC_GROUPS[key][0], self.options)
 
     def _wire_device(self) -> torch.device:
         if dist.get_backend(self.group) == "nccl":

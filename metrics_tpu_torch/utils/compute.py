@@ -20,6 +20,25 @@ def _safe_xlogy(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return torch.where(x == 0.0, torch.zeros_like(res), res)
 
 
+def _sqrt(x: torch.Tensor) -> torch.Tensor:
+    """A correctly rounded square root, as ``jnp.sqrt`` and IEEE 754 give it.
+
+    Some CPU builds of PyTorch compute a float32 ``torch.sqrt`` (and ``x ** 0.5``)
+    a unit in the last place off the correctly rounded root.  On the CPU a
+    float32, float16 or bfloat16 root is taken in float64 and rounded once:
+    float64 carries more than twice the bits plus two, so that rounding is
+    exact.  On the card ``torch.sqrt`` is ``sqrt.rn`` already.
+    """
+    if x.device.type == "cpu" and x.dtype in (torch.float32, torch.float16, torch.bfloat16):
+        return torch.sqrt(x.double()).to(x.dtype)
+    return torch.sqrt(x)
+
+
+def _norm(x: torch.Tensor, dim: int = -1, keepdim: bool = False) -> torch.Tensor:
+    """The Euclidean norm along ``dim``: a sum of squares, then :func:`_sqrt`."""
+    return _sqrt((x * x).sum(dim, keepdim=keepdim))
+
+
 def _count(n: int, device: torch.device) -> torch.Tensor:
     """An int32 count on ``device``, as ``jnp.asarray(n)`` holds it (one fill, no host copy)."""
     return torch.full((), n, dtype=torch.int32, device=device)

@@ -501,5 +501,70 @@ def test_two_gloo_ranks_under_the_watchdog(tmp_path):
     _run_two_gloo_ranks(tmp_path, METRICS_TPU_SYNC_TIMEOUT="20")
 
 
+# ------------------------------------------- exit after destroy_process_group
+EXIT_PAIRS = 6  # two-rank worlds started at once: the abort showed in about one rank in seven under load
+
+
+def _exit_worker(rank: int, store_path: str) -> None:
+    """One async round, the usual DDP teardown, then a plain interpreter exit."""
+    import torch.distributed as dist
+
+    import metrics_tpu_torch as mt
+
+    store = dist.FileStore(store_path, WORLD)
+    dist.init_process_group("gloo", store=store, rank=rank, world_size=WORLD, timeout=timedelta(seconds=30))
+    cat = mt.CatMetric(device="cpu")
+    cat.update(torch.arange(3.0) + rank)
+    assert cat.sync_async() is not None
+    assert cat.compute().numel() == 3 * WORLD
+    dist.destroy_process_group()
+
+
+def test_ranks_exit_cleanly_after_async_rounds_and_destroy_process_group(tmp_path):
+    """The async worker's process group must not outlive the interpreter's teardown: held
+    past ``destroy_process_group()``, a gloo group destroyed during finalization aborted
+    the process ("terminate called without an active exception", exit code -6)."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT), "OMP_NUM_THREADS": "1"}
+    procs = []
+    for pair in range(EXIT_PAIRS):
+        store = tmp_path / f"store{pair}"
+        procs += [subprocess.Popen([sys.executable, __file__, "--exit", str(rank), str(store)], env=env,
+                                   stdout=subprocess.PIPE, stderr=subprocess.STDOUT) for rank in range(WORLD)]
+    results = []
+    for p in procs:
+        try:
+            out = p.communicate(timeout=90)[0].decode()
+        except subprocess.TimeoutExpired:
+            p.kill()
+            out = p.communicate()[0].decode()
+        results.append((p.returncode, out))
+    assert all(code == 0 for code, _ in results), [(code, out[-500:]) for code, out in results if code != 0]
+
+
+def test_the_exit_hook_destroys_a_live_async_group_and_releases_a_destroyed_one(tmp_path):
+    import torch.distributed as dist
+
+    from metrics_tpu_torch.parallel import backend as tb
+
+    for destroy_first in (False, True):
+        dist.init_process_group("gloo", init_method=f"file://{tmp_path}/s{int(destroy_first)}", rank=0, world_size=1)
+        try:
+            group = tb.DistBackend().for_async().group
+            assert dist.get_process_group_ranks(group) == [0]
+            if destroy_first:
+                dist.destroy_process_group()
+            tb._release_async_groups()
+            assert tb._ASYNC_GROUPS == {}
+            if not destroy_first:
+                with pytest.raises(ValueError):
+                    dist.destroy_process_group(group)  # already destroyed by the hook
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+
+
 if __name__ == "__main__":
-    _worker(int(sys.argv[1]), sys.argv[2], Path(sys.argv[3]))
+    if sys.argv[1] == "--exit":
+        _exit_worker(int(sys.argv[2]), sys.argv[3])
+    else:
+        _worker(int(sys.argv[1]), sys.argv[2], Path(sys.argv[3]))

@@ -1057,3 +1057,41 @@ def test_image_convolutions_on_cuda_stay_float32_with_tf32_allowed(cuda, name, t
         torch.backends.cudnn.allow_tf32 = before
     # float32 window sums in another order than the CPU's: a few ulps, magnified by the variance's cancellation
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_bertscore_matching_on_cuda_equals_the_cpu(cuda):
+    """The greedy matching from identical embeddings, per layer too, within 1e-6 of the CPU's."""
+    from metrics_tpu_torch.functional.text.bert import _greedy_match
+
+    gen = torch.Generator().manual_seed(0)
+    emb = torch.randn(3, 8, 40, 64, generator=gen)  # (layers, pairs x 2 sides, tokens, dim)
+    lens = torch.randint(1, 41, (8,), generator=gen)
+    mask = (torch.arange(40)[None, :] < lens[:, None]).float()
+    weights = torch.rand(8, 40, generator=gen)
+    args = (emb[:, :4], mask[:4], emb[:, 4:], mask[4:], weights[:4], weights[4:])
+    cpu = _greedy_match(*args)
+    card = _greedy_match(*(a.to(cuda) for a in args))
+    for key in cpu:
+        assert card[key].device.type == "cuda" and card[key].shape == (3, 4)
+        assert float((card[key].cpu() - cpu[key]).abs().max()) <= 1e-6, key
+    one = _greedy_match(*(a[0] if a.ndim == 4 else a for a in (a.to(cuda) for a in args)))
+    assert torch.allclose(one["f1"].cpu(), cpu["f1"][0], atol=1e-6, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kwargs", [{"filter_length": 512}, {"filter_length": 64, "zero_mean": True, "load_diag": 1e-3}])
+def test_sdr_on_cuda_equals_the_cpu(cuda, kwargs):
+    from metrics_tpu_torch.functional.audio.sdr import signal_distortion_ratio
+
+    rng = np.random.default_rng(1)
+    target = rng.standard_normal((6, 8000)).astype(np.float32)
+    target[:, 1:] += 0.8 * target[:, :-1]
+    preds = (0.9 * target + 0.3 * rng.standard_normal((6, 8000))).astype(np.float32)
+    cpu = signal_distortion_ratio(torch.from_numpy(preds), torch.from_numpy(target), **kwargs)
+    card = signal_distortion_ratio(torch.from_numpy(preds).to(cuda), torch.from_numpy(target).to(cuda), **kwargs)
+    assert card.device.type == "cuda" and card.dtype == torch.float32
+    assert float((card.cpu() - cpu).abs().max()) <= 2e-3  # dB: float32 FFTs and solve, reordered
+    metric = mt.SignalDistortionRatio(device="cuda", **kwargs)
+    metric.update(torch.from_numpy(preds).to(cuda), torch.from_numpy(target).to(cuda))
+    assert metric.sum_sdr.device.type == "cuda" and int(metric.total) == 6

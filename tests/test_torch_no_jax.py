@@ -206,3 +206,31 @@ GENERATION_AND_TEXT = (
 def test_the_walk_covers_the_extractor_metrics_their_backbones_and_the_wer_family():
     walked = {p.relative_to(ROOT).as_posix() for p in _port_sources()}
     assert len(GENERATION_AND_TEXT) == 22 and set(GENERATION_AND_TEXT) <= walked
+
+
+TEXT_AND_AUDIO = (
+    [f"metrics_tpu_torch/{layer}/{name}.py" for layer in ("functional/text", "text")
+     for name in ("ter", "eed", "bleu", "sacre_bleu", "chrf", "rouge", "squad", "bert")]
+    + ["metrics_tpu_torch/functional/text/wordpiece.py", "metrics_tpu_torch/audio/_base.py"]
+    + [f"metrics_tpu_torch/{layer}/{name}.py" for layer in ("functional/audio", "audio")
+       for name in ("__init__", "snr", "sdr", "pit", "pesq", "stoi")]
+)
+
+
+def test_the_walk_covers_the_rest_of_text_and_audio():
+    walked = {p.relative_to(ROOT).as_posix() for p in _port_sources()}
+    assert len(TEXT_AND_AUDIO) == 30 and set(TEXT_AND_AUDIO) <= walked
+
+
+def test_text_and_audio_without_device_raise_when_cuda_is_absent(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tok = mt.functional.text.WordPieceTokenizer(["[PAD]", "[UNK]", "[CLS]", "[SEP]", "a"])
+    for make in (mt.TranslationEditRate, mt.ExtendedEditDistance, mt.BLEUScore, mt.SacreBLEUScore, mt.CHRFScore,
+                 mt.ROUGEScore, mt.SQuAD, lambda: mt.BERTScore(model=object(), user_tokenizer=tok),
+                 mt.SignalNoiseRatio, mt.ScaleInvariantSignalNoiseRatio, mt.SignalDistortionRatio,
+                 mt.ScaleInvariantSignalDistortionRatio,
+                 lambda: mt.PermutationInvariantTraining(mt.functional.signal_noise_ratio)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+    assert mt.BLEUScore(device="cpu").numerator.device == torch.device("cpu")
+    assert mt.PermutationInvariantTraining(mt.functional.signal_noise_ratio, device="cpu").device == torch.device("cpu")
