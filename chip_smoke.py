@@ -205,7 +205,29 @@ Phases (each passes or raises; any failure exits non-zero):
      card against the CPU port and SDR against a float64 solve; PIT with
      SI-SDR over 2- and 3-speaker mixtures (exhaustive on the card) and
      8-speaker ones (the host LAP), every mixture unscrambled; the PESQ and
-     STOI gates raise.
+     STOI gates raise;
+ 17. the serve tier: one ``EvalServer`` on the card (``block_rows=1024``)
+     with four jobs fed over localhost HTTP: ``top1`` (``Accuracy``) and
+     ``per_class`` (a 1,000-stream ``MultiStreamMetric`` of a micro
+     ``Accuracy``, an out-of-range id on every 13th row) get phase 4's
+     ImageNet pass through ``POST /ingest_columns`` in bodies of 1,024 rows,
+     ``latency`` (``StreamingQuantile``, q 0.5 and 0.99, capacity 2048)
+     1,048,576 log-normal latencies in bodies of 65,536, ``mse`` 4,096 JSON
+     records in 8 ``POST /ingest``.  (a) After the flush each job's state is
+     bitwise a twin's updated directly with the pieces its batcher
+     dispatched (52 for top1, 49 padded blocks for per_class), the counts
+     against numpy, and each entry point's launches what the pieces imply;
+     (b) a reader thread queries every endpoint while ingest runs (p50/p99
+     ms), and after the flush every answer is the twin's values widened to
+     float64, bit for bit; (c) the durability drill: every body framed into
+     a WAL before its ``seqs=`` POST, a checkpoint after 25 bodies, a kill
+     after 40, a new server restored and fed the frames past the
+     checkpoint's watermarks (one of them twice, deduped), bitwise the
+     uninterrupted run; three frames byte for byte the documented layout;
+     (d) the card's checkpoint restored into a registry on the CPU, bitwise.
+     Records/s per job end to end, query p50/p99, checkpoint and restore
+     ms, and the device operations and host copies of one block dispatch
+     (profiled early in ``main``).
 The last line is ``{"ok": true, "device": {...}}``.
 
 The sync phases run this script again as their ranks
@@ -4860,22 +4882,45 @@ def _check_routes(name: str, device_vals: dict, host_vals: dict) -> dict:
     return {"max_value_err": worst, "map": float(host_vals["map"]), "mar_100": float(host_vals["mar_100"])}
 
 
+DETECTION_TORCH_OPS = ("segm_intersections", "box_inter_union", "score_tables")  # device.py:87, :146, :241 in the JAX package
+
+
 def _captured_matches(fn):
-    """Run ``fn`` with the device route's matcher call recorded: the operands of each ``match_ranked_blocks``."""
+    """Run ``fn`` with the device route's calls recorded: the operands of each ``match_ranked_blocks``, and the
+    bytes each torch-op stage reads and writes (every input and output tensor counted once)."""
     from metrics_tpu_torch.detection import device as ddev
 
-    seen, original = [], ddev.match_ranked_blocks
+    seen, moved = [], {name: 0 for name in DETECTION_TORCH_OPS}
+    originals = {name: getattr(ddev, name) for name in ("match_ranked_blocks",) + DETECTION_TORCH_OPS}
 
     def recording(ranks, gt_ignore, thr_ranks):
         seen.append((ranks, gt_ignore, thr_ranks))
-        return original(ranks, gt_ignore, thr_ranks)
+        return originals["match_ranked_blocks"](ranks, gt_ignore, thr_ranks)
+
+    def counting(name):
+        def call(*args):
+            out = originals[name](*args)
+            tensors = [t for t in (*args, *(out if isinstance(out, tuple) else (out,))) if isinstance(t, torch.Tensor)]
+            moved[name] += sum(t.numel() * t.element_size() for t in tensors)
+            return out
+        return call
 
     ddev.match_ranked_blocks = recording
+    for name in DETECTION_TORCH_OPS:
+        setattr(ddev, name, counting(name))
     try:
         out = fn()
     finally:
-        ddev.match_ranked_blocks = original
-    return out, seen
+        for name, original in originals.items():
+            setattr(ddev, name, original)
+    return out, seen, moved
+
+
+def _torch_op_bounds(name: str, moved: dict) -> dict:
+    """Each torch-op stage's byte bound: the bytes it must move over the card's memory rate."""
+    out = {op: {"bytes": b, "bound_ms": b / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"} for op, b in moved.items() if b}
+    print(f"{name}: the torch-op stages' byte bounds {out}")
+    return out
 
 
 def _tie_operands(seed: int, device) -> tuple:
@@ -5126,7 +5171,8 @@ def phase_detection_image(mt, card: str) -> Tuple[dict, dict]:
     scene = _coco_scene(SEED + 141, COCO_IMAGES, COCO_GTS)
     preds, target = _coco_inputs(scene, DEVICE)
     cm.coco_match.launches = 0
-    (dev_vals, dev_prof, dev_s), operands = _captured_matches(lambda: _map_pass(mt, preds, target, on_device=True, class_metrics=True))
+    (dev_vals, dev_prof, dev_s), operands, moved = _captured_matches(
+        lambda: _map_pass(mt, preds, target, on_device=True, class_metrics=True))
     launches = cm.coco_match.launches
     host_vals, host_prof, host_s = _map_pass(mt, preds, target, on_device=False, class_metrics=True)
     if launches != len(operands) or launches < 1:
@@ -5134,7 +5180,7 @@ def phase_detection_image(mt, card: str) -> Tuple[dict, dict]:
     bbox = {"images": COCO_IMAGES, "gts": COCO_GTS, "dets": COCO_IMAGES * COCO_DETS, "batch": COCO_BATCH,
             "device_route": {"seconds": dev_s, "images_per_s": COCO_IMAGES / dev_s, "profile": dev_prof},
             "host_route": {"seconds": host_s, "images_per_s": COCO_IMAGES / host_s, "profile": host_prof},
-            **_check_routes("bbox", dev_vals, host_vals)}
+            "torch_op_bounds": _torch_op_bounds("bbox", moved), **_check_routes("bbox", dev_vals, host_vals)}
     print(f"bbox: device route {COCO_IMAGES / dev_s!r} images/s ({dev_prof}), host route {COCO_IMAGES / host_s!r} "
           f"images/s ({host_prof})")
     del preds, target
@@ -5147,7 +5193,7 @@ def phase_detection_image(mt, card: str) -> Tuple[dict, dict]:
     setup_s = time.perf_counter() - setup
     preds, target = _coco_inputs(scene, DEVICE, 0, COCO_SEGM_IMAGES, masks=strings)
     before = cm.coco_match.launches
-    (seg_vals, seg_prof, seg_s), seg_ops = _captured_matches(
+    (seg_vals, seg_prof, seg_s), seg_ops, seg_moved = _captured_matches(
         lambda: _map_pass(mt, preds, target, iou_type="segm", on_device=True, class_metrics=True))
     launches += cm.coco_match.launches - before
     seg_host_vals, seg_host_prof, seg_host_s = _map_pass(mt, preds, target, iou_type="segm", on_device=False,
@@ -5156,7 +5202,7 @@ def phase_detection_image(mt, card: str) -> Tuple[dict, dict]:
             "cut": f"{COCO_SEGM_IMAGES} of {COCO_IMAGES} images: the masks' RLE strings are encoded on the host in setup",
             "device_route": {"seconds": seg_s, "images_per_s": COCO_SEGM_IMAGES / seg_s, "profile": seg_prof},
             "host_route": {"seconds": seg_host_s, "images_per_s": COCO_SEGM_IMAGES / seg_host_s, "profile": seg_host_prof},
-            **_check_routes("segm", seg_vals, seg_host_vals)}
+            "torch_op_bounds": _torch_op_bounds("segm", seg_moved), **_check_routes("segm", seg_vals, seg_host_vals)}
     print(f"segm: device route {COCO_SEGM_IMAGES / seg_s!r} images/s ({seg_prof}), host route "
           f"{COCO_SEGM_IMAGES / seg_host_s!r} images/s ({seg_host_prof}); {n_det + n_gt} masks encoded in {setup_s!r} s")
     del preds, target, scene
@@ -6090,6 +6136,517 @@ def phase_text_audio(mt, card: str, update_profile: Optional[int] = None) -> dic
                            "twin_wait_s": waited, "phase_s": secs}}
 
 
+SERVE_BLOCK_ROWS = 1024  # ServeConfig(block_rows=...): the ingest block
+SERVE_BODY_ROWS = 1024  # rows of a top1 / per_class body: 1000 float32 logits and an int64 label a row, 4.1 MB
+SERVE_OOB_EVERY = 13  # per_class: an out-of-range stream id on every 13th row, as default_traffic aims them
+SERVE_OOB_ID = N_CLASSES + 7  # the id default_traffic aims them at
+LATENCY_VALUES, LATENCY_BODY = 1 << 20, 1 << 16  # request latencies: 16 bodies of 65,536 float32
+LATENCY_Q = (0.5, 0.99)
+MSE_RECORDS, MSE_POSTS = 4_096, 8  # JSON records through POST /ingest
+SERVE_QUEUE = 16_384  # ingest queue slots: more than the run's items (each JSON record takes one), so none is refused
+DRILL_CHECKPOINT_AT, DRILL_KILL_AT = 25, 40  # bodies into the drill's first server before its checkpoint and its kill
+SERVE_STREAMS_QUERY = "0,1,2,3,4,5,6,7,500,999"
+SERVE_HTTP_TIMEOUT = 120.0
+
+
+def _serve_registry(mt, device: str):
+    """Phase 17's four jobs on one device: ImageNet top-1, per-class accuracy (1,000 streams), request-latency
+    quantiles at phase 11's capacity, and a mean squared error fed JSON records."""
+    from metrics_tpu_torch.serve import MetricRegistry
+
+    reg = MetricRegistry()
+    reg.register("top1", mt.Accuracy(num_classes=N_CLASSES, device=device))
+    reg.register("per_class", mt.MultiStreamMetric(mt.Accuracy(num_classes=N_CLASSES, device=device),
+                                                   num_streams=N_CLASSES, device=device))
+    reg.register("latency", mt.StreamingQuantile(q=LATENCY_Q, capacity=SKETCH_CAPACITY, max_items=SKETCH_MAX_ITEMS,
+                                                 device=device), components=("p50", "p99"))
+    reg.register("mse", mt.MeanSquaredError(device=device))
+    return reg
+
+
+def _serve_data() -> dict:
+    """Phase 17's traffic on the host, from the seed: phase 4's ImageNet pass (logits, labels, and the per_class
+    ids: the labels, with an out-of-range id on every 13th row), log-normal request latencies (ms) and the mse
+    job's (pred, target) records."""
+    logits, labels, _ = _imagenet_pass()
+    x, y = logits.cpu().numpy(), labels.cpu().numpy()
+    del logits, labels
+    ids = y.astype(np.int32)
+    ids[np.arange(N_SAMPLES) % SERVE_OOB_EVERY == SERVE_OOB_EVERY - 1] = SERVE_OOB_ID
+    rng = np.random.default_rng(SEED + 17)
+    latency = rng.lognormal(mean=np.log(20.0), sigma=0.8, size=LATENCY_VALUES).astype(np.float32)
+    mse = rng.uniform(size=(2, MSE_RECORDS)).astype(np.float32)
+    return {"x": x, "y": y, "ids": ids, "latency": latency, "mse_p": mse[0], "mse_t": mse[1]}
+
+
+def _columns_body(job: str, cols: list, ids=None, seq: Optional[int] = None) -> bytes:
+    """One ``POST /ingest_columns`` body: a JSON header line, then each column's rows, then the int32 ids."""
+    rows = len(cols[0])
+    header = {"job": job, "rows": rows, "arity": len(cols), "dtypes": [c.dtype.str for c in cols],
+              "shapes": [list(c.shape[1:]) for c in cols], "ids": ids is not None}
+    if seq is not None:
+        header["seqs"] = [[seq, rows]]
+    parts = [json.dumps(header).encode(), b"\n"] + [np.ascontiguousarray(c).tobytes() for c in cols]
+    if ids is not None:
+        parts.append(np.ascontiguousarray(ids, "<i4").tobytes())
+    return b"".join(parts)
+
+
+def _serve_bodies(data: dict) -> list:
+    """Every columnar body of the pass as (job, cols, ids), interleaved top1 / per_class / latency."""
+    x, y, ids, lat = data["x"], data["y"], data["ids"], data["latency"]
+    per_job = {
+        "top1": [("top1", [x[i : i + SERVE_BODY_ROWS], y[i : i + SERVE_BODY_ROWS]], None)
+                 for i in range(0, N_SAMPLES, SERVE_BODY_ROWS)],
+        "per_class": [("per_class", [x[i : i + SERVE_BODY_ROWS], y[i : i + SERVE_BODY_ROWS]], ids[i : i + SERVE_BODY_ROWS])
+                      for i in range(0, N_SAMPLES, SERVE_BODY_ROWS)],
+        "latency": [("latency", [lat[i : i + LATENCY_BODY]], None) for i in range(0, LATENCY_VALUES, LATENCY_BODY)],
+    }
+    out = []
+    for k in range(max(len(v) for v in per_job.values())):
+        out += [bodies[k] for bodies in per_job.values() if k < len(bodies)]
+    return out
+
+
+def _serve_request(port: int, path: str, body: Optional[bytes] = None) -> Tuple[int, bytes]:
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=body, method="GET" if body is None else "POST")
+    try:
+        with urllib.request.urlopen(req, timeout=SERVE_HTTP_TIMEOUT) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as err:
+        return err.code, err.read()
+
+
+def _serve_ok(port: int, path: str, body: Optional[bytes] = None) -> bytes:
+    status, reply = _serve_request(port, path, body)
+    if status != 200:
+        raise AssertionError(f"serve: {path} answered {status}: {reply[:400]!r}")
+    return reply
+
+
+def _in_thread(fn, errors: list) -> threading.Thread:
+    """``fn`` on a thread of its own; an exception lands in ``errors`` for the caller to raise."""
+    def run():
+        try:
+            fn()
+        except BaseException as err:  # noqa: BLE001 -- handed to the main thread, which raises it
+            errors.append(err)
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+    return thread
+
+
+def _record_pieces(job) -> list:
+    """Record each update the job's metric gets from the batcher: (rows, num_valid or None)."""
+    pieces, real = [], job.metric.update
+
+    def update(*args, **kwargs):
+        nv = kwargs.get("num_valid")
+        pieces.append((int(args[0].shape[0]), None if nv is None else int(nv.reshape(-1)[0])))
+        return real(*args, **kwargs)
+
+    job.metric.update = update
+    return pieces
+
+
+SERVE_QUERIES = {
+    "full": ["/query?job=top1", "/query?job=per_class", "/query?job=latency", "/query?job=mse"],
+    "streams": [f"/query?job=per_class&streams={SERVE_STREAMS_QUERY}"],
+    "top_k": ["/query?job=per_class&top_k=5"],
+    "where": ["/query?job=per_class&where=gt:0.9&k=8"],
+    "metrics": ["/metrics"],
+    "healthz": ["/healthz"],
+}
+
+
+def _reader(port: int, stop: threading.Event, latencies: dict) -> None:
+    """(b): every endpoint in turn, until ``stop``; each request's ms by endpoint.  It starts once every job has
+    folded rows: an ``Accuracy`` has no value before its first update (its input mode is not known yet)."""
+    while not all(job["records_ingested"] for job in json.loads(_serve_ok(port, "/healthz"))["jobs"]):
+        if stop.is_set():
+            return
+        time.sleep(0.005)
+    while not stop.is_set():
+        for kind, paths in SERVE_QUERIES.items():
+            for path in paths:
+                t0 = time.perf_counter()
+                _serve_ok(port, path)
+                latencies[kind].append((time.perf_counter() - t0) * 1e3)
+
+
+def _twin_pieces(mt, ops, kll, data: dict, pieces: dict) -> Tuple[dict, dict, dict]:
+    """Twins on the card, each updated directly with the pieces its job's batcher dispatched, in order; their
+    launches per entry point, and the launches of one direct update of each (its first piece)."""
+    reg = _serve_registry(mt, DEVICE)
+    twins = {name: reg[name].metric for name in reg}
+    x = torch.from_numpy(data["x"]).to(DEVICE)
+    y = torch.from_numpy(data["y"]).to(DEVICE)
+    ids = torch.from_numpy(data["ids"]).to(DEVICE)
+    lat = torch.from_numpy(data["latency"]).to(DEVICE)
+    mse_p, mse_t = torch.from_numpy(data["mse_p"]).to(DEVICE), torch.from_numpy(data["mse_t"]).to(DEVICE)
+
+    def calls(name):
+        out, lo = [], 0
+        for rows, valid in pieces[name]:
+            if name == "top1":
+                out.append(((x[lo : lo + rows], y[lo : lo + rows]), {}))
+                lo += rows
+            elif name == "per_class":
+                pad = rows - valid
+                block_ids = torch.cat([ids[lo : lo + valid], ids.new_full((pad,), -1)])
+                out.append(((torch.cat([x[lo : lo + valid], x.new_zeros((pad, N_CLASSES))]),
+                             torch.cat([y[lo : lo + valid], y.new_zeros((pad,))])),
+                            {"stream_ids": block_ids, "num_valid": torch.tensor([valid], dtype=torch.int32, device=DEVICE)}))
+                lo += valid
+            elif name == "latency":
+                out.append(((lat[lo : lo + rows],), {}))
+                lo += rows
+            else:
+                out.append(((mse_p[lo : lo + rows], mse_t[lo : lo + rows]), {}))
+                lo += rows
+        return out
+
+    counters = _ms_counters(ops, kll)
+    launches, one = {}, {}
+    for name, metric in twins.items():
+        feed = calls(name)
+        _, one[name] = _launches_of(counters, lambda: metric.update(*feed[0][0], **feed[0][1]))
+        _, rest = _launches_of(counters, lambda: [metric.update(*a, **kw) for a, kw in feed[1:]])
+        launches[name] = {k: one[name][k] + rest[k] for k in counters}
+    return reg, launches, one
+
+
+def _hand_frame(job: str, seq: int, cols: list, ids=None) -> bytes:
+    """A WAL frame built from the documented layout with ``struct`` alone: magic, u32 length, ``<HQIHBBH``
+    (version, seq, rows, arity, flags, dtype_len, job_len), the dtype field, the job, the columns, the
+    int32 ids, a crc32 of the payload.  Version 1 (one dtype, scalar columns) is the JAX package's frame;
+    version 2 lists each column's dtype and per-row dims."""
+    import struct
+    import zlib
+
+    shaped = any(c.ndim > 1 for c in cols) or len({c.dtype.str for c in cols}) > 1
+    dtype = (",".join("x".join([c.dtype.str] + [str(d) for d in c.shape[1:]]) for c in cols) if shaped
+             else cols[0].dtype.str).encode()
+    job_b = job.encode()
+    payload = struct.pack("<HQIHBBH", 2 if shaped else 1, seq, len(cols[0]), len(cols), 0 if ids is None else 1,
+                          len(dtype), len(job_b)) + dtype + job_b + b"".join(c.tobytes() for c in cols)
+    if ids is not None:
+        payload += np.asarray(ids, "<i4").tobytes()
+    return b"MTWL" + struct.pack("<I", len(payload)) + payload + struct.pack("<I", zlib.crc32(payload))
+
+
+def _frame_on_disk(directory: str, seq: int) -> bytes:
+    """The bytes of frame ``seq`` as they lie in its segment."""
+    from metrics_tpu_torch.serve import wal
+
+    for path in wal.list_segments(directory):
+        data = Path(path).read_bytes()
+        off = 0
+        while off < len(data):
+            frame, nxt = wal.decode_frame(data, off)
+            if frame.seq == seq:
+                return data[off:nxt]
+            off = nxt
+    raise AssertionError(f"serve drill: no frame {seq} in {directory}")
+
+
+def _serve_block_profile(mt) -> dict:
+    """(device operations, host-to-device and device-to-host copies, device ms) of one block dispatch of each
+    columnar job: a full block through ``BlockBatcher.extend_columns``.  Taken early: profiler sessions late in
+    the script lose events.  None where the profiler recorded nothing (off the card)."""
+    from metrics_tpu_torch.serve import BlockBatcher
+
+    reg = _serve_registry(mt, DEVICE)
+    rng = np.random.default_rng(SEED + 170)
+    x = rng.standard_normal((SERVE_BLOCK_ROWS, N_CLASSES)).astype(np.float32)
+    y = rng.integers(0, N_CLASSES, SERVE_BLOCK_ROWS)
+    lat = rng.lognormal(np.log(20.0), 0.8, SERVE_BLOCK_ROWS).astype(np.float32)
+    feeds = {"top1": ([x, y], None), "per_class": ([x, y], y.astype(np.int32)), "latency": ([lat], None)}
+    out = {}
+    for name, (cols, ids) in feeds.items():
+        batcher = BlockBatcher(reg[name], block_rows=SERVE_BLOCK_ROWS)
+        best = None
+        for _ in range(PROFILER_ATTEMPTS):
+            seen = _device_ops(lambda: batcher.extend_columns(cols, ids))
+            if seen and (best is None or len(seen) > len(best)):
+                best = seen
+        out[name] = None if best is None else {
+            "device_ops": len(best), "htod_copies": sum("HtoD" in op for op, _ in best),
+            "dtoh_copies": sum("DtoH" in op for op, _ in best), "device_ms": sum(ms for _, ms in best),
+            "ops": sorted({op.split("<")[0].split("(")[0][-40:] for op, _ in best}),
+        }
+    print(f"serve: one block dispatch, (device operations, host copies): "
+          f"{ {k: None if v is None else (v['device_ops'], v['htod_copies'], v['dtoh_copies']) for k, v in out.items()} }")
+    return out
+
+
+def _check_serve_answers(port: int, twins, registry_to_json) -> int:
+    """(b) after the flush: every endpoint's answer equals the twin's values widened to float64, bit for bit."""
+    checked = 0
+
+    def same(path, key, want):
+        nonlocal checked
+        got = json.loads(_serve_ok(port, path))[key]
+        if json.dumps(got) != json.dumps(want):
+            raise AssertionError(f"serve: {path} answered {str(got)[:200]} where the twin gives {str(want)[:200]}")
+        checked += 1
+
+    for name in ("top1", "per_class", "latency", "mse"):
+        same(f"/query?job={name}", "value", registry_to_json(twins[name].compute()))
+    per_class = twins["per_class"]
+    streams = [int(s) for s in SERVE_STREAMS_QUERY.split(",")]
+    same(f"/query?job=per_class&streams={SERVE_STREAMS_QUERY}", "values",
+         registry_to_json(per_class.compute_streams(np.asarray(streams, np.int32))))
+    values, ids = per_class.top_k(5)
+    same("/query?job=per_class&top_k=5", "top_k", registry_to_json(values))
+    same("/query?job=per_class&top_k=5", "stream_ids", [int(i) for i in ids.cpu()])
+    hit, total = per_class.where(lambda v: v > 0.9, k=8)
+    same("/query?job=per_class&where=gt:0.9&k=8", "stream_ids", [int(i) for i in hit.cpu() if int(i) >= 0])
+    same("/query?job=per_class&where=gt:0.9&k=8", "total_matches", int(total))
+    return checked
+
+
+def phase_serve(mt, card: str, block_profile: Optional[dict] = None) -> Tuple[dict, dict]:
+    """Phase 17: one ``EvalServer`` on the card with four jobs, fed over localhost HTTP: (a) ingest over the wire,
+    each job's state bitwise a twin's updated directly with the same pieces, launches as the pieces imply;
+    (b) reads while ingest runs, answers bitwise the twins' after the flush; (c) the durability drill: a WAL,
+    a checkpoint, a kill, a restore and a replay with one duplicate frame, bitwise the uninterrupted run;
+    (d) the card's checkpoint restored into a registry on the CPU, bitwise.  Returns the serving runs'
+    launches per entry point and the phase's line."""
+    from metrics_tpu_torch.checkpoint import CheckpointManager
+    from metrics_tpu_torch.obs import core as obs_core
+    from metrics_tpu_torch.ops import kll
+    from metrics_tpu_torch.ops import stat_scores as ops
+    from metrics_tpu_torch.serve import EvalServer, ServeConfig, WalWriter, replay_frames
+    from metrics_tpu_torch.serve.registry import _to_jsonable
+
+    phase_start = time.perf_counter()
+    if block_profile is None:
+        block_profile = _serve_block_profile(mt)
+    data = _serve_data()
+    bodies = _serve_bodies(data)
+    wire = {job: [_columns_body(job, cols, ids) for j, cols, ids in bodies if j == job] for job in ("top1", "per_class", "latency")}
+    records = [{"values": [float(p), float(t)]} for p, t in zip(data["mse_p"], data["mse_t"])]
+    per_post = MSE_RECORDS // MSE_POSTS
+    wire["mse"] = [json.dumps({"job": "mse", "records": records[i : i + per_post]}).encode()
+                   for i in range(0, MSE_RECORDS, per_post)]
+    rows = {"top1": N_SAMPLES, "per_class": N_SAMPLES, "latency": LATENCY_VALUES, "mse": MSE_RECORDS}
+    line = {"card": card, "block_rows": SERVE_BLOCK_ROWS, "block_dispatch": block_profile,
+            "body_bytes": {job: len(b[0]) for job, b in wire.items()}}
+    counters = _ms_counters(ops, kll)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as tmp:
+        # (a) + (b): the server, four senders and one reader
+        registry = _serve_registry(mt, DEVICE)
+        pieces = {name: _record_pieces(registry[name]) for name in registry}
+        manager = CheckpointManager(str(Path(tmp) / "ckpt"), rank=0, world_size=1)
+        server = EvalServer(registry, ServeConfig(block_rows=SERVE_BLOCK_ROWS, queue_capacity=SERVE_QUEUE), manager).start()
+        try:
+            errors, firsts = [], {}
+            latencies = {kind: [] for kind in SERVE_QUERIES}
+            stop = threading.Event()
+
+            def send(job):
+                path = "/ingest" if job == "mse" else "/ingest_columns"
+                firsts[job] = time.perf_counter()
+                for body in wire[job]:
+                    reply = json.loads(_serve_ok(server.port, path, body))
+                    if reply["rejected"]:
+                        raise AssertionError(f"serve: {job}: {reply['rejected']} rows refused")
+
+            for fn in counters.values():
+                fn.launches = 0
+            torch.cuda.synchronize()
+            reader = _in_thread(lambda: _reader(server.port, stop, latencies), errors)
+            senders = [_in_thread(lambda job=job: send(job), errors) for job in wire]
+            for t in senders:
+                t.join()
+            if errors:
+                raise errors[0]
+            if not server.flush(timeout=SERVE_HTTP_TIMEOUT):
+                raise AssertionError("serve: the flush did not return within its timeout")
+            torch.cuda.synchronize()
+            flushed = time.perf_counter()
+            launches = {name: fn.launches for name, fn in counters.items()}
+            stop.set()
+            reader.join()
+            if errors:
+                raise errors[0]
+            health = server.health()
+            if health["consumer_errors"]:
+                raise AssertionError(f"serve: the consumer recorded errors: {server.consumer.errors[:5]}")
+            rates = {job: rows[job] / (flushed - firsts[job]) for job in wire}
+            print(f"serve (a): records/s end to end (first POST to the flush's return) {rates!r}; launches {launches}")
+
+            # (a) the pieces, the twins, the launches
+            implied = {"top1": [(SERVE_BLOCK_ROWS, None)] * (N_SAMPLES // SERVE_BLOCK_ROWS)
+                       + [(c, None) for c in _pow2(N_SAMPLES % SERVE_BLOCK_ROWS)],
+                       "per_class": [(SERVE_BLOCK_ROWS, SERVE_BLOCK_ROWS)] * (N_SAMPLES // SERVE_BLOCK_ROWS)
+                       + [(SERVE_BLOCK_ROWS, N_SAMPLES % SERVE_BLOCK_ROWS)],
+                       "latency": [(SERVE_BLOCK_ROWS, None)] * (LATENCY_VALUES // SERVE_BLOCK_ROWS)}
+            for name, want in implied.items():
+                if pieces[name] != want:
+                    raise AssertionError(f"serve: {name} dispatched {len(pieces[name])} pieces {pieces[name][-6:]}, "
+                                         f"not the {len(want)} its bodies imply")
+            if sum(r for r, _ in pieces["mse"]) != MSE_RECORDS or any(r & (r - 1) for r, _ in pieces["mse"]):
+                raise AssertionError(f"serve: mse pieces {pieces['mse']} are not power-of-two chunks of {MSE_RECORDS}")
+            twin_reg, twin_launches, one_update = _twin_pieces(mt, ops, kll, data, pieces)
+            twins = {name: twin_reg[name].metric for name in twin_reg}
+            serve_states = _states_of(registry.checkpoint_target())
+            twin_states = _states_of(twin_reg.checkpoint_target())
+            n_states = _same_states("serve (a) against the direct-update twins", serve_states, twin_states)
+            total = {k: sum(t[k] for t in twin_launches.values()) for k in counters}
+            if launches != total:
+                raise AssertionError(f"serve: launches {launches} where the twins' pieces launch {total}")
+            for name in ("top1", "per_class", "latency"):
+                per_piece = {k: v * len(pieces[name]) for k, v in one_update[name].items()}
+                if twin_launches[name] != per_piece or not any(per_piece.values()):
+                    raise AssertionError(f"serve: {name}'s {len(pieces[name])} pieces launch {twin_launches[name]}, "
+                                         f"not {one_update[name]} each")
+            # the integer counts against numpy
+            pred = data["x"].argmax(axis=1)
+            hit = pred == data["y"]
+            top1 = registry["top1"].metric
+            # a micro Accuracy counts a right row as a true positive, a wrong one as a false negative
+            if int(top1.tp) != int(hit.sum()) or int(top1.tp + top1.fn) != N_SAMPLES:
+                raise AssertionError(f"serve: top1 counts {int(top1.tp)} / {int(top1.tp + top1.fn)} against numpy's "
+                                     f"{int(hit.sum())} / {N_SAMPLES}")
+            ids = data["ids"]
+            valid = (ids >= 0) & (ids < N_CLASSES)
+            pc = registry["per_class"].metric
+            want_rows = np.bincount(ids[valid], minlength=N_CLASSES)
+            want_hits = np.bincount(ids[valid & hit], minlength=N_CLASSES)
+            if (not np.array_equal(pc.stream_rows.cpu().numpy(), want_rows)
+                    or not np.array_equal(pc.tp.cpu().numpy(), want_hits)):
+                raise AssertionError("serve: per_class's per-stream counts are not numpy's")
+            planted = int((~valid).sum())
+            if pc.dropped_rows() != planted:
+                raise AssertionError(f"serve: per_class dropped {pc.dropped_rows()} rows, {planted} planted")
+            levels = int(registry["latency"].metric.sketch_tree("sketch")["buf"].shape[0])
+            print(f"serve (a): {n_states} states bitwise the twins'; pieces top1 {len(pieces['top1'])}, per_class "
+                  f"{len(pieces['per_class'])} padded blocks, latency {len(pieces['latency'])}, mse "
+                  f"{[r for r, _ in pieces['mse']]}; launches per piece {one_update}; per_class dropped {planted} "
+                  f"planted ids, pad rows in neither; kll_fold {levels} + 2 device launches a call")
+
+            # (b) the answers after the flush, and the read latencies
+            checked = _check_serve_answers(server.port, twins, _to_jsonable)
+            gauges = {line_.split("{", 1)[1].split('"')[1] for line_ in _serve_ok(server.port, "/metrics").decode().splitlines()
+                      if line_.startswith("metrics_tpu_metric_value{")}
+            if gauges != set(registry):
+                raise AssertionError(f"serve: /metrics carries gauges for {sorted(gauges)}, not every job")
+            reads = {kind: {"requests": len(v), "p50_ms": float(np.percentile(v, 50)), "p99_ms": float(np.percentile(v, 99))}
+                     for kind, v in latencies.items() if v}
+            print(f"serve (b): {checked} answers bitwise the twins'; reads while ingest ran: {reads}")
+
+            # (d) the card's checkpoint restored on the CPU
+            t0 = time.perf_counter()
+            step = server.checkpoint_now()
+            checkpoint_ms = (time.perf_counter() - t0) * 1e3
+            cpu_reg = _serve_registry(mt, "cpu")
+            t0 = time.perf_counter()
+            CheckpointManager(str(Path(tmp) / "ckpt"), rank=0, world_size=1).restore(cpu_reg.checkpoint_target(), step=step)
+            cpu_restore_ms = (time.perf_counter() - t0) * 1e3
+            n_cpu = _same_states("serve (d) the CPU restore of the card's checkpoint", serve_states,
+                                 _states_of(cpu_reg.checkpoint_target()))
+            print(f"serve (d): checkpoint {checkpoint_ms!r} ms, restored on the CPU in {cpu_restore_ms!r} ms, "
+                  f"{n_cpu} states bitwise")
+        finally:
+            server.kill()
+        del twins, twin_reg
+        line.update({"records_per_s": rates, "rows": rows, "pieces": {k: len(v) for k, v in pieces.items()},
+                     "launches": launches, "launches_per_piece": one_update, "kll_device_launches_per_call": levels + 2,
+                     "states_bitwise": n_states, "dropped_rows": planted, "answers_bitwise": checked, "reads": reads,
+                     "checkpoint_ms": checkpoint_ms, "cpu_restore_ms": cpu_restore_ms, "cpu_states_bitwise": n_cpu})
+
+        # (c) the durability drill
+        wal_dir, drill_ckpt = str(Path(tmp) / "wal"), str(Path(tmp) / "drill_ckpt")
+        fsyncs0 = obs_core.counter_value("serve.wal_fsyncs")
+        writer = WalWriter(wal_dir)
+        config = ServeConfig(block_rows=SERVE_BLOCK_ROWS, wal_exactly_once=True)
+        for fn in counters.values():
+            fn.launches = 0
+        first = EvalServer(_serve_registry(mt, DEVICE), config, CheckpointManager(drill_ckpt, rank=0, world_size=1)).start()
+        try:
+            seqs = []
+            for i, (job, cols, ids_) in enumerate(bodies):
+                ticket = writer.append_wait(job, cols, ids_)
+                if not ticket.ok:
+                    raise AssertionError(f"serve drill: frame {i} did not reach the disk")
+                seqs.append(ticket.seq)
+                if i < DRILL_KILL_AT:
+                    _serve_ok(first.port, "/ingest_columns", _columns_body(job, cols, ids_, seq=ticket.seq))
+                if i + 1 == DRILL_CHECKPOINT_AT:
+                    first.checkpoint_now()
+                    marks = dict(first.last_checkpoint_wal_marks)
+                if i + 1 == DRILL_KILL_AT:
+                    first.kill()
+        finally:
+            first.kill()
+        writer.close()
+        hand = {}
+        for i in (0, 1, 2):  # top1 and per_class frames (version 2: logits beside int64 labels), a latency frame (version 1)
+            job, cols, ids_ = bodies[i]
+            if _frame_on_disk(wal_dir, seqs[i]) != _hand_frame(job, seqs[i], cols, ids_):
+                raise AssertionError(f"serve drill: frame {seqs[i]} is not the documented layout")
+            hand[job] = len(_hand_frame(job, seqs[i], cols, ids_))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        second = EvalServer(_serve_registry(mt, DEVICE), config, CheckpointManager(drill_ckpt, rank=0, world_size=1)).start()
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        try:
+            if second.last_checkpoint_wal_marks != marks:
+                raise AssertionError(f"serve drill: restored marks {second.last_checkpoint_wal_marks}, saved {marks}")
+            deduped0 = obs_core.counter_value("serve.wal_deduped_frames")
+            t0 = time.perf_counter()
+            replayed = 0
+            frames = list(replay_frames(wal_dir, marks))
+            for frame in frames:
+                if not second.submit_columns(frame.job, frame.cols, stream_ids=frame.stream_ids,
+                                             seqs=[(frame.seq, frame.rows)], timeout=SERVE_HTTP_TIMEOUT):
+                    raise AssertionError(f"serve drill: the replay of frame {frame.seq} was refused")
+                replayed += frame.rows
+            dup = frames[len(frames) // 2]
+            second.submit_columns(dup.job, dup.cols, stream_ids=dup.stream_ids, seqs=[(dup.seq, dup.rows)])
+            if not second.flush(timeout=SERVE_HTTP_TIMEOUT):
+                raise AssertionError("serve drill: the flush after the replay did not return")
+            torch.cuda.synchronize()
+            replay_s = time.perf_counter() - t0
+            deduped = obs_core.counter_value("serve.wal_deduped_frames") - deduped0
+            if deduped != 1:
+                raise AssertionError(f"serve drill: {deduped} frames deduped, one sent twice")
+            drill_launches = {name: fn.launches for name, fn in counters.items()}
+            drill_states = _states_of(second.registry.checkpoint_target())
+            uninterrupted = {k: v for k, v in serve_states.items() if not k.startswith("col/mse.")}
+            n_drill = _same_states("serve (c) the restored and replayed states against the uninterrupted run's",
+                                   {k: v for k, v in drill_states.items() if not k.startswith("col/mse.")}, uninterrupted)
+        finally:
+            second.kill()
+        fsyncs = obs_core.counter_value("serve.wal_fsyncs") - fsyncs0
+        print(f"serve (c): restore {restore_ms!r} ms, replayed {len(frames)} frames past marks {marks} "
+              f"({replayed} rows, {replayed / replay_s!r} rows/s), one duplicate deduped, {fsyncs} fsyncs, "
+              f"{n_drill} states bitwise the uninterrupted run's; {len(hand)} frames byte for byte the documented layout")
+    secs = time.perf_counter() - phase_start
+    line.update({"drill": {"bodies": len(bodies), "checkpoint_after": DRILL_CHECKPOINT_AT, "kill_after": DRILL_KILL_AT,
+                           "marks": marks, "restore_ms": restore_ms, "replayed_frames": len(frames),
+                           "replayed_rows": replayed, "replay_rows_per_s": replayed / replay_s, "deduped_frames": deduped,
+                           "fsyncs": fsyncs, "states_bitwise": n_drill, "hand_built_frame_bytes": hand,
+                           "launches": drill_launches},
+                 "phase_s": secs})
+    print(f"serve phase took {secs:.1f} s")
+    served = {k: launches[k] + drill_launches[k] for k in counters}
+    return served, {"serve": line}
+
+
+def _pow2(n: int) -> list:
+    """The power-of-two tail ``_pow2_chunks`` cuts ``n`` < block_rows rows into."""
+    return [1 << b for b in range(n.bit_length() - 1, -1, -1) if n & (1 << b)]
+
+
 def _device_ops(fn, calls: int = 1) -> Optional[list]:
     """(name, device ms) of each device operation that ``calls`` calls of ``fn`` issue, as
     torch.profiler records them; None where the profiler records no device activity on this machine."""
@@ -6269,6 +6826,7 @@ def main() -> int:
     obs_profiles = _obs_profiles(mt, obs, logits, labels)
     text_profile = _text_update_profile(mt)  # phase 15 (d)'s, early too
     text_audio_profile = _text_audio_update_profile(mt)  # phase 16 (a)'s and (b)'s, early too
+    serve_profile = _serve_block_profile(mt)  # phase 17's block dispatch, early too
     curve_launches, curve_line = phase_curves(mt, ops, logits, labels, card)
     rest_launches, rest_line = phase_rest(mt, ops, logits, labels, card)
     del logits, labels
@@ -6288,20 +6846,22 @@ def main() -> int:
     generation_line = phase_generation_text(mt, card, text_profile)
     torch.cuda.empty_cache()
     text_audio_line = phase_text_audio(mt, card, text_audio_profile)
+    torch.cuda.empty_cache()
+    serve_launches, serve_line = phase_serve(mt, card, serve_profile)
     print(f"launches per entry point: main path {launches}, curve phase {curve_launches}, "
           f"rest of classification {rest_launches}, regression {regression_launches}, "
           f"wrappers and retrieval {wrapper_launches}, streaming {streaming_launches}, multistream {ms_launches}, "
-          f"core and obs {core_launches} and {core_counts}")
+          f"core and obs {core_launches} and {core_counts}, serve {serve_launches}")
     for entry in kernels:
         route = "canonical" if entry["name"] == "stat_scores" else "logits"
         entry["launches"] += (curve_launches[route] + rest_launches[route] + regression_launches[route]
                               + wrapper_launches[route] + streaming_launches[route] + ms_launches[route]
-                              + core_launches[route])
-    kll_entry["launches"] += ms_counts["kll_fold"] + core_counts["kll_fold"]
+                              + core_launches[route] + serve_launches[route])
+    kll_entry["launches"] += ms_counts["kll_fold"] + core_counts["kll_fold"] + serve_launches["kll_fold"]
     kernels.append(kll_entry)
     for entry in ms_entries:
         counter = entry.pop("counter")
-        entry["launches"] = ms_counts[counter] + core_counts[counter]
+        entry["launches"] = ms_counts[counter] + core_counts[counter] + serve_launches[counter]
         if counter == "stream_canonical":
             entry["large_s"] = core_line["core_obs"]["large_s"]
     kernels.extend(ms_entries)
@@ -6317,6 +6877,7 @@ def main() -> int:
     print(json.dumps(detection_line))
     print(json.dumps(generation_line))
     print(json.dumps(text_audio_line))
+    print(json.dumps(serve_line))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1095,3 +1095,43 @@ def test_sdr_on_cuda_equals_the_cpu(cuda, kwargs):
     metric = mt.SignalDistortionRatio(device="cuda", **kwargs)
     metric.update(torch.from_numpy(preds).to(cuda), torch.from_numpy(target).to(cuda))
     assert metric.sum_sdr.device.type == "cuda" and int(metric.total) == 6
+
+
+@pytest.mark.cuda
+def test_serve_blocks_on_cuda_equal_a_direct_update(cuda):
+    """One padded multistream block and one pow2 tail ingested on the card: each
+    job's state bitwise that of a twin updated directly with the same pieces,
+    the per-stream and plain logits kernels launched once a piece."""
+    from metrics_tpu_torch.serve import BlockBatcher, MetricRegistry
+
+    rng = np.random.default_rng(16)
+    n, c, s = 37, 10, 6
+    logits = rng.standard_normal((n, c)).astype(np.float32)
+    labels = rng.integers(0, c, n)
+    ids = rng.integers(-1, s + 1, n).astype(np.int32)
+    reg = MetricRegistry()
+    reg.register("top1", mt.Accuracy(num_classes=c, device="cuda"))
+    reg.register("per_class", mt.MultiStreamMetric(mt.Accuracy(num_classes=c, device="cuda"), num_streams=s, device="cuda"))
+    ops.fused_stat_scores_logits.launches = ops.fused_stream_stat_scores_logits.launches = 0
+    b_plain, b_stream = BlockBatcher(reg["top1"], block_rows=64), BlockBatcher(reg["per_class"], block_rows=64)
+    b_plain.extend_columns([logits, labels])
+    b_stream.extend_columns([logits, labels], ids)
+    assert ops.fused_stat_scores_logits.launches == ops.fused_stream_stat_scores_logits.launches == 0  # 37 < 64: carried
+    assert b_plain.flush() == n and b_stream.flush() == n
+    assert ops.fused_stat_scores_logits.launches == 3  # 32 + 4 + 1: the pow2 chunks of 37 rows
+    assert ops.fused_stream_stat_scores_logits.launches == 1  # one block padded from 37 to 64 rows
+    plain = mt.Accuracy(num_classes=c, device="cuda")
+    x, y = torch.from_numpy(logits).to(cuda), torch.from_numpy(labels).to(cuda)
+    for lo, hi in ((0, 32), (32, 36), (36, 37)):
+        plain.update(x[lo:hi], y[lo:hi])
+    stream = mt.MultiStreamMetric(mt.Accuracy(num_classes=c, device="cuda"), num_streams=s, device="cuda")
+    pad_ids = torch.full((64,), -1, dtype=torch.int32, device=cuda)
+    pad_ids[:n] = torch.from_numpy(ids).to(cuda)
+    stream.update(torch.cat([x, x.new_zeros((64 - n, c))]), torch.cat([y, y.new_zeros((64 - n,))]),
+                  stream_ids=pad_ids, num_valid=torch.tensor([n], dtype=torch.int32, device=cuda))
+    for got, want in ((reg["top1"].metric, plain), (reg["per_class"].metric, stream)):
+        for key in want._defaults:
+            a, b = getattr(got, key), getattr(want, key)
+            assert a.device.type == "cuda" and torch.equal(a, b), key
+    assert reg["per_class"].metric.dropped_rows() == int(((ids < 0) | (ids >= s)).sum())
+    assert float(reg["top1"].compute()) == float(plain.compute())
