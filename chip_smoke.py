@@ -227,7 +227,29 @@ Phases (each passes or raises; any failure exits non-zero):
      (d) the card's checkpoint restored into a registry on the CPU, bitwise.
      Records/s per job end to end, query p50/p99, checkpoint and restore
      ms, and the device operations and host copies of one block dispatch
-     (profiled early in ``main``).
+     (profiled early in ``main``);
+ 18. the serve fleet: (a) four in-process shards on the card (``LocalFleet``,
+     ``block_rows=4096``, interval flushing off, a WAL and checkpoints):
+     ``per_user`` (a ``MeanSquaredError`` over MovieLens-25M's 162,541 users)
+     and ``latency`` (a ``StreamingQuantile`` of the absolute errors) take phase
+     9's 2,500,000 ratings (predictions rounded to eighths) with phase 12's
+     Zipf user ids through ``run_load``, and a second fleet of int32 rows
+     ``per_class`` (a 1,000-stream ``Accuracy``) the ImageNet pass's argmax
+     predictions; a reader queries the frontend's ``top_k``, ``where`` and
+     ``compute_streams`` meanwhile; then ``checkpoint_all``, a kill of the
+     shard holding ``latency``, more rows (the victim's park), ``failover``
+     with WAL replay, ``resize(3)`` and the rest of the rows.  After each stage
+     every job's ``compute_all()`` is bitwise a one-shard twin's fed the same
+     rows; ``per_user`` and ``per_class`` bitwise numpy's float64 values
+     rounded once, ``latency`` within the KLL rank-error bound; the
+     per-stream canonical and ``kll_fold`` launches are the dispatched blocks.
+     (b) Two ``python -m metrics_tpu_torch.serve.worker --device cuda``
+     processes behind an ``HTTPShard`` coordinator with a WAL: SIGKILL one,
+     rows park, failover to a new process, bitwise an in-process twin; then
+     two process-mode load children through the frontend.  (c) The soak drill
+     (``soak.run_drill`` at its defaults) on the card, bit-identical.
+     Records/s per job, query p50/p99, checkpoint, failover and resize ms,
+     replay rows/s, READY ms per worker, the process load's records/s;
 The last line is ``{"ok": true, "device": {...}}``.
 
 The sync phases run this script again as their ranks
@@ -6642,6 +6664,539 @@ def phase_serve(mt, card: str, block_profile: Optional[dict] = None) -> Tuple[di
     return served, {"serve": line}
 
 
+FLEET_SHARDS, FLEET_RESIZE_TO = 4, 3
+FLEET_BLOCK_ROWS = 4096  # ServeConfig(block_rows=...) of every shard, interval flushing off
+FLEET_RING = 1 << 21  # rows per (shard, job) staging ring: every stage fits, so no batch is refused
+FLEET_BATCH = 16_384  # rows per run_load ingest call
+FLEET_PRODUCERS = 4  # per_user's producer threads; latency's one keeps its rows in order (a sketch folds in order)
+FLEET_STAGES = (0.6, 0.8, 1.0)  # the share of each pass fed by the end of stage 1 (ingest), 3 (failover), 4 (resize)
+TWIN_BATCH = 65_536  # rows per ingest call of the one-shard twins
+FLEET_HTTP_TIMEOUT = 120.0  # seconds a flush may take
+FLEET_TOP_K, FLEET_WHERE, FLEET_WHERE_K = 10, "gt:4.0", 16
+FLEET_STREAMS = "0,1,2,3,4,5,6,7,81270,162540"  # the reader's compute_streams ids
+FLEET_QUERIES = {"top_k": f"/query?job=per_user&top_k={FLEET_TOP_K}",
+                 "where": f"/query?job=per_user&where={FLEET_WHERE}&k={FLEET_WHERE_K}",
+                 "compute_streams": f"/query?job=per_user&streams={FLEET_STREAMS}"}
+WORKER_STREAMS, WORKER_BLOCK = 16, 8  # the worker drill's vocabulary, as tests/serve/test_fleet_soak.py runs it
+WORKER_ROWS = (600, 900)  # rows fed before the checkpoint, and by the failover
+WORKER_LOAD, WORKER_LOAD_BATCH = 400, 50  # process-mode records through the worker fleet's frontend, two children
+WORKER_READY_S = 180.0  # the longest a worker may take to print READY
+WORKER_DEGRADED_S = 30.0  # the longest the coordinator may take to see a killed worker
+
+
+def _fleet_data() -> dict:
+    """Phase 18's rows on the host: phase 9's MovieLens ratings (halves) with their predictions rounded to eighths,
+    phase 12's Zipf user ids, the absolute errors (the latency job's values), and the ImageNet pass's argmax
+    predictions and labels, int32.  Every squared error is a multiple of 1/64 and every user's sum stays far below
+    2^18, so float32 sums are exact in any order: fleets sharded differently agree bitwise."""
+    preds, target, _ = _movielens_pass()
+    users = _ml_users()
+    logits, labels, _ = _imagenet_pass()
+    out = {"p": (torch.round(preds * 8) / 8).cpu().numpy(), "t": target.cpu().numpy(), "users": users.cpu().numpy(),
+           "pred": logits.argmax(1).to(torch.int32).cpu().numpy(), "label": labels.to(torch.int32).cpu().numpy()}
+    del preds, target, users, logits, labels
+    out["err"] = np.abs(out["p"] - out["t"])
+    return out
+
+
+def _fleet_specs(mt, shards: int, root: Optional[str]) -> tuple:
+    """The float32 fleet (per_user, latency) and the int32 one (per_class) on DEVICE; a WAL and checkpoints under
+    ``root`` (the twins have neither)."""
+    from metrics_tpu_torch.serve import FleetSpec, JobSpec, ServeConfig
+
+    common = {"server_config": ServeConfig(block_rows=FLEET_BLOCK_ROWS, flush_interval=3600.0),
+              "ring_capacity": FLEET_RING, "device": DEVICE}
+
+    def durable(tag):
+        return {} if root is None else {"checkpoint_root": str(Path(root) / tag / "ckpt"), "wal_root": str(Path(root) / tag / "wal")}
+
+    floats = FleetSpec(num_shards=shards, jobs=[
+        JobSpec("per_user", lambda: mt.MeanSquaredError(device=DEVICE), num_streams=ML_USERS),
+        JobSpec("latency", lambda: mt.StreamingQuantile(q=LATENCY_Q, capacity=SKETCH_CAPACITY, device=DEVICE),
+                components=("p50", "p99")),
+    ], **durable("floats"), **common)
+    ints = FleetSpec(num_shards=shards, jobs=[
+        JobSpec("per_class", lambda: mt.Accuracy(num_classes=N_CLASSES, device=DEVICE), num_streams=N_CLASSES),
+    ], ingest_dtype=np.int32, **durable("ints"), **common)
+    return floats, ints
+
+
+class _Tally:
+    """Kernel launches and dispatched blocks of the calls run through it: the fleets' and the twins' own, apart
+    (never both at once: every window ends with a flush, after which no consumer dispatches)."""
+
+    JOBS = ("per_user", "latency", "per_class")
+
+    def __init__(self, counters: dict):
+        self.counters = counters
+        self.launches = {k: 0 for k in counters}
+        self.blocks = {job: 0 for job in self.JOBS}
+
+    def run(self, fn):
+        from metrics_tpu_torch.obs import counter_value
+
+        launches = {k: f.launches for k, f in self.counters.items()}
+        blocks = {job: counter_value("serve.blocks_dispatched", job=job) for job in self.JOBS}
+        try:
+            return fn()
+        finally:
+            for k, f in self.counters.items():
+                self.launches[k] += f.launches - launches[k]
+            for job in self.JOBS:
+                self.blocks[job] += int(counter_value("serve.blocks_dispatched", job=job) - blocks[job])
+
+
+def _accepted(got: tuple, rows: int, what: str) -> None:
+    if tuple(got) != (rows, 0):
+        raise AssertionError(f"fleet: {what}: {got} (accepted, rejected) of {rows} rows")
+
+
+def _feed_twins(twins, data: dict, ml: tuple, im: tuple) -> None:
+    """The twins' rows, in the fleets' order, then a flush (at the fleets' flush points)."""
+    floats, ints = twins
+    for a in range(ml[0], ml[1], TWIN_BATCH):
+        b = min(a + TWIN_BATCH, ml[1])
+        _accepted(floats.coordinator.ingest_columns("per_user", [data["p"][a:b], data["t"][a:b]], data["users"][a:b]),
+                  b - a, "twin per_user")
+        _accepted(floats.coordinator.ingest_columns("latency", [data["err"][a:b]]), b - a, "twin latency")
+    for a in range(im[0], im[1], TWIN_BATCH):
+        b = min(a + TWIN_BATCH, im[1])
+        _accepted(ints.coordinator.ingest_columns("per_class", [data["pred"][a:b], data["label"][a:b]],
+                                                  data["label"][a:b]), b - a, "twin per_class")
+    _fleet_flush(twins, "twins")
+
+
+def _fleet_flush(fleets, what: str) -> None:
+    for fleet in fleets:
+        if not fleet.coordinator.flush(timeout=FLEET_HTTP_TIMEOUT):
+            raise AssertionError(f"fleet: {what}: the flush did not return within {FLEET_HTTP_TIMEOUT} s")
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def _fleet_ingest(fleets, data: dict, ml: tuple, im: tuple, flush: bool = True) -> Optional[dict]:
+    """The rows of one stage through ``run_load``: per_user from FLEET_PRODUCERS threads, latency from one (its
+    sketch folds rows in arrival order, which the twin replays), per_class from two; then one flush, unless a
+    shard is down.  Each job's records/s from its first ingest to the flush's return."""
+    from metrics_tpu_torch.serve import run_load
+
+    floats, ints = fleets
+    jobs = {
+        "per_user": (lambda lo, hi: floats.coordinator.ingest_columns(
+            "per_user", [data["p"][ml[0] + lo : ml[0] + hi], data["t"][ml[0] + lo : ml[0] + hi]],
+            data["users"][ml[0] + lo : ml[0] + hi]), ml[1] - ml[0], FLEET_PRODUCERS),
+        "latency": (lambda lo, hi: floats.coordinator.ingest_columns(
+            "latency", [data["err"][ml[0] + lo : ml[0] + hi]]), ml[1] - ml[0], 1),
+        "per_class": (lambda lo, hi: ints.coordinator.ingest_columns(
+            "per_class", [data["pred"][im[0] + lo : im[0] + hi], data["label"][im[0] + lo : im[0] + hi]],
+            data["label"][im[0] + lo : im[0] + hi]), im[1] - im[0], 2),
+    }
+    starts, reports, errors = {}, {}, []
+
+    def load(name):
+        ingest, total, threads = jobs[name]
+        starts[name] = time.perf_counter()
+        reports[name] = run_load(ingest, total, batch_rows=FLEET_BATCH, threads=threads)
+
+    loaders = [_in_thread(lambda name=name: load(name), errors) for name in jobs]
+    for t in loaders:
+        t.join()
+    if errors:
+        raise errors[0]
+    for name, report in reports.items():
+        if report.errors or report.rejected or report.accepted != jobs[name][1]:
+            raise AssertionError(f"fleet: {name}: {report.accepted} accepted, {report.rejected} refused of "
+                                 f"{jobs[name][1]}, errors {report.errors[:3]}")
+    if not flush:
+        return None
+    _fleet_flush(fleets, "the fleets")
+    done = time.perf_counter()
+    return {name: jobs[name][1] / (done - starts[name]) for name in jobs}
+
+
+def _fleet_reader(port: int, stop: threading.Event, latencies: dict) -> None:
+    """(a): per_user's top_k, where and compute_streams through the float fleet's HTTP frontend, in turn, until
+    ``stop``; each request's ms by operation."""
+    while not stop.is_set():
+        for op, path in FLEET_QUERIES.items():
+            t0 = time.perf_counter()
+            _serve_ok(port, path)
+            latencies[op].append((time.perf_counter() - t0) * 1e3)
+
+
+def _fleet_vs_twins(stage: str, fleets, twins) -> int:
+    """Every job's ``compute_all()`` bitwise its one-shard twin's, and the scatter-gather reads equal."""
+    from metrics_tpu_torch.serve.soak import trees_bitwise_equal
+
+    checked = 0
+    for fleet, twin in zip(fleets, twins):
+        got, want = fleet.coordinator.compute_all(), twin.coordinator.compute_all()
+        if sorted(got) != sorted(want):
+            raise AssertionError(f"fleet ({stage}): jobs {sorted(got)} against the twin's {sorted(want)}")
+        for job in want:
+            if not trees_bitwise_equal(got[job], want[job]):
+                raise AssertionError(f"fleet ({stage}): {job} over {fleet.coordinator.num_shards} shards is not "
+                                     "bitwise its one-shard twin's")
+            checked += 1
+    op, thr = FLEET_WHERE.split(":")
+    for fleet, twin, job, k in ((fleets[0], twins[0], "per_user", FLEET_TOP_K), (fleets[1], twins[1], "per_class", 5)):
+        for largest in (True, False):
+            if fleet.coordinator.top_k(job, k, largest=largest) != twin.coordinator.top_k(job, k, largest=largest):
+                raise AssertionError(f"fleet ({stage}): {job} top_k(largest={largest}) differs from the twin's")
+        if fleet.coordinator.where(job, op, float(thr), k=FLEET_WHERE_K) != twin.coordinator.where(
+                job, op, float(thr), k=FLEET_WHERE_K):
+            raise AssertionError(f"fleet ({stage}): {job} where differs from the twin's")
+        checked += 3
+    return checked
+
+
+def _fleet_numpy_checks(mt, values: dict, data: dict) -> dict:
+    """per_user against numpy's float64 per-user MSE (exact sums: each value its float32 rounding, bit for bit;
+    users without ratings NaN), per_class against numpy's per-class hits over rows, latency within the KLL
+    rank-error bound of the exact ranks."""
+    sq = (data["p"].astype(np.float64) - data["t"].astype(np.float64)) ** 2
+    rows = np.bincount(data["users"], minlength=ML_USERS)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        want = (np.bincount(data["users"], weights=sq, minlength=ML_USERS) / rows).astype(np.float32)
+    got = np.asarray(values["per_user"], np.float64).astype(np.float32)
+    if not (np.array_equal(np.isnan(got), rows == 0) and np.array_equal(got[rows > 0], want[rows > 0])):
+        bad = np.flatnonzero((got != want) & (rows > 0))
+        raise AssertionError(f"fleet: per_user differs from numpy's float64 MSE at {bad.size} users, e.g. "
+                             f"{[(int(u), float(got[u]), float(want[u])) for u in bad[:3]]}")
+    hit = (data["pred"] == data["label"]).astype(np.float64)
+    per_rows = np.bincount(data["label"], minlength=N_CLASSES)
+    acc = (np.bincount(data["label"], weights=hit, minlength=N_CLASSES) / per_rows).astype(np.float32)
+    if not np.array_equal(np.asarray(values["per_class"], np.float64).astype(np.float32), acc):
+        raise AssertionError("fleet: per_class differs from numpy's hits over rows")
+    from metrics_tpu_torch.streaming import sketches
+
+    ordered = np.sort(data["err"])
+    estimates = np.asarray([values["latency"][k] for k in ("p50", "p99")] if isinstance(values["latency"], dict)
+                           else values["latency"], np.float64)
+    errs = _rank_errors(estimates, LATENCY_Q, ordered)
+    eps = sketches.kll_rank_error_bound(ordered.size, SKETCH_CAPACITY)
+    if not (errs <= eps).all():
+        raise AssertionError(f"fleet: latency quantiles {estimates} have rank errors {errs} past the bound {eps}")
+    return {"users_rated": int((rows > 0).sum()), "per_user_bitwise_numpy": int((rows > 0).sum()),
+            "latency": estimates.tolist(), "latency_rank_errors": errs.tolist(), "rank_error_bound": eps}
+
+
+def _fleet_in_process(mt, ops, kll, data: dict, root: str) -> Tuple[dict, dict]:
+    """Phase 18 (a): the fleets through ingest with reads, a checkpoint, a kill with failover and WAL replay, and a
+    resize, each stage bitwise the one-shard twins; the launches against the dispatched blocks; per_user,
+    per_class and latency against numpy.  Returns the fleets' launches and (a)'s part of the line."""
+    from metrics_tpu_torch.obs import counter_value
+    from metrics_tpu_torch.serve import LocalFleet, make_fleet_http_server
+
+    n_ml, n_im = len(data["p"]), len(data["pred"])
+    ml_at = [0] + [int(n_ml * s) for s in FLEET_STAGES]
+    im_at = [0] + [int(n_im * s) for s in FLEET_STAGES]
+    counters = _ms_counters(ops, kll)
+    for fn in counters.values():
+        fn.launches = 0
+    fleet, twin = _Tally(counters), _Tally(counters)
+    fleets, twins, frontend = (), (), None
+    try:
+        fleets = fleet.run(lambda: tuple(LocalFleet(s).start() for s in _fleet_specs(mt, FLEET_SHARDS, root)))
+        twins = twin.run(lambda: tuple(LocalFleet(s).start() for s in _fleet_specs(mt, 1, None)))
+        frontend = make_fleet_http_server("127.0.0.1", 0, fleets[0].coordinator)
+        threading.Thread(target=lambda: frontend.serve_forever(poll_interval=0.05), daemon=True).start()
+
+        # stage 1: ingest from producer threads while a reader queries the frontend
+        latencies = {op: [] for op in FLEET_QUERIES}
+        stop, errors = threading.Event(), []
+        reader = _in_thread(lambda: _fleet_reader(frontend.server_address[1], stop, latencies), errors)
+        rates = fleet.run(lambda: _fleet_ingest(fleets, data, ml_at[0:2], im_at[0:2]))
+        stop.set()
+        reader.join()
+        if errors:
+            raise errors[0]
+        twin.run(lambda: _feed_twins(twins, data, ml_at[0:2], im_at[0:2]))
+        checked = {"ingest": _fleet_vs_twins("ingest", fleets, twins)}
+        reads = {op: {"requests": len(v), "p50_ms": float(np.percentile(v, 50)), "p99_ms": float(np.percentile(v, 99))}
+                 for op, v in latencies.items() if v}
+        if set(reads) != set(FLEET_QUERIES):
+            raise AssertionError(f"fleet: the reader got answers for {sorted(reads)} only")
+        print(f"fleet (a) ingest: records/s {rates!r}; reads while ingest ran {reads}")
+
+        # stage 2: checkpoint every shard
+        t0 = time.perf_counter()
+        fleet.run(lambda: [f.checkpoint_all() for f in fleets])
+        checkpoint_ms = (time.perf_counter() - t0) * 1e3
+        checked["checkpoint"] = _fleet_vs_twins("checkpoint", fleets, twins)
+
+        # stage 3: kill the shard that holds latency, feed rows (the victim's park), fail over with WAL replay
+        victim = fleets[0].router.owner("latency")
+        for f in fleets:
+            f.kill_shard(victim)
+            if f.coordinator.health()["dead_shards"] != [victim]:
+                raise AssertionError(f"fleet: the health rollup does not name the killed shard {victim}")
+        fleet.run(lambda: _fleet_ingest(fleets, data, ml_at[1:3], im_at[1:3], flush=False))
+        parked = [f.coordinator.staged_rows() for f in fleets]
+        if not all(parked):
+            raise AssertionError(f"fleet: no rows parked for the dead shard {victim}: {parked}")
+        failover_ms, replayed = [], []
+        for f in fleets:
+            before = counter_value("serve.wal_replayed_rows", shard=str(victim))
+            t0 = time.perf_counter()
+            fleet.run(lambda f=f: f.failover(victim))
+            failover_ms.append((time.perf_counter() - t0) * 1e3)
+            replayed.append(int(counter_value("serve.wal_replayed_rows", shard=str(victim)) - before))
+        fleet.run(lambda: _fleet_flush(fleets, "the failover"))
+        if not all(r > 0 for r in replayed) or any(f.coordinator.health()["status"] != "serving" for f in fleets):
+            raise AssertionError(f"fleet: failover replayed {replayed} rows; health "
+                                 f"{[f.coordinator.health()['status'] for f in fleets]}")
+        twin.run(lambda: _feed_twins(twins, data, ml_at[1:3], im_at[1:3]))
+        checked["failover"] = _fleet_vs_twins("failover", fleets, twins)
+        print(f"fleet (a) checkpoint_all {checkpoint_ms!r} ms; failover of shard {victim} {failover_ms!r} ms with "
+              f"{replayed} rows replayed from the WAL ({parked} rows parked meanwhile)")
+
+        # stage 4: resize to FLEET_RESIZE_TO shards live, then the rest of the rows
+        resize_ms, moved = [], []
+        for f in fleets:
+            t0 = time.perf_counter()
+            summary = fleet.run(lambda f=f: f.resize(FLEET_RESIZE_TO))
+            resize_ms.append((time.perf_counter() - t0) * 1e3)
+            moved.append(summary["rows_moved"])
+            if summary["new_shards"] != FLEET_RESIZE_TO or not summary["drained"]:
+                raise AssertionError(f"fleet: resize gave {summary}")
+        checked["resize"] = _fleet_vs_twins("resize", fleets, twins)
+        rates4 = fleet.run(lambda: _fleet_ingest(fleets, data, ml_at[2:4], im_at[2:4]))
+        twin.run(lambda: _feed_twins(twins, data, ml_at[2:4], im_at[2:4]))
+        checked["after_resize"] = _fleet_vs_twins("after the resize", fleets, twins)
+        values = {**fleets[0].coordinator.compute_all(), **fleets[1].coordinator.compute_all()}
+        numpy_checks = _fleet_numpy_checks(mt, values, data)
+        print(f"fleet (a) resize {FLEET_SHARDS} -> {FLEET_RESIZE_TO}: {resize_ms!r} ms, {moved} stream rows moved; "
+              f"records/s after it {rates4!r}; numpy: {numpy_checks}")
+    finally:
+        if frontend is not None:
+            frontend.shutdown()
+            frontend.server_close()
+        for f in fleets + twins:
+            f.stop()
+    for tally, name in ((fleet, "the fleets"), (twin, "the twins")):
+        implied = {"stream_canonical": tally.blocks["per_class"], "kll_fold": tally.blocks["latency"]}
+        got = {k: tally.launches[k] for k in implied}
+        others = {k: v for k, v in tally.launches.items() if k not in implied and v}
+        if got != implied or not all(implied.values()) or others:
+            raise AssertionError(f"fleet: {name} launched {tally.launches} for dispatched blocks {tally.blocks}")
+    print(f"fleet (a): launches {fleet.launches} = the dispatched blocks {fleet.blocks}; twins {twin.launches}; "
+          f"{sum(checked.values())} comparisons bitwise the twins'")
+    return fleet.launches, {
+        "records_per_s": rates, "records_per_s_after_resize": rates4, "reads": reads,
+        "checkpoint_all_ms": checkpoint_ms, "victim": victim, "parked_rows": parked, "failover_ms": failover_ms,
+        "replayed_rows": replayed, "replay_rows_per_s": [r / (ms / 1e3) for r, ms in zip(replayed, failover_ms)],
+        "resize_ms": resize_ms, "resize_rows_moved": moved, "launches": fleet.launches, "blocks": fleet.blocks,
+        "twin_launches": twin.launches, "bitwise_vs_twins": checked, "numpy": numpy_checks,
+    }
+
+
+class _Worker:
+    """One ``python -m metrics_tpu_torch.serve.worker --device DEVICE`` process (a fresh interpreter: no fork
+    after CUDA is initialised) and its ``HTTPShard``; ``ready_ms`` from the start to its ``READY`` line."""
+
+    def __init__(self, shard: int, num_shards: int, checkpoint_root: str):
+        argv = [sys.executable, "-m", "metrics_tpu_torch.serve.worker", "--shard", str(shard), "--num-shards",
+                str(num_shards), "--num-streams", str(WORKER_STREAMS), "--block-rows", str(WORKER_BLOCK),
+                "--checkpoint-root", checkpoint_root, "--wal-exactly-once", "--device", DEVICE]
+        self.shard = shard
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(argv, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        self.port = self.handle = self.ready_ms = None
+
+    def ready(self) -> "_Worker":
+        from metrics_tpu_torch.serve import HTTPShard
+
+        got: list = []
+        reader = threading.Thread(target=lambda: got.append(self.proc.stdout.readline()), daemon=True)
+        reader.start()
+        reader.join(WORKER_READY_S)
+        line = got[0].strip() if got else ""
+        if not line.startswith("READY "):
+            self.kill()
+            raise AssertionError(f"fleet (b): worker {self.shard} printed {line!r} within {WORKER_READY_S} s: "
+                                 f"{self.proc.stderr.read()[-2000:]}")
+        self.ready_ms = (time.perf_counter() - self.t0) * 1e3
+        self.port = int(line.split()[1])
+        self.handle = HTTPShard("127.0.0.1", self.port)
+        return self
+
+    def kill(self) -> None:
+        """SIGKILL: no drain, no checkpoint."""
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait(timeout=30)
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.terminate()
+            try:
+                self.proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                self.kill()
+
+
+def _worker_feed(coordinator, lo: int, hi: int) -> None:
+    """The drill's rows, single-threaded, as ``tests/serve/test_fleet_soak.py`` feeds them."""
+    from metrics_tpu_torch.serve import ColumnTraffic
+
+    tenant = ColumnTraffic("per_tenant", arity=2, num_streams=WORKER_STREAMS, seed=21)
+    plain = ColumnTraffic("mse", arity=2, seed=22)
+    for start in range(lo, hi, 64):
+        end = min(start + 64, hi)
+        cols, ids = tenant.batch(start, end)
+        _accepted(coordinator.ingest_columns("per_tenant", cols, ids), end - start, "worker drill per_tenant")
+        cols, _ = plain.batch(start, end)
+        _accepted(coordinator.ingest_columns("mse", cols), end - start, "worker drill mse")
+
+
+def _fleet_workers(mt, root: str) -> dict:
+    """Phase 18 (b): two worker processes on the card behind a coordinator with a WAL: SIGKILL one, feed rows
+    (its rows park), fail over to a new process (checkpoint and WAL replay), bitwise a never-killed twin (an
+    in-process fleet of the same spec); then process-mode load through the fleet's HTTP frontend."""
+    from metrics_tpu_torch.obs import counter_value
+    from metrics_tpu_torch.serve import (FleetCoordinator, FleetSpec, LocalFleet, ServeConfig, WalWriter,
+                                         make_fleet_http_server, run_process_load)
+    from metrics_tpu_torch.serve.fleet import build_router
+    from metrics_tpu_torch.serve.soak import trees_bitwise_equal
+    from metrics_tpu_torch.serve.worker import drill_jobs
+
+    t_phase = time.perf_counter()
+    shards, ckpt = 2, str(Path(root) / "workers" / "ckpt")
+    workers = [_Worker(s, shards, ckpt) for s in range(shards)]  # started together: each pays its own start-up
+    spec = FleetSpec(num_shards=shards, jobs=drill_jobs(WORKER_STREAMS, device=DEVICE),
+                     server_config=ServeConfig(block_rows=WORKER_BLOCK, flush_interval=3600.0), device=DEVICE)
+    twin = coordinator = frontend = None
+    wal = {s: WalWriter(str(Path(root) / "workers" / "wal" / f"shard_{s:04d}"), segment_bytes=4096) for s in range(shards)}
+    replacements = []
+
+    def respawn(shard):
+        w = _Worker(shard, coordinator.router.num_shards, ckpt).ready()
+        replacements.append(w)
+        workers[shard] = w
+        return w.handle
+
+    try:
+        twin = LocalFleet(spec).start()
+        for w in workers:
+            w.ready()
+        ready_ms = [w.ready_ms for w in workers]
+        coordinator = FleetCoordinator(build_router(spec), [w.handle for w in workers], respawn=respawn,
+                                       ring_capacity=4096, wal=wal).start()
+        frontend = make_fleet_http_server("127.0.0.1", 0, coordinator)
+        threading.Thread(target=lambda: frontend.serve_forever(poll_interval=0.05), daemon=True).start()
+        for c in (coordinator, twin.coordinator):
+            _worker_feed(c, 0, WORKER_ROWS[0])
+            if not c.flush(60.0):
+                raise AssertionError("fleet (b): the flush did not return")
+        steps = {w.shard: w.handle.checkpoint() for w in workers}
+        for w in workers:
+            if w.handle.last_checkpoint_wal_marks:
+                wal[w.shard].truncate_covered(w.handle.last_checkpoint_wal_marks)
+        victim = coordinator.router.shard_for("per_tenant", 0)
+        workers[victim].kill()
+        deadline = time.monotonic() + WORKER_DEGRADED_S
+        while coordinator.health()["dead_shards"] != [victim]:
+            if time.monotonic() > deadline:
+                raise AssertionError(f"fleet (b): the coordinator never saw worker {victim} die")
+            time.sleep(0.05)
+        for c in (coordinator, twin.coordinator):
+            _worker_feed(c, *WORKER_ROWS)
+        parked = coordinator.staged_rows()
+        if not parked:
+            raise AssertionError("fleet (b): no rows parked for the killed worker")
+        replayed0 = counter_value("serve.wal_replayed_rows", shard=str(victim))
+        t0 = time.perf_counter()
+        coordinator.failover(victim)
+        failover_ms = (time.perf_counter() - t0) * 1e3
+        replayed = int(counter_value("serve.wal_replayed_rows", shard=str(victim)) - replayed0)
+        for c in (coordinator, twin.coordinator):
+            if not c.flush(60.0):
+                raise AssertionError("fleet (b): the flush after the failover did not return")
+        if coordinator.health()["status"] != "serving" or replayed <= 0:
+            raise AssertionError(f"fleet (b): after the failover {coordinator.health()['status']}, {replayed} replayed")
+        if not trees_bitwise_equal(coordinator.compute_all(), twin.coordinator.compute_all()):
+            raise AssertionError("fleet (b): the recovered worker fleet is not bitwise the never-killed twin")
+        report = run_process_load(f"http://127.0.0.1:{frontend.server_address[1]}", "per_tenant",
+                                  total_records=WORKER_LOAD, processes=2, batch_rows=WORKER_LOAD_BATCH,
+                                  num_streams=WORKER_STREAMS)
+        if report.records != WORKER_LOAD or report.accepted != WORKER_LOAD or report.rejected or report.errors:
+            raise AssertionError(f"fleet (b): process load {report}")
+        if not coordinator.flush(60.0) or len(coordinator.top_k("per_tenant", 4)[1]) != 4:
+            raise AssertionError("fleet (b): the fleet did not settle after the process load")
+    finally:
+        if frontend is not None:
+            frontend.shutdown()
+            frontend.server_close()
+        if coordinator is not None:
+            coordinator.stop()
+        for w in workers + replacements:
+            w.stop()
+        for writer in wal.values():
+            writer.close()
+        if twin is not None:
+            twin.stop()
+    line = {"ready_ms": ready_ms, "replacement_ready_ms": replacements[0].ready_ms, "checkpoint_steps": steps,
+            "victim": victim, "parked_rows": parked, "failover_ms": failover_ms, "replayed_rows": replayed,
+            "bitwise_vs_twin": True, "process_load_records_per_s": report.records_per_s,
+            "process_load": {"records": report.records, "accepted": report.accepted, "elapsed_s": report.elapsed_s},
+            "secs": time.perf_counter() - t_phase}
+    print(f"fleet (b): READY {ready_ms!r} ms, the replacement {replacements[0].ready_ms!r} ms; failover "
+          f"{failover_ms!r} ms, {replayed} rows replayed, {parked} parked; bitwise the twin; process load "
+          f"{report.records_per_s!r} records/s")
+    return line
+
+
+def _fleet_soak(mt, ops, kll, root: str) -> Tuple[dict, dict]:
+    """Phase 18 (c): ``soak.run_drill`` at its defaults on DEVICE, bit-identical; its sketch's launches against
+    the blocks dispatched."""
+    from metrics_tpu_torch.obs import counter_value
+    from metrics_tpu_torch.serve.soak import run_drill
+
+    counters = _ms_counters(ops, kll)
+    before = {k: f.launches for k, f in counters.items()}
+    blocks0 = counter_value("serve.blocks_dispatched", job="quantiles")
+    t0 = time.perf_counter()
+    result = run_drill(str(Path(root) / "soak"), device=DEVICE)
+    secs = time.perf_counter() - t0
+    launches = {k: f.launches - before[k] for k, f in counters.items()}
+    blocks = int(counter_value("serve.blocks_dispatched", job="quantiles") - blocks0)
+    if not result.identical or result.poller_failures or result.restored_step != result.checkpoint_step:
+        raise AssertionError(f"fleet (c): the soak drill: identical {result.identical}, poller failures "
+                             f"{result.poller_failures[:3]}, restored {result.restored_step} of {result.checkpoint_step}")
+    if result.checkpoint_failures < 1 or result.sync_report.get("fallback") != "local":
+        raise AssertionError(f"fleet (c): the drill's faults did not fire: {result.checkpoint_failures}, {result.sync_report}")
+    if launches["kll_fold"] != blocks or not blocks or any(v for k, v in launches.items() if k != "kll_fold"):
+        raise AssertionError(f"fleet (c): launches {launches} for {blocks} quantile blocks")
+    print(f"fleet (c): the soak drill bit-identical in {secs:.1f} s; poller {result.poller_summary}; launches {launches}")
+    return launches, {"identical": True, "secs": secs, "checkpoint_step": result.checkpoint_step,
+                      "checkpoint_failures": result.checkpoint_failures, "poller": result.poller_summary,
+                      "launches": launches, "quantile_blocks": blocks}
+
+
+def phase_fleet(mt, card: str) -> Tuple[dict, dict]:
+    """Phase 18: the serve fleet on the card.  (a) In-process fleets (4 shards, a WAL and checkpoints) through
+    ingest with reads, a checkpoint, a kill and failover, and a resize, bitwise their one-shard twins; (b) two
+    worker processes behind an ``HTTPShard`` coordinator through a SIGKILL and failover, then process-mode load;
+    (c) the soak drill.  Returns the phase's launches per entry point and its line."""
+    from metrics_tpu_torch.ops import kll
+    from metrics_tpu_torch.ops import stat_scores as ops
+
+    phase_start = time.perf_counter()
+    data = _fleet_data()
+    setup_s = time.perf_counter() - phase_start
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fleet_") as tmp:
+        launches, in_process = _fleet_in_process(mt, ops, kll, data, tmp)
+        del data
+        workers = _fleet_workers(mt, tmp)
+        soak_launches, soak = _fleet_soak(mt, ops, kll, tmp)
+    total = {k: launches[k] + soak_launches[k] for k in launches}
+    secs = time.perf_counter() - phase_start
+    print(f"fleet phase took {secs:.1f} s ({setup_s:.1f} s of it making the rows)")
+    return total, {"fleet": {"card": card, "in_process": in_process, "workers": workers, "soak": soak,
+                             "launches": total, "setup_s": setup_s, "phase_s": secs}}
+
+
 def _pow2(n: int) -> list:
     """The power-of-two tail ``_pow2_chunks`` cuts ``n`` < block_rows rows into."""
     return [1 << b for b in range(n.bit_length() - 1, -1, -1) if n & (1 << b)]
@@ -6848,20 +7403,23 @@ def main() -> int:
     text_audio_line = phase_text_audio(mt, card, text_audio_profile)
     torch.cuda.empty_cache()
     serve_launches, serve_line = phase_serve(mt, card, serve_profile)
+    torch.cuda.empty_cache()
+    fleet_launches, fleet_line = phase_fleet(mt, card)
     print(f"launches per entry point: main path {launches}, curve phase {curve_launches}, "
           f"rest of classification {rest_launches}, regression {regression_launches}, "
           f"wrappers and retrieval {wrapper_launches}, streaming {streaming_launches}, multistream {ms_launches}, "
-          f"core and obs {core_launches} and {core_counts}, serve {serve_launches}")
+          f"core and obs {core_launches} and {core_counts}, serve {serve_launches}, fleet {fleet_launches}")
     for entry in kernels:
         route = "canonical" if entry["name"] == "stat_scores" else "logits"
         entry["launches"] += (curve_launches[route] + rest_launches[route] + regression_launches[route]
                               + wrapper_launches[route] + streaming_launches[route] + ms_launches[route]
-                              + core_launches[route] + serve_launches[route])
-    kll_entry["launches"] += ms_counts["kll_fold"] + core_counts["kll_fold"] + serve_launches["kll_fold"]
+                              + core_launches[route] + serve_launches[route] + fleet_launches[route])
+    kll_entry["launches"] += (ms_counts["kll_fold"] + core_counts["kll_fold"] + serve_launches["kll_fold"]
+                              + fleet_launches["kll_fold"])
     kernels.append(kll_entry)
     for entry in ms_entries:
         counter = entry.pop("counter")
-        entry["launches"] = ms_counts[counter] + core_counts[counter] + serve_launches[counter]
+        entry["launches"] = ms_counts[counter] + core_counts[counter] + serve_launches[counter] + fleet_launches[counter]
         if counter == "stream_canonical":
             entry["large_s"] = core_line["core_obs"]["large_s"]
     kernels.extend(ms_entries)
@@ -6878,6 +7436,7 @@ def main() -> int:
     print(json.dumps(generation_line))
     print(json.dumps(text_audio_line))
     print(json.dumps(serve_line))
+    print(json.dumps(fleet_line))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -122,18 +122,26 @@ def encode_stream_span(metric: Metric, lo: int, hi: int) -> Dict[str, Any]:
 
     Returns a jsonable payload ``{"lo", "hi", "rows", "blob", "digest"}``;
     ``rows`` is the slice's accepted-row total (the recipient's update-count
-    credit), ``digest`` guards the packed bytes end to end.
+    credit), ``digest`` guards the packed bytes end to end.  Beyond the JAX
+    package's payload, ``"extra"`` carries the metric's checkpointed
+    attributes (a classifier's input ``mode``), so a recipient answers a
+    query before its first rows; the JAX package's span loses them, and its
+    resized ``Accuracy`` shards raise until new rows arrive.
     """
     arrays = metric.stream_slice(lo, hi)
     blob = _pack_state_blob(arrays)
     rows_vec = arrays.get("stream_rows")
-    return {
+    out = {
         "lo": int(lo),
         "hi": int(hi),
         "rows": int(rows_vec.sum()) if rows_vec is not None else 0,
         "blob": base64.b64encode(blob).decode("ascii"),
         "digest": codec.state_digest(blob),
     }
+    extra = metric._ckpt_extra_state()
+    if extra:
+        out["extra"] = extra
+    return out
 
 
 def decode_stream_span(payload: Dict[str, Any]) -> Dict[str, Any]:

@@ -1,6 +1,5 @@
 """Durable streaming-eval service: the library as a long-running system
-(counterpart of ``metrics_tpu/serve``, its single-process server and its
-durability and routing pieces).
+(counterpart of ``metrics_tpu/serve``, every module of it).
 
 ``metrics_tpu_torch.serve`` turns a set of metrics into a process you can
 run for days: a bounded ingestion queue micro-batching records into
@@ -31,11 +30,21 @@ Quick start::
     # GET :9100/metrics  |  GET :9100/query?job=mse  |  GET :9100/healthz
     server.stop()        # drain + final checkpoint
 
-The routing pieces of the sharded fleet are here too (:class:`ShardRouter`,
-:class:`HashRing`, :func:`migration_plan`, :class:`ColumnRing`, the
-:class:`Autoscaler` policy); the fleet that drives them (the JAX package's
-``coordinator``, ``fleet`` and ``worker``) and its load and soak harness
-(``loadgen``, ``soak``) are not ported yet.
+One server not enough?  The **sharded fleet** scales the same service
+horizontally: a :class:`ShardRouter` span-partitions every multistream
+job's stream axis across N workers (plain jobs place whole via a
+consistent-hash ring), a :class:`FleetCoordinator` frontend stages ingest
+in pre-allocated columnar rings (:class:`ColumnRing`) and forwards per
+shard, scatter-gathers ``top_k`` / ``where`` / ``compute`` with exact
+single-worker semantics, fails a dead shard over to a replacement restored
+from its own checkpoint directory (and, with ``FleetSpec.wal_root``, its
+write-ahead log), and resizes live (:func:`migration_plan`, the
+:class:`Autoscaler` policy).  :class:`LocalFleet` runs N in-process workers
+on one device (``FleetSpec.device``, ``"cuda"`` by default);
+``python -m metrics_tpu_torch.serve.worker`` runs one shard as a process of
+its own behind an :class:`HTTPShard`.  :class:`ColumnTraffic`,
+:func:`run_load` and :func:`run_process_load` generate load, and
+``metrics_tpu_torch.serve.soak`` drills kill→restore.
 """
 
 from metrics_tpu_torch.serve.autoscaler import (
@@ -45,7 +54,20 @@ from metrics_tpu_torch.serve.autoscaler import (
     autoscale_step,
 )
 from metrics_tpu_torch.serve.columnar import ColumnRing
+from metrics_tpu_torch.serve.coordinator import (
+    FleetCoordinator,
+    HTTPShard,
+    make_fleet_http_server,
+)
+from metrics_tpu_torch.serve.fleet import (
+    FleetSpec,
+    InProcessShard,
+    JobSpec,
+    LocalFleet,
+    build_shard_registry,
+)
 from metrics_tpu_torch.serve.httpd import PooledHTTPServer
+from metrics_tpu_torch.serve.loadgen import ColumnTraffic, LoadReport, run_load, run_process_load
 from metrics_tpu_torch.serve.ingest import (
     BlockBatcher,
     ColumnBatch,
@@ -78,13 +100,21 @@ __all__ = [
     "BlockBatcher",
     "ColumnBatch",
     "ColumnRing",
+    "ColumnTraffic",
+    "LoadReport",
     "EvalJob",
     "EvalServer",
+    "FleetCoordinator",
     "FleetSignals",
+    "FleetSpec",
+    "HTTPShard",
     "HashRing",
+    "InProcessShard",
     "IngestConsumer",
     "IngestQueue",
+    "JobSpec",
     "JobTraffic",
+    "LocalFleet",
     "MetricRegistry",
     "MigrationPlan",
     "PooledHTTPServer",
@@ -98,8 +128,12 @@ __all__ = [
     "WalTicket",
     "WalWriter",
     "autoscale_step",
+    "build_shard_registry",
     "default_traffic",
     "inject_wal_fault",
+    "make_fleet_http_server",
     "migration_plan",
     "replay_frames",
+    "run_load",
+    "run_process_load",
 ]

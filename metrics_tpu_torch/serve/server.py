@@ -88,6 +88,17 @@ class ServeConfig:
     wal_exactly_once: bool = False
 
 
+def _determined(extra: Dict[str, Any]) -> Dict[str, Any]:
+    """``extra`` without the attributes a metric has not determined yet (None)."""
+    out: Dict[str, Any] = {}
+    for key, value in extra.items():
+        if isinstance(value, dict) and "__enum__" not in value:
+            value = _determined(value)
+        if value is not None and value != {}:
+            out[key] = value
+    return out
+
+
 class EvalServer:
     """One registry + one queue + the three service threads."""
 
@@ -474,6 +485,9 @@ class EvalServer:
                 covered += metric.adopt_stream_slice(
                     int(payload["lo"]) - int(span_lo), arrays
                 )
+                # a donor's determined attributes (a classifier's input mode)
+                # carry over; one that never saw rows leaves them unset
+                metric._ckpt_load_extra_state(_determined(payload.get("extra") or {}))
             if covered != int(width):
                 raise MetricsTPUUserError(
                     f"import for {job!r} covered {covered} of {width} rows; "

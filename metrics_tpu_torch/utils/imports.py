@@ -4,16 +4,19 @@ Every optional integration is gated behind a module-level boolean so the
 domain packages import cleanly where the package is missing.
 """
 
-import importlib
+import importlib.util
 from functools import lru_cache
 
 
 @lru_cache(maxsize=None)
 def _package_available(package_name: str) -> bool:
+    """Whether ``package_name`` is installed, found without importing it: an
+    import here would cost every process that imports the port (a fleet
+    worker's start-up, so a failover) the package's own import, seconds
+    for ``transformers``."""
     try:
-        importlib.import_module(package_name)
-        return True
-    except Exception:
+        return importlib.util.find_spec(package_name) is not None
+    except (ImportError, ValueError):
         return False
 
 

@@ -1135,3 +1135,68 @@ def test_serve_blocks_on_cuda_equal_a_direct_update(cuda):
             assert a.device.type == "cuda" and torch.equal(a, b), key
     assert reg["per_class"].metric.dropped_rows() == int(((ids < 0) | (ids >= s)).sum())
     assert float(reg["top1"].compute()) == float(plain.compute())
+
+
+@pytest.mark.cuda
+def test_a_fleet_on_cuda_equals_its_cpu_twin(cuda):
+    """Two two-shard ``LocalFleet``s on the card against their CPU twins fed the same
+    rows: a multistream ``Accuracy`` over int32 rows (integer states, through the
+    canonical per-stream kernel, one launch a dispatched block) and plain and
+    multistream ``MeanSquaredError`` on eighths (exact float sums), bitwise."""
+    import functools
+
+    from metrics_tpu_torch.obs import counter_value
+    from metrics_tpu_torch.serve import FleetSpec, JobSpec, LocalFleet, ServeConfig
+    from metrics_tpu_torch.serve.soak import trees_bitwise_equal
+
+    c, s, n, block = 10, 12, 600, 16
+    rng = np.random.default_rng(17)
+    labels = rng.integers(0, c, n).astype(np.int32)
+    preds = np.where(rng.random(n) < 0.7, labels, rng.integers(0, c, n)).astype(np.int32)
+    p8, t8 = (rng.integers(0, 40, (2, n)) / 8).astype(np.float32)
+    tenants = np.arange(n) % s
+
+    def specs(device):
+        config = ServeConfig(block_rows=block, flush_interval=3600.0)
+        mse = functools.partial(mt.MeanSquaredError, device=device)
+        acc = functools.partial(mt.Accuracy, num_classes=c, device=device)
+        return (FleetSpec(num_shards=2, jobs=[JobSpec("mse", mse), JobSpec("tenants", mse, num_streams=s)],
+                          server_config=config, device=device),
+                FleetSpec(num_shards=2, jobs=[JobSpec("per_class", acc, num_streams=c)], server_config=config,
+                          ingest_dtype=np.int32, device=device))
+
+    def run(device):
+        floats, ints = (LocalFleet(spec).start() for spec in specs(device))
+        try:
+            for lo in range(0, n, 100):
+                hi = lo + 100
+                assert floats.coordinator.ingest_columns("tenants", [p8[lo:hi], t8[lo:hi]], tenants[lo:hi]) == (100, 0)
+                assert floats.coordinator.ingest_columns("mse", [p8[lo:hi], t8[lo:hi]]) == (100, 0)
+                assert ints.coordinator.ingest_columns("per_class", [preds[lo:hi], labels[lo:hi]], labels[lo:hi]) == (100, 0)
+            assert floats.coordinator.flush(30.0) and ints.coordinator.flush(30.0)
+            values = {**floats.coordinator.compute_all(), **ints.coordinator.compute_all()}
+            states = {}
+            for name, fleet in (("floats", floats), ("ints", ints)):
+                for shard in range(2):
+                    registry = fleet.server(shard).registry
+                    assert registry.device.type == device
+                    for job in registry.jobs():
+                        for key, v in job.metric.state_pytree().items():
+                            v = v.detach().cpu() if isinstance(v, torch.Tensor) else torch.tensor(v)
+                            states[f"{name}/{shard}/{job.name}.{key}"] = v
+            return values, states
+        finally:
+            floats.stop()
+            ints.stop()
+
+    blocks0 = counter_value("serve.blocks_dispatched", job="per_class")
+    ops.fused_stream_stat_scores.launches = 0
+    card_values, card_states = run("cuda")
+    dispatched = counter_value("serve.blocks_dispatched", job="per_class") - blocks0
+    assert ops.fused_stream_stat_scores.launches == dispatched > 0
+    cpu_values, cpu_states = run("cpu")
+    assert trees_bitwise_equal(card_values, cpu_values)
+    assert sorted(card_states) == sorted(cpu_states)
+    for key, v in card_states.items():
+        w = cpu_states[key]
+        assert v.dtype == w.dtype and torch.equal(v, w), key

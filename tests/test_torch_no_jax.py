@@ -238,13 +238,93 @@ def test_text_and_audio_without_device_raise_when_cuda_is_absent(monkeypatch):
 
 SERVE = tuple(
     f"metrics_tpu_torch/serve/{name}.py"
-    for name in ("__init__", "registry", "ingest", "traffic", "httpd", "server", "wal", "columnar", "router", "autoscaler")
+    for name in ("__init__", "registry", "ingest", "traffic", "httpd", "server", "wal", "columnar", "router", "autoscaler",
+                 "coordinator", "fleet", "worker", "loadgen", "_loadgen_child", "soak")
 )
 
 
 def test_the_walk_covers_the_serve_modules():
     walked = {p.relative_to(ROOT).as_posix() for p in _port_sources()}
-    assert len(SERVE) == 10 and set(SERVE) <= walked
+    jax_serve = {p.name for p in (ROOT / "metrics_tpu" / "serve").glob("*.py")}
+    assert len(SERVE) == 16 and set(SERVE) <= walked
+    assert {Path(p).name for p in SERVE} == jax_serve
+
+
+def test_the_worker_process_and_the_loadgen_child_load_neither_jax_nor_metrics_tpu():
+    """A worker started as ``python -m metrics_tpu_torch.serve.worker`` and a loadgen child run by path, as the
+    fleet starts them: the worker reports its port, and neither process ever loads JAX or the JAX package."""
+    probe = (
+        "import runpy, sys, threading\n"
+        "def check():\n"
+        "    bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'metrics_tpu'))\n"
+        "    print('BAD', bad, flush=True)\n"
+        "{body}"
+    )
+    worker = probe.format(body=(
+        "import signal, os\n"
+        "timer = threading.Timer(60.0, lambda: os.kill(os.getpid(), signal.SIGTERM))\n"
+        "timer.daemon = True\n"
+        "timer.start()\n"
+        "sys.argv = ['worker', '--shard', '0', '--num-shards', '1', '--device', 'cpu']\n"
+        "try:\n"
+        "    runpy.run_module('metrics_tpu_torch.serve.worker', run_name='__main__')\n"
+        "finally:\n"
+        "    check()\n"
+    ))
+    proc = subprocess.Popen([sys.executable, "-c", worker], cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    try:
+        ready = proc.stdout.readline().strip()
+        assert ready.startswith("READY "), (ready, proc.stderr.read() if proc.poll() is not None else "")
+        proc.terminate()
+        out, err = proc.communicate(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    assert "BAD []" in out, (out, err)
+    child = ROOT / "metrics_tpu_torch" / "serve" / "_loadgen_child.py"
+    run = probe.format(body=(
+        f"sys.argv = ['child', '--url', 'http://127.0.0.1:9', '--job', 'x', '--lo', '0', '--hi', '4',"
+        f" '--timeout', '0.5']\n"
+        f"runpy.run_path({str(child)!r}, run_name='__main__')\n"
+        "check()\n"
+    ))
+    done = subprocess.run([sys.executable, "-c", run], cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert done.returncode == 0 and "BAD []" in done.stdout, (done.stdout, done.stderr)
+    assert '"sent": 4' in done.stdout and '"errors": 1' in done.stdout
+
+
+def test_importing_a_fleet_worker_imports_no_optional_package():
+    """A worker's start-up is a failover's cost: the port finds its optional packages without importing them."""
+    code = (
+        "import sys, metrics_tpu_torch.serve.worker\n"
+        "from metrics_tpu_torch.utils import imports\n"
+        "optional = {'transformers', 'sklearn', 'scipy', 'nltk', 'pesq', 'pystoi', 'sacrebleu', 'regex', 'PIL'}\n"
+        "loaded = sorted(optional & {m.split('.')[0] for m in sys.modules})\n"
+        "assert not loaded, loaded\n"
+        "assert imports._TORCH_AVAILABLE and imports._SCIPY_AVAILABLE\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_a_fleet_worker_and_soak_without_device_raise_when_cuda_is_absent(monkeypatch):
+    from metrics_tpu_torch.serve import FleetSpec, JobSpec
+    from metrics_tpu_torch.serve import soak, worker
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        FleetSpec(num_shards=1, jobs=[JobSpec("mse", mt.MeanSquaredError)])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        worker.run_worker(0, 1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        worker.drill_jobs(4)[0].build()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        soak.make_soak_registry(4)
+    proc = subprocess.run([sys.executable, "-m", "metrics_tpu_torch.serve.worker", "--shard", "0", "--num-shards", "1"],
+                          cwd=ROOT, capture_output=True, text=True, timeout=120,
+                          env={**__import__("os").environ, "CUDA_VISIBLE_DEVICES": ""})
+    assert proc.returncode != 0 and "READY" not in proc.stdout and "CUDA is not available" in proc.stderr
 
 
 def test_importing_the_serve_tier_loads_neither_jax_nor_metrics_tpu():
@@ -274,8 +354,8 @@ def test_a_serve_registry_without_device_raises_when_cuda_is_absent(monkeypatch)
 # names the JAX package's root exports that the port leaves out on purpose (ROADMAP "Left out on purpose")
 LEFT_OUT_ON_PURPOSE = {"AxisBackend", "axis_context", "current_axis", "default_mesh", "leaf_sharding", "MeshBackend",
                        "MultihostBackend"}
-# the JAX serve modules a later slice ports: their names are the only ones the port's serve.__all__ lacks
-SERVE_NOT_YET = ("coordinator", "fleet", "worker", "loadgen", "_loadgen_child", "soak")
+# the JAX serve modules still to port: none (every name of the JAX serve.__all__ is the port's)
+SERVE_NOT_YET = ()
 
 
 def test_the_root_all_covers_the_jax_root_all():
@@ -294,8 +374,9 @@ def test_the_serve_all_is_the_jax_one_less_the_modules_not_yet_ported():
     import metrics_tpu_torch.serve as tserve
 
     later = {name for name in jserve.__all__ if getattr(jserve, name).__module__.rsplit(".", 1)[-1] in SERVE_NOT_YET}
-    assert later == {"ColumnTraffic", "FleetCoordinator", "FleetSpec", "HTTPShard", "InProcessShard", "JobSpec",
-                     "LoadReport", "LocalFleet", "build_shard_registry", "make_fleet_http_server", "run_load",
-                     "run_process_load"}
-    assert set(tserve.__all__) == set(jserve.__all__) - later
+    assert later == set()
+    assert tserve.__all__ == jserve.__all__
     assert all(hasattr(tserve, name) for name in tserve.__all__)
+    for name in tserve.__all__:
+        ours, theirs = getattr(tserve, name), getattr(jserve, name)
+        assert ours.__module__.replace("metrics_tpu_torch.", "metrics_tpu.") == theirs.__module__, name

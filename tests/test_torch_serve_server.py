@@ -1,7 +1,7 @@
 """The port's ``EvalServer`` and HTTP surface (``metrics_tpu_torch.serve.{server,httpd}``) on the CPU.
 
-Mirrors ``tests/serve/test_server.py`` case for case with ``device="cpu"``
-(its slow-tier mini drill needs the soak harness, which is not ported yet).
+Mirrors ``tests/serve/test_server.py`` case for case with ``device="cpu"``,
+its slow-tier mini drill (the soak harness in miniature) included.
 ``test_restore_on_start`` is held to what the JAX test asserts: the restored
 mean squared error bitwise that of one direct update over the same rows.
 Then the port against the JAX package: the same HTTP traffic into both
@@ -387,6 +387,30 @@ def served_pair(tmp_path_factory):
     finally:
         for srv in servers.values():
             srv.kill()
+
+
+class TestMiniDrill:
+    @pytest.mark.slow
+    def test_kill_restore_recovers_bit_identical(self, tmp_path):
+        """Miniature of the soak drill: checkpoint, lose a tail, kill,
+        restore, replay: byte for byte equal to never having died.  Slow
+        tier, as in the JAX package."""
+        from metrics_tpu_torch.serve.soak import run_drill
+
+        result = run_drill(
+            str(tmp_path),
+            n=180,
+            k=100,
+            lost_tail=7,
+            block_rows=16,
+            num_streams=8,
+            store_faults=[],
+            poll=False,
+            device="cpu",
+        )
+        assert result.identical, {"baseline": result.baseline, "recovered": result.recovered}
+        assert result.restored_step == result.checkpoint_step
+        assert result.checkpoint_failures == 0
 
 
 def _value_gauges(port):

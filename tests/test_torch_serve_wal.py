@@ -4,8 +4,9 @@ Mirrors ``tests/serve/test_wal.py`` case for case with ``device="cpu"``:
 the codec, group commit, rotation and recovery, the injected faults (each
 pinned to one recovery policy), checkpoint watermarks, and the server's
 seq dedup, in process and over HTTP (there through the JAX package's own
-``HTTPShard`` client, so the wire is the JAX one).  Its fleet cases
-(``TestFleetWal``) need the sharded fleet, which is not ported yet.
+``HTTPShard`` client, so the wire is the JAX one), and the fleet's
+durable ingest (``TestFleetWal``): a shard killed between checkpoints
+recovers from its checkpoint and the log alone, bitwise a never-killed twin.
 
 Then the port against the JAX package: frames byte-equal for the same
 batch, a log written by either package replays in the other with the same
@@ -15,6 +16,8 @@ the JAX reader refuses them.  Inputs are multiples of 1/8, so float sums
 are exact in any order and "identical" means bitwise.
 """
 
+import functools
+import os
 import threading
 
 import numpy as np
@@ -28,6 +31,9 @@ from metrics_tpu_torch.obs import counter_value, parse_prometheus_text, promethe
 from metrics_tpu_torch.regression import MeanSquaredError
 from metrics_tpu_torch.serve import (
     EvalServer,
+    FleetSpec,
+    JobSpec,
+    LocalFleet,
     MetricRegistry,
     ServeConfig,
     WalCorruption,
@@ -392,6 +398,91 @@ class TestHTTPSeqDedup:
             assert not shard.ingest_columns("mse", cols, seqs=[(0, 3)])
         finally:
             server.stop(final_checkpoint=False)
+
+
+# ---------------------------------------------------------------------------
+# fleet integration: kill between checkpoints, zero resends, bitwise twin
+# ---------------------------------------------------------------------------
+
+
+def _fleet_spec(root, tag, wal=True):
+    build = functools.partial(MeanSquaredError, **CPU)
+    return FleetSpec(
+        num_shards=2,
+        jobs=[JobSpec("mse", build), JobSpec("tenants", build, num_streams=S)],
+        checkpoint_root=os.path.join(root, tag, "ckpt"),
+        wal_root=os.path.join(root, tag, "wal") if wal else None,
+        server_config=ServeConfig(block_rows=BLOCK, flush_interval=3600.0),
+        **CPU,
+    )
+
+
+def _feed(coordinator, batches, lo=0, rows=24):
+    for i in range(lo, lo + batches):
+        rng = np.random.default_rng(1000 + i)  # per-batch seed: twin-stable
+        ids = rng.integers(0, S, rows).astype(np.int64)
+        a, r = coordinator.ingest_columns("tenants", _cols(rng, rows), ids)
+        assert (a, r) == (rows, 0)
+        a, r = coordinator.ingest_columns("mse", _cols(rng, BLOCK))
+        assert (a, r) == (BLOCK, 0)
+
+
+class TestFleetWal:
+    def test_kill_between_checkpoints_zero_resends_bitwise_twin(self, tmp_path):
+        fleet = LocalFleet(_fleet_spec(str(tmp_path), "a")).start()
+        twin = LocalFleet(_fleet_spec(str(tmp_path), "b", wal=False)).start()
+        try:
+            for f in (fleet, twin):
+                _feed(f.coordinator, 10)
+                assert f.coordinator.flush(20.0)
+                f.checkpoint_all()
+            # rows PAST the checkpoint: only the WAL covers these
+            for f in (fleet, twin):
+                _feed(f.coordinator, 6, lo=10)
+                assert f.coordinator.flush(20.0)
+            victim = 0  # owns the low half of the stream span, so has frames
+            replayed_before = counter_value("serve.wal_replayed_rows", shard=str(victim))
+            fleet.kill_shard(victim)
+            fleet.failover(victim)  # checkpoint + WAL replay, nothing re-fed
+            assert counter_value("serve.wal_replayed_rows", shard=str(victim)) > replayed_before
+            assert fleet.coordinator.flush(20.0)
+            assert trees_bitwise_equal(fleet.coordinator.compute_all(), twin.coordinator.compute_all())
+        finally:
+            fleet.stop()
+            twin.stop()
+
+    def test_checkpoint_all_truncates_covered_segments(self, tmp_path):
+        spec = _fleet_spec(str(tmp_path), "a")
+        spec.wal_segment_bytes = 256  # force rotation
+        fleet = LocalFleet(spec).start()
+        try:
+            _feed(fleet.coordinator, 8)
+            assert fleet.coordinator.flush(20.0)
+            total_before = sum(len(w.segments()) for w in fleet._wal.values())
+            assert total_before > 2
+            fleet.checkpoint_all()
+            # every durable row is now inside a committed checkpoint: the
+            # sealed segments are garbage and must go
+            total_after = sum(len(w.segments()) for w in fleet._wal.values())
+            assert total_after < total_before
+            assert counter_value("serve.wal_truncated_segments") > 0
+        finally:
+            fleet.stop()
+
+    def test_wal_survives_fleet_restart(self, tmp_path):
+        # the log outlives the fleet: a new fleet over the same wal_root
+        # resumes seqs past the durable tail instead of reissuing them
+        fleet = LocalFleet(_fleet_spec(str(tmp_path), "a")).start()
+        _feed(fleet.coordinator, 3)
+        assert fleet.coordinator.flush(20.0)
+        seqs = {shard: w.next_seq for shard, w in fleet._wal.items()}
+        fleet.stop()
+        fleet2 = LocalFleet(_fleet_spec(str(tmp_path), "a")).start()
+        try:
+            for shard, writer in fleet2._wal.items():
+                assert writer.next_seq == seqs[shard]
+        finally:
+            fleet2.stop()
 
 
 # ---------------------------------------------------------------------------
