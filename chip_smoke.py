@@ -250,6 +250,26 @@ Phases (each passes or raises; any failure exits non-zero):
      (``soak.run_drill`` at its defaults) on the card, bit-identical.
      Records/s per job, query p50/p99, checkpoint, failover and resize ms,
      replay rows/s, READY ms per worker, the process load's records/s;
+  19. mesh placement (``phase_mesh``): (a) a one-rank mesh on ``cuda:0`` over
+     NCCL: configuration 2 over the ImageNet pass through
+     ``MetricCollection.shard(default_mesh())``, bitwise the unplaced
+     collection, every leaf a ``Partial`` DTensor, the logits entry point
+     launched as often as unplaced and held against its plain version, the
+     sync reports' ``in_xla_reductions`` and zero bytes, ms per update placed
+     against unplaced in turns; phase 12 (a)'s per-class accuracy (1,000
+     streams) through ``shard_streams``, bitwise.  (b) Two gloo ranks on the
+     card (``--sync-rank mesh``): each rank's half of the JAX package's
+     configuration 10 (``Accuracy`` over the ImageNet rows and
+     ``MeanAveragePrecision(on_device=True)`` over phase 14's COCO-shaped
+     images, 8 updates between syncs) and a ``StreamingQuantile`` of phase
+     9's per-pixel errors, all placed on a mesh of the two ranks: accuracy
+     bitwise one process's, the merged sketch bitwise the rank-order
+     ``kll_merge`` through the kernel and through its plain version, mAP
+     within ``MAP_VALUE_TOL`` of one process's and bitwise its own compute
+     with ``coco_match``'s plain version; configuration 2 synced through
+     ``MeshBackend`` (its reduced states combined, and one collective a
+     state) and ``DistBackend`` on the same states (ms in turns, bytes
+     through the host).
 The last line is ``{"ok": true, "device": {...}}``.
 
 The sync phases run this script again as their ranks
@@ -812,6 +832,8 @@ def sync_rank(scenario: str, rank: int, where: Path) -> int:
         _rank_detection(mt, rank, where)
     elif scenario == "generation":
         _rank_generation(mt, rank, where)
+    elif scenario == "mesh":
+        _rank_mesh(mt, ops, rank, where)
     else:
         _, _, batches = _imagenet_pass()
         if scenario == "stall":
@@ -7260,6 +7282,360 @@ def _one_launch(name: str, fn, calls: int = 20) -> Optional[float]:
     return statistics.median(ms for _, ms in seen)
 
 
+# ---------------------------------------------------------------------------------------------------------------
+# Phase 19: metric state placed on a device mesh (DTensor leaves, MeshBackend)
+# ---------------------------------------------------------------------------------------------------------------
+MESH_ACCUM = 8  # updates between syncs, as the JAX package's configuration 10 (bench.py)
+MESH_STEPS = 6  # (b): 6 syncs of 8 updates, 48 of the pass's 49 batches
+MESH_COCO_IMAGES = 16  # (b): phase 14's COCO val2017-shaped images an update (8 a rank), 768 in all
+MESH_NYU_BATCHES = 16  # (b): phase 9's per-pixel errors, the first 16 batches of 8 maps (39.3 M values)
+MESH_SYNC_REPS = 10  # (b): timed syncs of configuration 2 through each backend, a turn
+MESH_TURNS = ("plain", "placed", "placed", "plain")
+# (b): config 2's sync through DistBackend ("plain"), MeshBackend with its reduced states combined ("placed") and
+# MeshBackend one collective a state ("separate"), in turns
+MESH_SYNC_TURNS = ("plain", "placed", "separate", "separate", "placed", "plain")
+
+
+def _local(x):
+    """A DTensor's local tensor; anything else as it is."""
+    return x.to_local() if hasattr(x, "to_local") else x
+
+
+def _hex(values: dict) -> dict:
+    return {k: _local(v).detach().cpu().numpy().tobytes().hex() for k, v in values.items()}
+
+
+def _check_placed(name: str, metric) -> int:
+    """``metric.state`` between syncs as its placement describes it: a reduced state a ``Partial`` DTensor (by its
+    reduce) over the metric's own plain tensor; rows, sketch leaves, lists and buffer counts each rank's own."""
+    from torch.distributed.tensor import DTensor, Partial
+
+    ops_by_fx = {"sum": "sum", "mean": "avg", "max": "max", "min": "min"}
+    sketch = metric._sketch_leaf_key_set()
+    placed = 0
+    for key, value in metric.state.items():
+        fx = metric._reduce_fns[key]
+        if fx not in ops_by_fx or key in sketch or isinstance(value, (list, int)):
+            if isinstance(value, DTensor):
+                raise AssertionError(f"{name}: {key} is a DTensor between syncs")
+            continue
+        want = (Partial(ops_by_fx[fx]),)
+        if not isinstance(value, DTensor) or value.placements != want:
+            raise AssertionError(f"{name}: {key} is {type(value).__name__} {getattr(value, 'placements', None)}, not {want}")
+        if type(getattr(metric, key)) is not torch.Tensor:
+            raise AssertionError(f"{name}: the attribute {key} is not a plain tensor")
+        placed += 1
+    return placed
+
+
+def _mesh_one_rank(mt, ops) -> Tuple[dict, dict]:
+    """(a): a one-rank mesh on ``cuda:0`` over NCCL.  Configuration 2 over the ImageNet pass placed with
+    ``MetricCollection.shard(default_mesh())`` against the unplaced collection, and phase 12 (a)'s per-class
+    accuracy placed with ``shard_streams``.  Returns the launches per entry point and the record."""
+    import torch.distributed as dist
+
+    from metrics_tpu_torch.multistream import shard_streams, stream_mesh
+
+    where = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    torch.cuda.set_device(0)  # the mesh's one rank on cuda:0, chosen before the mesh is made
+    backend = "nccl" if DEVICE == "cuda" else "gloo"  # gloo only where a rehearsal runs the phase on the CPU
+    dist.init_process_group(backend, init_method=f"file://{where}/store", rank=0, world_size=1,
+                            timeout=timedelta(seconds=SYNC_LIMIT))
+    try:
+        mesh = mt.default_mesh(device=DEVICE)
+        logits, labels, batches = _imagenet_pass()
+        n = len(batches)
+
+        def run(col):
+            for p, t in batches:
+                col.update(p, t)
+            return col.compute()
+
+        plain_col, placed_col = _config2(mt), _config2(mt).shard(mesh)
+        plain, _, plain_counts = _driven(ops, "config 2 unplaced", lambda: run(plain_col),
+                                         lambda: _implied_config2(ops, plain_col, n))
+        placed, placed_s, placed_counts = _driven(ops, "config 2 on a one-rank mesh", lambda: run(placed_col),
+                                                  lambda: _implied_config2(ops, placed_col, n))
+        if placed_counts != plain_counts:
+            raise AssertionError(f"mesh (a): the placed pass launched {placed_counts}, the unplaced {plain_counts}")
+        if _hex(placed) != _hex(plain):
+            raise AssertionError("mesh (a): configuration 2 on the mesh is not bitwise the unplaced collection")
+        leaves = sum(_check_placed(f"config 2 {name}", m) for name, m in placed_col.items())
+        reports = {name: m.last_sync_report for name, m in placed_col.items()}
+        for name, rep in reports.items():
+            if rep["backend"] != "MeshBackend" or not rep.get("in_xla_reductions") or rep["bytes_gathered"]:
+                raise AssertionError(f"mesh (a): {name}'s sync report {rep}")
+        p, t = batches[-1]
+        kernel, plain_out = ops.fused_stat_scores_logits(p, t), ops.fused_stat_scores_logits_plain(p, t)
+        kernel_err = max(int((a.long() - b.long()).abs().max()) for a, b in zip(kernel, plain_out))
+        if kernel_err:
+            raise AssertionError(f"mesh (a): stat_scores_logits differs from its plain version by {kernel_err}")
+
+        # ms per update, placed against unplaced, in turns (the placed update checks its inputs for DTensors)
+        update_ms = {"plain": [], "placed": []}
+        cols = {"plain": plain_col, "placed": placed_col}
+        for name in MESH_TURNS:
+            col = cols[name]
+            col.reset()
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            for p, t in batches:
+                col.update(p, t)
+            torch.cuda.synchronize()
+            update_ms[name].append((time.perf_counter() - start) * 1e3 / n)
+        print(f"mesh (a) ms per config-2 update, in turns {MESH_TURNS}: {update_ms}")
+
+        # phase 12 (a)'s per-class accuracy through shard_streams
+        counter = ops.fused_stream_stat_scores_logits
+        streams = {}
+        for name in ("plain", "placed"):
+            m = mt.MultiStreamMetric(mt.Accuracy(num_classes=N_CLASSES, device=DEVICE), num_streams=N_CLASSES,
+                                     device=DEVICE)
+            if name == "placed":
+                shard_streams(m, stream_mesh(device=DEVICE))
+            counter.launches = 0
+            for p, t in batches:
+                m.update(p, t, stream_ids=t)
+            launched = counter.launches
+            if launched != n:
+                raise AssertionError(f"mesh (a): per-class accuracy ({name}) launched the per-stream kernel {launched} times")
+            streams[name] = (m, m.compute(), launched)
+        if _hex({"v": streams["placed"][1]}) != _hex({"v": streams["plain"][1]}):
+            raise AssertionError("mesh (a): shard_streams changed the per-class accuracy")
+        stream_leaves = _check_placed("per-class accuracy", streams["placed"][0])
+        if streams["placed"][0].sync_backend is not None:
+            raise AssertionError("mesh (a): shard_streams installed a backend")
+    finally:
+        dist.destroy_process_group()
+    launches = {"logits": plain_counts["logits"] + placed_counts["logits"],
+                "canonical": plain_counts["canonical"] + placed_counts["canonical"],
+                "stream_logits": streams["plain"][2] + streams["placed"][2]}
+    print(f"mesh (a): configuration 2 on a one-rank NCCL mesh bitwise the unplaced pass, {leaves} DTensor leaves; "
+          f"per-class accuracy through shard_streams bitwise ({stream_leaves} leaves); launches {launches}")
+    return launches, {
+        "config2": {"bitwise": True, "leaves": leaves, "launches": placed_counts, "pass_s": placed_s,
+                    "in_xla_reductions": {k: r["in_xla_reductions"] for k, r in reports.items()},
+                    "bytes_gathered": sum(r["bytes_gathered"] for r in reports.values()),
+                    "update_ms": update_ms, "update_ms_mean": {k: statistics.mean(v) for k, v in update_ms.items()}},
+        "shard_streams": {"streams": N_CLASSES, "bitwise": True, "leaves": stream_leaves,
+                          "launches": streams["placed"][2]},
+        "kernel_vs_plain": {"stat_scores_logits": kernel_err},
+    }
+
+
+def _mesh_scene():
+    n_images = MESH_STEPS * MESH_ACCUM * MESH_COCO_IMAGES
+    return _coco_scene(SEED + 143, n_images, round(COCO_GTS * n_images / COCO_IMAGES))
+
+
+def _rank_mesh(mt, ops, rank: int, out: Path) -> None:
+    """(b): this rank's half of each batch into ``Accuracy`` + ``MeanAveragePrecision(on_device=True)`` (the JAX
+    package's configuration 10) and a ``StreamingQuantile`` of phase 9's errors, each placed on a mesh of the two
+    ranks, a sync every 8 updates; then configuration 2 synced through ``MeshBackend`` against ``DistBackend``."""
+    from metrics_tpu_torch.detection import device as det_device
+    from metrics_tpu_torch.ops import coco_match as cm
+    from metrics_tpu_torch.ops import kll
+
+    mesh = mt.default_mesh(device=DEVICE)
+    mine = lambda x: torch.chunk(x, SYNC_WORLD)[rank]  # noqa: E731
+    _, _, batches = _imagenet_pass()
+    scene = _mesh_scene()
+    errors = _stream_batches(_absrel_stream())[:MESH_NYU_BATCHES]
+    acc = mt.Accuracy(num_classes=N_CLASSES, device=DEVICE).shard(mesh)
+    mp = mt.MeanAveragePrecision(device=DEVICE, on_device=True).shard(mesh)
+    q = mt.StreamingQuantile(q=SKETCH_Q, capacity=SKETCH_CAPACITY, max_items=SKETCH_MAX_ITEMS, device=DEVICE).shard(mesh)
+    half = MESH_COCO_IMAGES // SYNC_WORLD
+    counters = {"logits": ops.fused_stat_scores_logits, "kll_fold": kll.kll_fold, "coco_match": cm.coco_match}
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    sync_ms = []
+    for step in range(MESH_STEPS):
+        for i in range(MESH_ACCUM):
+            b = step * MESH_ACCUM + i
+            acc.update(*(mine(x) for x in batches[b]))
+            lo = b * MESH_COCO_IMAGES + rank * half
+            mp.update(*_coco_inputs(scene, DEVICE, lo, lo + half))
+            if b < MESH_NYU_BATCHES:
+                q.update(mine(errors[b]))
+        torch.cuda.synchronize()
+        s0 = time.perf_counter()
+        for m in (acc, mp, q):
+            m.sync()
+            m.unsync()
+        torch.cuda.synchronize()
+        sync_ms.append((time.perf_counter() - s0) * 1e3)
+    loop_s = time.perf_counter() - start
+    loop_launches = {k: fn.launches for k, fn in counters.items()}
+    for fn in counters.values():
+        fn.launches = 0
+    values = {"acc": acc.compute(), "q": q.compute(), **{f"map.{k}": v for k, v in mp.compute().items()}}
+    compute_launches = {k: fn.launches for k, fn in counters.items()}
+    with q.sync_context():
+        leaves = {k: _local(v).cpu().numpy() for k, v in q.sketch_tree("sketch").items()}
+    placed = {"acc": _check_placed("acc", acc), "map": _check_placed("map", mp), "q": _check_placed("q", q)}
+    # the matcher inside the placed compute against its plain version: the same synced rows, compute again
+    kernel_map = _hex({k: v for k, v in values.items() if k.startswith("map.")})
+    det_device.coco_match = cm.coco_match_plain
+    try:
+        mp._computed = None
+        plain_map = _hex({f"map.{k}": v for k, v in mp.compute().items()})
+    finally:
+        det_device.coco_match = cm.coco_match
+    p, t = (mine(x) for x in batches[MESH_STEPS * MESH_ACCUM - 1])
+    logits_err = max(int((a.long() - b.long()).abs().max())
+                     for a, b in zip(ops.fused_stat_scores_logits(p, t), ops.fused_stat_scores_logits_plain(p, t)))
+
+    # configuration 2 synced through the mesh backend (its reduced states combined, and one collective a state)
+    # and through DistBackend, on the same states, in turns
+    cols = {"placed": _config2(mt).shard(mesh), "separate": _config2(mt).shard(mesh), "plain": _config2(mt)}
+    for m in cols["separate"].values():
+        m.sync_backend.combine_reductions = False
+    for col in cols.values():
+        for b in batches[:MESH_ACCUM]:
+            col.update(*(mine(x) for x in b))
+    sync_turns = {name: [] for name in cols}
+    sync_bytes = {}
+    for name in MESH_SYNC_TURNS:
+        col = cols[name]
+        times = []
+        for _ in range(MESH_SYNC_REPS):
+            torch.cuda.synchronize()
+            s0 = time.perf_counter()
+            for m in col.values():
+                m.sync()
+                m.unsync()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - s0) * 1e3)
+        sync_turns[name].append(statistics.median(times))
+        reps = [m.last_sync_report for m in col.values()]
+        sync_bytes[name] = {
+            "host_bytes": sum(r.get("host_bytes", 0) for r in reps),
+            "bytes_gathered": sum(r.get("bytes_gathered", 0) for r in reps),
+            "preflight_bytes": sum(r.get("preflight_bytes", 0) for r in reps),
+            "backend": reps[0]["backend"],
+        }
+    synced = {name: _hex(col.compute()) for name, col in cols.items()}
+    (out / f"rank{rank}.json").write_text(json.dumps({
+        "values": _hex(values), "kernel_map": kernel_map, "plain_map": plain_map, "logits_err": logits_err,
+        "loop_launches": loop_launches, "compute_launches": compute_launches, "placed": placed,
+        "sync_ms": sync_ms, "loop_s": loop_s, "report": {k: acc.last_sync_report.get(k) for k in
+                                                          ("backend", "world_size", "in_xla_reductions", "host_bytes",
+                                                           "bytes_gathered")},
+        "config2_sync_ms": sync_turns, "config2_bytes": sync_bytes,
+        "config2_same": synced["placed"] == synced["plain"] == synced["separate"],
+    }))
+    np.savez(out / f"rank{rank}.npz", **leaves)
+
+
+def _mesh_twins(mt) -> dict:
+    """What (b)'s synced values must be: one process's Accuracy over every row (bitwise), its mAP over every image
+    (within MAP_VALUE_TOL: the ranks' images reach the gathered lists in rank order), and the ``kll_merge`` of the two
+    ranks' own sketches in rank order, through the kernel and through its plain version (bitwise)."""
+    from metrics_tpu_torch.ops import kll
+    from metrics_tpu_torch.streaming import sketches as sk
+
+    _, _, batches = _imagenet_pass()
+    acc = mt.Accuracy(num_classes=N_CLASSES, device=DEVICE)
+    for b in batches[: MESH_STEPS * MESH_ACCUM]:
+        acc.update(*b)
+    mp = mt.MeanAveragePrecision(device=DEVICE, on_device=True)
+    mp.update(*_coco_inputs(_mesh_scene(), DEVICE))
+    errors = _stream_batches(_absrel_stream())[:MESH_NYU_BATCHES]
+    trees = []
+    for rank in range(SYNC_WORLD):
+        q = mt.StreamingQuantile(q=SKETCH_Q, capacity=SKETCH_CAPACITY, max_items=SKETCH_MAX_ITEMS, device=DEVICE)
+        for x in errors:
+            q.update(torch.chunk(x, SYNC_WORLD)[rank])
+        trees.append(q.sketch_tree("sketch"))
+    kll.kll_fold.launches = 0
+    merged = sk.kll_merge(trees)
+    merge_launches = kll.kll_fold.launches
+    saved = sk.kll_fold
+    sk.kll_fold = kll.kll_fold_plain
+    try:
+        merged_plain = sk.kll_merge(trees)
+    finally:
+        sk.kll_fold = saved
+    one_q = mt.StreamingQuantile(q=SKETCH_Q, capacity=SKETCH_CAPACITY, max_items=SKETCH_MAX_ITEMS, device=DEVICE)
+    one_q.load_state_pytree({"_update_count": 1, **{f"sketch__sk_{k}": v for k, v in merged.items()}})
+    return {"acc": _hex({"acc": acc.compute()}), "map": {k: v.cpu().numpy() for k, v in mp.compute().items()},
+            "q": _hex({"q": one_q.compute()}), "merged": {k: v.cpu().numpy() for k, v in merged.items()},
+            "merged_plain": {k: v.cpu().numpy() for k, v in merged_plain.items()}, "merge_launches": merge_launches}
+
+
+def _mesh_two_ranks(mt) -> Tuple[dict, dict]:
+    """(b): two gloo ranks on ``cuda:0``, checked against the twins.  Returns the ranks' launches and the record."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+        where = Path(tmp) / "mesh"
+        ranks = _start_ranks("mesh", where)
+        want = _mesh_twins(mt)
+        records = _wait_ranks("mesh", ranks, where)
+        leaves = [dict(np.load(where / f"rank{rank}.npz")) for rank in range(SYNC_WORLD)]
+    map_errs = []
+    for rank, (record, got) in enumerate(zip(records, leaves)):
+        if record["values"]["acc"] != want["acc"]["acc"]:
+            raise AssertionError(f"mesh (b): rank {rank}'s accuracy is not one process's")
+        if record["values"]["q"] != want["q"]["q"]:
+            raise AssertionError(f"mesh (b): rank {rank}'s quantiles are not the rank-order merge's")
+        for leaf, value in want["merged"].items():
+            plain = want["merged_plain"][leaf]
+            if got[leaf].tobytes() != value.tobytes() or plain.tobytes() != value.tobytes():
+                raise AssertionError(f"mesh (b): rank {rank}'s merged sketch leaf {leaf} differs (kernel or plain merge)")
+        if record["kernel_map"] != record["plain_map"]:
+            raise AssertionError(f"mesh (b): rank {rank}'s mAP with coco_match differs from its plain version")
+        if record["logits_err"]:
+            raise AssertionError(f"mesh (b): rank {rank}'s stat_scores_logits differs from its plain version")
+        for key, value in want["map"].items():
+            mine = np.frombuffer(bytes.fromhex(record["values"][f"map.{key}"]), value.dtype).reshape(value.shape)
+            err = float(np.nanmax(np.abs(mine.astype(np.float64) - value))) if value.size else 0.0
+            if not (np.isnan(mine) == np.isnan(value)).all() or err > MAP_VALUE_TOL:
+                raise AssertionError(f"mesh (b): rank {rank}'s {key} {mine} against one process's {value}")
+            map_errs.append(err)
+        if not record["config2_same"]:
+            raise AssertionError(f"mesh (b): rank {rank}'s configuration 2 differs between MeshBackend (combined or "
+                                 f"not) and DistBackend")
+        if record["compute_launches"]["coco_match"] < 1 or record["compute_launches"]["kll_fold"] < 1:
+            raise AssertionError(f"mesh (b): rank {rank}'s computes launched {record['compute_launches']}")
+        if record["loop_launches"]["logits"] != MESH_STEPS * MESH_ACCUM:
+            raise AssertionError(f"mesh (b): rank {rank}'s updates launched {record['loop_launches']}")
+    if records[0]["values"] != records[1]["values"]:
+        raise AssertionError("mesh (b): the ranks' synced values differ")
+    launches = {k: sum(r["loop_launches"][k] + r["compute_launches"][k] for r in records)
+                for k in records[0]["loop_launches"]}
+    sync_mean = {k: statistics.mean(v) for k, v in records[0]["config2_sync_ms"].items()}
+    print(f"mesh (b): two gloo ranks on one card bitwise one process (accuracy, the merged sketch through kernel and plain "
+          f"merges), mAP within {MAP_VALUE_TOL} (max {max(map_errs)!r}); config 2 sync ms (rank 0, in turns) "
+          f"{records[0]['config2_sync_ms']}, bytes {records[0]['config2_bytes']}; launches {launches}")
+    return launches, {
+        "ranks": SYNC_WORLD, "updates": MESH_STEPS * MESH_ACCUM, "syncs": MESH_STEPS, "images": MESH_STEPS * MESH_ACCUM * MESH_COCO_IMAGES,
+        "sketch_values": MESH_NYU_BATCHES * NYU_BATCH * NYU_H * NYU_W,
+        "map_max_abs_err": max(map_errs), "sync_ms": [r["sync_ms"] for r in records], "loop_s": [r["loop_s"] for r in records],
+        "report": records[0]["report"], "placed_leaves": records[0]["placed"],
+        "config2_sync_ms": [r["config2_sync_ms"] for r in records], "config2_sync_ms_mean": sync_mean,
+        "config2_bytes": [r["config2_bytes"] for r in records],
+        "launches": launches, "twin_merge_launches": want["merge_launches"],
+    }
+
+
+def phase_mesh(mt, ops, card: str) -> Tuple[dict, dict]:
+    """Phase 19: metric state placed on a device mesh.  (a) A one-rank mesh on ``cuda:0`` over NCCL: configuration 2
+    and phase 12 (a)'s per-class accuracy; (b) two gloo ranks on the card: the JAX package's configuration 10 and a
+    sketch, a sync every 8 updates, and configuration 2 synced through ``MeshBackend`` against ``DistBackend``.
+    Returns the phase's launches per entry point and its line."""
+    phase_start = time.perf_counter()
+    one_launches, one = _mesh_one_rank(mt, ops)
+    torch.cuda.empty_cache()
+    two_launches, two = _mesh_two_ranks(mt)
+    secs = time.perf_counter() - phase_start
+    print(f"mesh phase took {secs:.1f} s")
+    launches = {"logits": one_launches["logits"] + two_launches["logits"], "canonical": one_launches["canonical"],
+                "stream_logits": one_launches["stream_logits"], "kll_fold": two_launches["kll_fold"],
+                "coco_match": two_launches["coco_match"]}
+    return launches, {"mesh": {"card": card, "one_rank": one, "two_ranks": two, "launches": launches, "phase_s": secs}}
+
+
 def phase_timings(ops, launches: dict, max_abs_err: Tuple[int, int]) -> list:
     from metrics_tpu_torch.utils.data import select_topk, to_onehot
 
@@ -7405,24 +7781,30 @@ def main() -> int:
     serve_launches, serve_line = phase_serve(mt, card, serve_profile)
     torch.cuda.empty_cache()
     fleet_launches, fleet_line = phase_fleet(mt, card)
+    torch.cuda.empty_cache()
+    mesh_launches, mesh_line = phase_mesh(mt, ops, card)
     print(f"launches per entry point: main path {launches}, curve phase {curve_launches}, "
           f"rest of classification {rest_launches}, regression {regression_launches}, "
           f"wrappers and retrieval {wrapper_launches}, streaming {streaming_launches}, multistream {ms_launches}, "
-          f"core and obs {core_launches} and {core_counts}, serve {serve_launches}, fleet {fleet_launches}")
+          f"core and obs {core_launches} and {core_counts}, serve {serve_launches}, fleet {fleet_launches}, "
+          f"mesh {mesh_launches}")
     for entry in kernels:
         route = "canonical" if entry["name"] == "stat_scores" else "logits"
         entry["launches"] += (curve_launches[route] + rest_launches[route] + regression_launches[route]
                               + wrapper_launches[route] + streaming_launches[route] + ms_launches[route]
-                              + core_launches[route] + serve_launches[route] + fleet_launches[route])
+                              + core_launches[route] + serve_launches[route] + fleet_launches[route]
+                              + mesh_launches[route])
     kll_entry["launches"] += (ms_counts["kll_fold"] + core_counts["kll_fold"] + serve_launches["kll_fold"]
-                              + fleet_launches["kll_fold"])
+                              + fleet_launches["kll_fold"] + mesh_launches["kll_fold"])
     kernels.append(kll_entry)
     for entry in ms_entries:
         counter = entry.pop("counter")
-        entry["launches"] = ms_counts[counter] + core_counts[counter] + serve_launches[counter] + fleet_launches[counter]
+        entry["launches"] = (ms_counts[counter] + core_counts[counter] + serve_launches[counter] + fleet_launches[counter]
+                             + mesh_launches.get(counter, 0))
         if counter == "stream_canonical":
             entry["large_s"] = core_line["core_obs"]["large_s"]
     kernels.extend(ms_entries)
+    match_entry["launches"] += mesh_launches["coco_match"]
     kernels.append(match_entry)
     print(json.dumps(sync_line))
     print(json.dumps(curve_line))
@@ -7437,6 +7819,7 @@ def main() -> int:
     print(json.dumps(text_audio_line))
     print(json.dumps(serve_line))
     print(json.dumps(fleet_line))
+    print(json.dumps(mesh_line))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

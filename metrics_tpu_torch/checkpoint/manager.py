@@ -22,6 +22,13 @@ a preemption, with three guarantees:
   ``merge_state`` path cross-host sync uses, so post-restore ``compute()``
   matches the uninterrupted run.
 
+A metric placed on a device mesh (:meth:`Metric.shard`) encodes its whole
+value (a collective over its mesh, inside ``encode_metric``) into the shard
+of the mesh's first rank; every other rank's shard holds the metric's empty
+state.  So any restore folds to the whole value once: an unplaced target
+folds the shards as usual, and a placed target loads the first rank's shard
+on every rank and keeps its share of it.
+
 Multi-process coordination uses the key-value store of the default
 ``torch.distributed`` process group when one is up (snapshot barrier, commit
 broadcast, restore quorum on which step to load), under the JAX package's key
@@ -38,6 +45,7 @@ and counted under the JAX package's ``ckpt.*`` counter names.
 from __future__ import annotations
 
 import base64
+import copy
 import datetime
 import hashlib
 import itertools
@@ -46,6 +54,7 @@ import os
 import re
 import threading
 import time
+import warnings
 from contextlib import nullcontext
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple, Union
@@ -367,6 +376,13 @@ class CheckpointManager:
         for key, metric in metrics.items():
             with (lock_for(key) if lock_for is not None else nullcontext()):
                 enc = codec.encode_metric(metric)
+                if metric._placement is not None and metric._axis_rank()[0] != 0:
+                    # the first rank of the mesh holds the whole value: this shard is empty
+                    with warnings.catch_warnings():
+                        warnings.simplefilter("ignore")  # the copy's shares are reset at once
+                        empty = copy.deepcopy(metric)
+                    empty.reset()
+                    enc = codec.encode_metric(empty)
             shard_blobs[key] = enc.blob
             shard_meta["metrics"][key] = {
                 "digests": enc.digests,
@@ -709,7 +725,18 @@ class CheckpointManager:
                 continue
             restored_any = False
             primary_done = False
-            for s in my_shards:
+            shards = my_shards
+            if metric._placement is not None:
+                # a placed target folds every shard into the whole value on every rank and
+                # keeps its share of it
+                shards = list(range(ckpt_world))
+                for s in shards:
+                    if s not in shard_payloads:
+                        try:
+                            shard_payloads[s] = _unpack_state_blob(self.store.read(f"{sdir}/{_shard_name(s)}"))
+                        except FileNotFoundError:
+                            shard_payloads[s] = None
+            for s in shards:
                 payload = shard_payloads[s]
                 if payload is None:
                     continue

@@ -326,6 +326,29 @@ class MetricCollection(nn.Module):
         res = _flatten_dict({k: m.compute() for k, m in self._modules.items()})
         return {self._to_key(k): v for k, v in res.items()}
 
+    def shard(self, mesh: Optional[Any] = None, axis_name: str = "batch", install_backend: bool = True) -> "MetricCollection":
+        """Place every member's states on a device mesh (see :meth:`Metric.shard`).
+
+        Placement runs per member, so each records its own placement and places
+        again after a reset or a restore; compute-group members are then pointed
+        at their placed leader's leaves again, so state sharing survives the
+        move.  With ``install_backend`` every member syncs through its own
+        :class:`~metrics_tpu_torch.parallel.MeshBackend` over ``axis_name``.
+        ``mesh`` defaults to one :func:`~metrics_tpu_torch.parallel.default_mesh`
+        on the collection's device type, shared by every member.
+        """
+        from metrics_tpu_torch.parallel.mesh import default_mesh
+
+        mesh = mesh if mesh is not None else default_mesh(axis_name=axis_name, device=self.device.type)
+        for m in self._modules.values():
+            m.shard(mesh, axis_name=axis_name, install_backend=install_backend)
+        if self._groups_checked:
+            self._share_group_states()
+        return self
+
+    #: the placement verb of the JAX package, for the same seam
+    place = shard
+
     def set_dtype(self, dst_type: torch.dtype) -> "MetricCollection":
         """:meth:`Metric.set_dtype` on every member; compute groups share the
         cast states again."""

@@ -35,6 +35,13 @@ one (``m.errors``) passes through ``__getattr__`` and flushes first, as every
 other read surface does (``state``, ``forward``, ``compute``, ``sync``,
 ``merge_state``, ``state_dict``, pickling).
 
+:meth:`Metric.shard` places the states on a
+:class:`~torch.distributed.device_mesh.DeviceMesh`: they stay each rank's
+plain tensors, sync through the mesh's own collectives
+(:class:`~metrics_tpu_torch.parallel.mesh.MeshBackend`), and :attr:`Metric.state`
+shows them as the :class:`~torch.distributed.tensor.DTensor` leaves the
+placement describes.  See :mod:`metrics_tpu_torch.parallel.mesh`.
+
 Metrics compose with Python's operators (``(f1 + acc) / 2``, ``-prec``,
 ``acc[7]``): each builds a :class:`CompositionalMetric` that updates its
 operands and applies the operator to their computed values.
@@ -47,6 +54,7 @@ import numbers
 import os
 import struct
 import time
+import warnings
 from abc import ABC, abstractmethod
 from collections import OrderedDict, deque
 from contextlib import contextmanager
@@ -60,9 +68,12 @@ from torch.nn.modules.module import _IncompatibleKeys
 from metrics_tpu_torch.obs import core as _obs
 from metrics_tpu_torch.parallel.backend import (
     AsyncSyncHandle,
+    AxisBackend,
     Backend,
     SyncOptions,
+    _dtensor_type,
     get_backend,
+    local_value,
     reduce_stack,
     reduce_synced_state,
     submit_async_round,
@@ -316,6 +327,41 @@ def _unpickled(value: Any) -> Any:
     return value
 
 
+#: how a reduced state's contributions combine, by DTensor's ``Partial`` names
+_PARTIAL_OPS = {"sum": "sum", "mean": "avg", "max": "max", "min": "min"}
+
+
+def _local_batch(args: tuple, kwargs: dict) -> Tuple[tuple, dict]:
+    """An update's DTensor inputs as their local shards.
+
+    A DTensor batch must be split along its rows (``Shard(0)``): each rank
+    counts its own shard.  A replicated batch would be counted once per rank,
+    and a partial one has no rows of its own: both raise.
+    """
+    cls = _dtensor_type()
+    if cls is None:
+        return args, kwargs
+
+    def local(x: Any) -> Any:
+        if not isinstance(x, cls):
+            return x
+        if not any(p.is_shard(0) for p in x.placements) or any(p.is_partial() for p in x.placements):
+            raise MetricsTPUUserError(
+                f"a DTensor batch must be split along its rows (Shard(0)) over the mesh axis, got "
+                f"placements {tuple(x.placements)}: a replicated batch would be counted once per rank"
+            )
+        return x.to_local()
+
+    return tuple(local(a) for a in args), {k: local(v) for k, v in kwargs.items()}
+
+
+def _chunk_rows(rows: torch.Tensor, world: int, me: int) -> torch.Tensor:
+    """Rank ``me``'s piece of ``rows`` as ``torch.chunk`` splits them over ``world`` ranks
+    (the layout a DTensor ``Shard(0)`` assumes); past the last chunk, no rows."""
+    pieces = torch.chunk(rows, world) if rows.shape[0] else ()
+    return pieces[me].clone() if me < len(pieces) else rows[:0].clone()
+
+
 #: the side stream each device's background sync rounds run on
 _WORKER_STREAMS: Dict[torch.device, Any] = {}
 
@@ -371,6 +417,10 @@ class Metric(nn.Module, ABC):
             replacing the built-in gather.
         process_group: the ``torch.distributed`` group to sync over (the
             default group when ``None``).
+        axis_name: a mesh axis to sync over as one SPMD program
+            (:class:`~metrics_tpu_torch.parallel.AxisBackend` over the default
+            group); the ambient :class:`~metrics_tpu_torch.parallel.axis_context`
+            does the same.
         sync_backend: an explicit :class:`~metrics_tpu_torch.parallel.Backend`
             overriding the choice from ``process_group`` (the hook
             :class:`~metrics_tpu_torch.parallel.ChaosBackend` uses).
@@ -448,6 +498,7 @@ class Metric(nn.Module, ABC):
         self.dist_sync_on_step = kwargs.pop("dist_sync_on_step", False)
         self.dist_sync_fn = kwargs.pop("dist_sync_fn", None)
         self.process_group = kwargs.pop("process_group", None)
+        self.axis_name = kwargs.pop("axis_name", None)
         self.sync_backend = kwargs.pop("sync_backend", None)
         self.sync_timeout = kwargs.pop("sync_timeout", None)
         self.sync_max_retries = kwargs.pop("sync_max_retries", None)
@@ -483,6 +534,10 @@ class Metric(nn.Module, ABC):
         self._buffer_states: Dict[str, Dict[str, Any]] = {}
         # fixed-shape mergeable sketch states: name -> {"merge": fn([tree, ...]) -> tree, "leaves": [leaf, ...]}
         self._sketch_states: Dict[str, Dict[str, Any]] = {}
+        # per-state PartitionSpec overrides (add_state(spec=...)) and, once
+        # shard() ran, (mesh, axis_name)
+        self._specs: Dict[str, Any] = {}
+        self._placement: Optional[Tuple[Any, str]] = None
         self._update_count = 0
         self._computed: Any = None
         self._is_synced = False
@@ -513,6 +568,7 @@ class Metric(nn.Module, ABC):
         dist_reduce_fx: Optional[Union[str, Callable]] = None,
         persistent: bool = False,
         widen_ndim: Optional[int] = 0,
+        spec: Optional[Any] = None,
     ) -> None:
         """Register a streaming state.
 
@@ -526,12 +582,31 @@ class Metric(nn.Module, ABC):
         may take, ``None`` for any.  Such a state loads (:func:`load_jax_state`)
         as a scalar or with any shape of that many dimensions or fewer; every
         other tensor state keeps its default's shape.
+
+        ``spec`` is an optional
+        :class:`~metrics_tpu_torch.parallel.mesh.PartitionSpec` read by
+        :meth:`shard`: where this state lives on the device mesh.  Reduced
+        states (``sum``/``mean``/``max``/``min``) hold a complete value after
+        every sync, so a sharded spec on one is a contract error; row states
+        (``cat``/list/buffer rows) default to row sharding (``P('batch')``).
         """
         if isinstance(dist_reduce_fx, str):
             if dist_reduce_fx not in _ALLOWED_REDUCE:
                 raise ValueError(f"`dist_reduce_fx` must be one of {_ALLOWED_REDUCE}, callable or None")
         elif dist_reduce_fx is not None and not callable(dist_reduce_fx):
             raise ValueError("`dist_reduce_fx` must be a str, callable or None")
+        if spec is not None:
+            from metrics_tpu_torch.parallel.mesh import PartitionSpec
+
+            if not isinstance(spec, PartitionSpec):
+                raise ValueError(
+                    f"`spec` must be a metrics_tpu_torch.parallel.PartitionSpec, got {type(spec).__name__}"
+                )
+            if any(ax is not None for ax in spec) and dist_reduce_fx in ("sum", "mean", "max", "min"):
+                raise ValueError(
+                    f"state {name!r}: a sharded spec={spec} contradicts dist_reduce_fx={dist_reduce_fx!r} — "
+                    "reduced states hold the full value on every rank after a sync and must replicate (P())"
+                )
         if isinstance(default, list):
             if default:
                 raise ValueError("list states must default to the empty list")
@@ -547,6 +622,7 @@ class Metric(nn.Module, ABC):
         self._reduce_fns[name] = dist_reduce_fx
         self._persistent[name] = persistent
         self._widen_ndim[name] = widen_ndim
+        self._specs[name] = spec
         setattr(self, name, [] if isinstance(default, list) else default.clone())
 
     def _holds_shape(self, name: str, shape: Tuple[int, ...]) -> bool:
@@ -794,9 +870,13 @@ class Metric(nn.Module, ABC):
     @property
     def state(self) -> Dict[str, Any]:
         """The raw states, ``{name: value}``: tensors, lists of tensors and the
-        Python-int row counts of buffer states (a fresh dict of the live values)."""
+        Python-int row counts of buffer states (a fresh dict of the live values;
+        a placed metric's leaves as DTensors where a placement describes them,
+        :meth:`_placed_view`)."""
         self._flush_host_buffers()
-        return {name: getattr(self, name) for name in self._defaults}
+        if self._placement is None:
+            return {name: getattr(self, name) for name in self._defaults}
+        return {name: self._placed_view(name, getattr(self, name)) for name in self._defaults}
 
     # ------------------------------------------------------- host-side buffers
     def _host_accumulate(self, **increments: Any) -> None:
@@ -942,7 +1022,7 @@ class Metric(nn.Module, ABC):
         metas = {bname: dict(meta) for bname, meta in self._buffer_states.items()}
         swapped = self._state_swapped
         try:
-            self._restore_state({**self.init_state(), **state})
+            self._restore_state({**self.init_state(), **{k: local_value(v) for k, v in state.items()}})
             for meta in self._buffer_states.values():
                 meta["owned"] = None  # an append copies the given buffer, never writes into it
             self._state_swapped = True
@@ -963,19 +1043,18 @@ class Metric(nn.Module, ABC):
         return new_state
 
     def apply_compute(self, state: Dict[str, Any], axis_name: Optional[str] = None) -> Any:
-        """Pure compute: ``state -> value``, without a sync.
+        """Pure compute: ``state -> value``; syncs over ``axis_name`` if given.
 
-        The JAX package syncs over a mesh axis when ``axis_name`` is given
-        (``AxisBackend``); PyTorch has no such axis.  Sync across processes
-        with ``torch.distributed`` instead: a metric's ``compute()`` syncs its
-        states over the process group (``DistBackend``).
+        With ``axis_name`` every rank of the axis passes its own state (what
+        :meth:`apply_update` made of its rows) and gets the all-rank value: the
+        states go through an :class:`~metrics_tpu_torch.parallel.AxisBackend`
+        over that axis (of the mesh this metric is placed on, else the default
+        process group), the SPMD route of the JAX package's ``shard_map``.
         """
         if axis_name is not None:
-            raise NotImplementedError(
-                "apply_compute(axis_name=...) syncs over a JAX mesh axis, which PyTorch lacks; "
-                "sync across processes with torch.distributed (DDP): compute() syncs over the "
-                "process group through DistBackend"
-            )
+            mesh = self._placement[0] if self._placement is not None and self._placement[1] == axis_name else None
+            local = {k: local_value(v) for k, v in state.items()}
+            state = self._sync_state_pure(local, AxisBackend(axis_name, mesh))
         value, _ = self._run_with_state(state, self._compute_impl, (), {})
         return value
 
@@ -1017,6 +1096,8 @@ class Metric(nn.Module, ABC):
             raise MetricsTPUUserError(
                 "The Metric has already been synced; re-syncing or updating while synced is forbidden."
             )
+        if self._placement is not None:
+            args, kwargs = _local_batch(args, kwargs)
         self._check_input_devices(args, kwargs)
         self._pre_update(*args, **kwargs)
         self._computed = None
@@ -1192,11 +1273,19 @@ class Metric(nn.Module, ABC):
         and the update count grows by them; without it ``mean`` states average
         equally.  Buffer, list and ``cat`` states concatenate in order; sketch
         states fold through their ``merge_fn``.
+
+        On a placed metric (:meth:`shard`) the other states are whole values
+        (what :meth:`state_pytree` of any twin returns), each folded in as this
+        rank's share of it (:meth:`_contribution_of`); ``Partial`` DTensor
+        leaves (another placed metric's ``state``) are already shares.  The
+        merged leaves keep the metric's placement (``sync.resharded_states``).
         """
         self._flush_host_buffers()
         others = [dict(other_state)] if isinstance(other_state, dict) else [dict(s) for s in other_state]
         for other in others:
             other.pop("_update_count", None)
+        if self._placement is not None:
+            others = [self._contribution_of(other) for other in others]
         if other_count is None:
             counts: Optional[List[float]] = None
         elif isinstance(other_count, (list, tuple)):
@@ -1266,6 +1355,7 @@ class Metric(nn.Module, ABC):
             self._update_count += int(sum(counts))
         self._computed = None
         self._delta_cache.clear()  # merged-in rows were never part of a gathered prefix
+        self._reshard_after_restore()
 
     # ------------------------------------------------------------------- sync
     def _sync_options(self) -> SyncOptions:
@@ -1349,13 +1439,30 @@ class Metric(nn.Module, ABC):
         delta_plan: Optional[Dict[str, tuple]] = None,
     ) -> Dict[str, Any]:
         """The synced states: one packed gather where the backend can, else
-        one collective (or a sizes and a rows gather) per state, in state order."""
+        one collective (or a sizes and a rows gather) per state, in state order.
+
+        A backend that combines reductions (:class:`AxisBackend`,
+        ``MeshBackend``: ``combine_reductions``) first reduces the reduced
+        tensor states of one reduce, dtype and device in one collective each.
+        Under such an SPMD backend a rank whose list state is still empty
+        reaches that state's gather too: the backend's descriptor frame gives
+        it the other ranks' row layout."""
         state = dict(state)
         delta_plan = delta_plan or {}
+        spmd = not getattr(backend, "eager", True)
         if getattr(backend, "supports_packed", False):
             return self._sync_state_packed(state, backend, delta_plan)
         out: Dict[str, Any] = {}
         try:
+            if getattr(backend, "combine_reductions", False):
+                combined: Dict[Tuple[str, torch.dtype, torch.device], List[str]] = {}
+                for name, value in state.items():
+                    fx = self._reduce_fns[name]
+                    if fx in _PARTIAL_OPS and isinstance(value, torch.Tensor) and name not in delta_plan:
+                        combined.setdefault((fx, value.dtype, value.device), []).append(name)
+                for (fx, _, _), names in combined.items():
+                    with backend.annotate(names[0] if len(names) == 1 else f"{len(names)} {fx} states"):
+                        out.update(zip(names, backend.reduce_many([state.pop(name) for name in names], fx)))
             for bname in self._buffer_states:
                 bkey, lkey = bname + "__buf", bname + "__len"
                 buf, cnt = state.pop(bkey), state.pop(lkey)
@@ -1374,7 +1481,8 @@ class Metric(nn.Module, ABC):
                 with backend.annotate(name):
                     if isinstance(value, list):
                         if not value:
-                            out[name] = value
+                            gathered = backend.all_gather_cat(None, device=self._list_device) if spmd else None
+                            out[name] = value if gathered is None else gathered
                             continue
                         value = torch.atleast_1d(dim_zero_cat(value))
                     elif name not in delta_plan:
@@ -1660,6 +1768,11 @@ class Metric(nn.Module, ABC):
         :meth:`_sync_options`; a ``SyncError`` is handled per
         ``on_sync_error`` (``"local"``/``"skip"`` keep the local state so
         compute stays live).  Each attempt records ``last_sync_report``.
+
+        An SPMD backend (:class:`~metrics_tpu_torch.parallel.AxisBackend`, the
+        ``MeshBackend`` that :meth:`shard` installs) skips the preflight, the
+        integrity checks and the delta protocol, as the JAX package's in-trace
+        tier does.
         """
         if self._is_synced:
             raise MetricsTPUUserError("The Metric has already been synced.")
@@ -1673,7 +1786,7 @@ class Metric(nn.Module, ABC):
         if backend is None:
             backend = self.sync_backend
         if backend is None:
-            backend = get_backend(self.process_group, self._sync_options())
+            backend = get_backend(self.process_group, self._sync_options(), axis_name=self.axis_name)
         elif hasattr(backend, "options") and (
             self.sync_timeout is not None or self.sync_max_retries is not None or self.sync_backoff is not None
         ):
@@ -1699,17 +1812,20 @@ class Metric(nn.Module, ABC):
             delta_plan = None
             delta_ok = False
             custom_fn = dist_sync_fn or self.dist_sync_fn
-            backend_delta = getattr(backend, "supports_delta", False) and custom_fn is None
+            eager = getattr(backend, "eager", True)
+            backend_delta = eager and getattr(backend, "supports_delta", False) and custom_fn is None
             try:
-                if self.validate_sync:
-                    self._validate_state_integrity(self._copy_state(), "pre-sync")
-                preflight_kwargs: Dict[str, Any] = {}
-                if backend_delta:
-                    delta_plan = self._build_delta_plan()
-                    preflight_kwargs["delta_token"] = (
-                        self._delta_cache.token(list(delta_plan)) if delta_plan else None
-                    )
-                info = backend.preflight_check(self._schema_entries(), self._update_count, **preflight_kwargs)
+                info = None
+                if eager:
+                    if self.validate_sync:
+                        self._validate_state_integrity(self._copy_state(), "pre-sync")
+                    preflight_kwargs: Dict[str, Any] = {}
+                    if backend_delta:
+                        delta_plan = self._build_delta_plan()
+                        preflight_kwargs["delta_token"] = (
+                            self._delta_cache.token(list(delta_plan)) if delta_plan else None
+                        )
+                    info = backend.preflight_check(self._schema_entries(), self._update_count, **preflight_kwargs)
                 if info:
                     report.update(info)
                 # delta only when EVERY rank voted a matching token
@@ -1718,7 +1834,7 @@ class Metric(nn.Module, ABC):
                     new_state = custom_fn(self._copy_state(), dict(self._reduce_fns), backend)
                 else:
                     new_state = self._sync_state_pure(self._copy_state(), backend, delta_plan if delta_ok else None)
-                if self.validate_sync:
+                if eager and self.validate_sync:
                     self._validate_state_integrity(new_state, "post-sync", reference=self._cache)
                 self._restore_state(new_state)
                 self._is_synced = True
@@ -1815,7 +1931,7 @@ class Metric(nn.Module, ABC):
         if backend is None:
             backend = self.sync_backend
         if backend is None:
-            backend = get_backend(self.process_group, self._sync_options())
+            backend = get_backend(self.process_group, self._sync_options(), axis_name=self.axis_name)
         if (
             not getattr(backend, "supports_packed", False)
             or not getattr(backend, "supports_delta", False)
@@ -1945,7 +2061,8 @@ class Metric(nn.Module, ABC):
 
     # ------------------------------------------------------------------ reset
     def reset(self) -> None:
-        """Reset state to fresh copies of the defaults."""
+        """Reset state to fresh copies of the defaults (a placed metric stays
+        placed)."""
         self.__dict__["_host_scalar_acc"] = {}  # pending host sums belong to the cleared epoch
         self.__dict__.pop("_leader_pending", None)
         self._release_states()
@@ -1985,8 +2102,14 @@ class Metric(nn.Module, ABC):
         """Move every state (and the defaults a reset restores) to ``device``,
         which becomes the metric's device; buffer-state row counts stay host
         ints.  The delta cache is cleared (its prefixes lived on the old
-        device), so the next sync is a full gather."""
+        device), so the next sync is a full gather.  A placed metric stays on
+        its mesh's device type."""
         device = _resolve_device(device)
+        if self._placement is not None and device.type != self._placement[0].device_type:
+            raise MetricsTPUUserError(
+                f"{type(self).__name__} is placed on a {self._placement[0].device_type} mesh and cannot move "
+                f"to {device}"
+            )
 
         def move(value: Any) -> Any:
             if isinstance(value, list):
@@ -2005,11 +2128,202 @@ class Metric(nn.Module, ABC):
         self._delta_cache.clear()
         return self
 
+    # ------------------------------------------------------- mesh placement
+    def _state_spec(self, name: str, axis_name: str) -> Optional[Any]:
+        """The effective ``PartitionSpec`` of one flat state key.
+
+        Explicit ``add_state(spec=...)`` wins; otherwise the kind decides, as in
+        the JAX package: row states (``cat``/list tensors, buffer rows) shard
+        their leading axis (``P(axis)``), everything reduced or fixed-shape
+        (sketch leaves, buffer counts) replicates (``None``).  A tensor state
+        reduced by ``None`` is gathered as rows by the port's sync, so it is a
+        row state here.
+        """
+        from metrics_tpu_torch.parallel.mesh import PartitionSpec
+
+        explicit = self._specs.get(name)
+        if explicit is not None:
+            return explicit
+        if name.endswith("__len") or name in self._sketch_leaf_key_set():
+            return None
+        if name.endswith("__buf") or self._reduce_fns.get(name) in ("cat", None):
+            return PartitionSpec(axis_name)
+        return None
+
+    def _placed_view(self, name: str, value: Any) -> Any:
+        """One state leaf of a placed metric as its placement describes it.
+
+        Between syncs a reduced state is ``Partial`` over the axis (this rank's
+        own sums, which a sync reduces).  A synced leaf holds the whole value on
+        every rank, laid out by
+        :func:`~metrics_tpu_torch.parallel.leaf_sharding` of its spec: rows
+        ``Shard(0)`` where they split evenly over the axis, else
+        ``Replicate()``.  Every other leaf stays plain: rows between syncs (each
+        rank's own; a ``Shard(0)`` DTensor assumes ``torch.chunk``'s split,
+        which the ranks' row counts do not keep, and DTensor's collectives on
+        such a layout break a gloo group), sketch leaves and custom-reduced
+        states (no placement says how their merge folds them), lists and
+        buffer counts.
+        """
+        fx = self._reduce_fns.get(name)
+        if not isinstance(value, torch.Tensor) or callable(fx) or name in self._sketch_leaf_key_set():
+            return value
+        from torch.distributed.tensor import DTensor, Partial
+
+        from metrics_tpu_torch.parallel.mesh import _axis_dim, _local_piece, leaf_sharding, replicated
+
+        mesh, axis_name = self._placement
+        if self._is_synced and self._last_synced_state is not None:
+            placements = leaf_sharding(mesh, value, self._state_spec(name, axis_name), axis_name)
+            return DTensor.from_local(_local_piece(mesh, value, placements), mesh, placements, run_check=False)
+        if fx not in _PARTIAL_OPS:
+            return value
+        dim = _axis_dim(mesh, axis_name)
+        placements = tuple(Partial(_PARTIAL_OPS[fx]) if j == dim else p for j, p in enumerate(replicated(mesh)))
+        return DTensor.from_local(value, mesh, placements, run_check=False)
+
+    def _placed_leaf_count(self) -> int:
+        """The state leaves a placement lays out: reduced and row states (not
+        sketch leaves, custom-reduced states or buffer row counts)."""
+        sketch = self._sketch_leaf_key_set()
+        return sum(
+            1
+            for name, default in self._defaults.items()
+            if name not in sketch and not isinstance(default, int) and not callable(self._reduce_fns.get(name))
+        )
+
+    def _axis_rank(self) -> Tuple[int, int]:
+        """``(this rank's coordinate, size)`` along the placement's axis."""
+        from metrics_tpu_torch.parallel.mesh import _axis_dim
+
+        mesh, axis_name = self._placement
+        dim = _axis_dim(mesh, axis_name)
+        return int(mesh.get_local_rank(dim)), int(mesh.size(dim))
+
+    def _contribution_of(self, states: Dict[str, Any]) -> Dict[str, Any]:
+        """This rank's share of whole state values (what a load or a merge into a
+        placed metric installs), such that a sync of every rank's share gives
+        the whole value back: a ``sum`` state on the axis's first rank only
+        (zeros elsewhere), a ``mean``/``max``/``min`` state on every rank, rows
+        split as ``torch.chunk`` splits them, a sketch or a custom-reduced state
+        on the first rank only (the default elsewhere).  A ``Partial`` DTensor
+        (another placed metric's ``state`` between syncs) is a share already
+        and gives its local tensor; any other DTensor gives its whole value.
+        """
+        me, world = self._axis_rank()
+        cls = _dtensor_type()
+        states = dict(states)
+        out: Dict[str, Any] = {}
+        for name, value in list(states.items()):
+            if cls is not None and isinstance(value, cls):
+                if any(p.is_partial() for p in value.placements):
+                    out[name] = value.to_local()
+                else:
+                    states[name] = value.full_tensor()
+        sketch_keys = self._sketch_leaf_key_set()
+        for bname in self._buffer_states:
+            bkey, lkey = bname + "__buf", bname + "__len"
+            if bkey not in states:
+                continue
+            rows = self._extract_buffer_values(_to_state_tensor(states[bkey], self.device), int(states[lkey]), bname)
+            piece = _chunk_rows(rows, world, me)
+            out[bkey], out[lkey] = piece, int(piece.shape[0])
+        for name, value in states.items():
+            if name in out:
+                continue
+            fx = self._reduce_fns.get(name)
+            if world == 1 or fx in ("mean", "max", "min"):
+                out[name] = value
+            elif name in sketch_keys or callable(fx):
+                out[name] = value if me == 0 else self._defaults[name].clone()
+            elif fx == "sum":
+                out[name] = value if me == 0 else torch.zeros_like(_to_state_tensor(value, self.device))
+            elif isinstance(value, list):
+                rows = [_to_state_tensor(v, self._list_device) for v in value]
+                piece = _chunk_rows(torch.atleast_1d(dim_zero_cat(rows)), world, me) if rows else None
+                out[name] = [piece] if piece is not None and piece.shape[0] else []
+            elif isinstance(self._defaults.get(name), list):
+                piece = _chunk_rows(torch.atleast_1d(_to_state_tensor(value, self._list_device)), world, me)
+                out[name] = [piece] if piece.shape[0] else []
+            else:
+                out[name] = _chunk_rows(torch.atleast_1d(_to_state_tensor(value, self.device)), world, me)
+        return out
+
+    def _mesh_backend(self) -> Backend:
+        """A mesh backend of the placement's own, for collectives outside a sync
+        (whole-value reads): its telemetry never reaches a sync report."""
+        from metrics_tpu_torch.parallel.mesh import MeshBackend
+
+        mesh, axis_name = self._placement
+        return MeshBackend(mesh, axis_name, options=self._sync_options())
+
+    @contextmanager
+    def _global_view(self) -> Iterator[None]:
+        """Inside the block a placed metric holds its whole values (one sync's
+        collectives over its mesh, reported nowhere); its own shares come back
+        after.  An unplaced or synced metric holds its values as they are."""
+        if self._placement is None or self._is_synced:
+            yield
+            return
+        self._flush_host_buffers()
+        local = self._copy_state()
+        self._restore_state(self._sync_state_pure(local, self._mesh_backend()))
+        try:
+            yield
+        finally:
+            self._restore_state(local)
+
+    def shard(self, mesh: Optional[Any] = None, axis_name: str = "batch", install_backend: bool = True) -> "Metric":
+        """Place the metric's state on a device mesh.
+
+        Each rank keeps updating and computing on its own plain tensors; the
+        placement says how they make up the metric's value, and :attr:`state`
+        shows it as DTensors (:meth:`_placed_view`): reduced states
+        ``Partial`` between syncs, synced values laid out by their spec.
+        Unless ``install_backend=False``, later syncs run through
+        :class:`~metrics_tpu_torch.parallel.mesh.MeshBackend`: the mesh's own
+        collectives, no preflight or packing.  ``mesh`` defaults to
+        :func:`~metrics_tpu_torch.parallel.default_mesh` on the metric's device
+        type.  Host-side sums are flushed first.
+
+        Placement survives :meth:`reset`, restores and merges (which install
+        this rank's share of the whole values they are given,
+        ``sync.resharded_states``); it does not survive pickling: shard a
+        deserialized metric again.  Counted as ``sync.mesh_placements`` (the
+        leaves placed, :meth:`_placed_leaf_count`).
+        """
+        from metrics_tpu_torch.parallel.mesh import MeshBackend, _axis_dim, default_mesh
+
+        mesh = mesh if mesh is not None else default_mesh(axis_name=axis_name, device=self.device.type)
+        _axis_dim(mesh, axis_name)
+        if mesh.device_type != self.device.type:
+            raise ValueError(
+                f"{type(self).__name__} keeps its state on {self.device}; a {mesh.device_type} mesh cannot hold it"
+            )
+        self._flush_host_buffers()
+        self._placement = (mesh, axis_name)
+        if install_backend:
+            self.sync_backend = MeshBackend(mesh, axis_name=axis_name, options=self._sync_options())
+        _obs.counter_inc("sync.mesh_placements", self._placed_leaf_count(), metric=type(self).__name__)
+        return self
+
+    #: the placement verb of the JAX package, for the same seam
+    place = shard
+
+    def _reshard_after_restore(self) -> None:
+        """Count the leaves a restore or a merge installed into a placed metric
+        (this rank's shares, which its placement describes) as
+        ``sync.resharded_states``."""
+        if self._placement is None:
+            return
+        _obs.counter_inc("sync.resharded_states", self._placed_leaf_count(), metric=type(self).__name__)
+
     def set_dtype(self, dst_type: torch.dtype) -> "Metric":
         """Cast the floating states to ``dst_type``; integer states and buffer
         row counts keep theirs.  As in the JAX package without 64-bit types,
         ``float64`` narrows to ``float32``.  The delta cache is cleared (its
-        prefixes keep the old dtype).  A reset restores the defaults' dtypes."""
+        prefixes keep the old dtype).  A reset restores the defaults' dtypes.
+        A placed metric casts each rank's local values and keeps its placement."""
         dst_type = _x32_dtype(dst_type)
         self._delta_cache.clear()
 
@@ -2046,18 +2360,20 @@ class Metric(nn.Module, ABC):
             self._persistent[name] = mode
 
     def _save_to_state_dict(self, destination: Dict[str, Any], prefix: str, keep_vars: bool) -> None:
-        """Add the persistent states to ``state_dict()``."""
-        self._flush_host_buffers()
-        super()._save_to_state_dict(destination, prefix, keep_vars)
-        trimmed = self._trimmed_buffers()
-        for name in self._defaults:
-            if not self._persistent[name]:
-                continue
-            value = trimmed.get(name, getattr(self, name))
-            if isinstance(value, list):
-                destination[prefix + name] = [v if keep_vars else v.detach().clone() for v in value]
-            else:
-                destination[prefix + name] = value if keep_vars else value.detach().clone()
+        """Add the persistent states to ``state_dict()`` (a placed metric's whole
+        values: a collective over its mesh, which every rank reaches)."""
+        with self._global_view():
+            self._flush_host_buffers()
+            super()._save_to_state_dict(destination, prefix, keep_vars)
+            trimmed = self._trimmed_buffers()
+            for name in self._defaults:
+                if not self._persistent[name]:
+                    continue
+                value = trimmed.get(name, getattr(self, name))
+                if isinstance(value, list):
+                    destination[prefix + name] = [v if keep_vars else v.detach().clone() for v in value]
+                else:
+                    destination[prefix + name] = value if keep_vars else value.detach().clone()
 
     def _load_from_state_dict(
         self,
@@ -2069,9 +2385,12 @@ class Metric(nn.Module, ABC):
         unexpected_keys: List[str],
         error_msgs: List[str],
     ) -> None:
-        """Load states from ``load_state_dict``: tensors or numpy arrays, dtypes kept."""
+        """Load states from ``load_state_dict``: tensors or numpy arrays, dtypes
+        kept (a placed metric takes whole values and keeps its share of each)."""
         self._computed = None  # a cached compute() predates the loaded state
-        self._load_states({name: state_dict.pop(prefix + name) for name in self._defaults if prefix + name in state_dict})
+        loaded = {name: state_dict.pop(prefix + name) for name in self._defaults if prefix + name in state_dict}
+        self._load_states(self._contribution_of(loaded) if self._placement is not None else loaded)
+        self._reshard_after_restore()
         super()._load_from_state_dict(
             state_dict, prefix, local_metadata, strict, missing_keys, unexpected_keys, error_msgs
         )
@@ -2110,13 +2429,16 @@ class Metric(nn.Module, ABC):
 
     def state_pytree(self) -> Dict[str, Any]:
         """The full state as a flat dict: ``_update_count`` and every state,
-        list states concatenated, buffer states trimmed to their valid rows."""
-        self._flush_host_buffers()
-        out: Dict[str, Any] = {"_update_count": self._update_count}
-        for name in self._defaults:
-            value = getattr(self, name)
-            out[name] = dim_zero_cat(value) if isinstance(value, list) and value else value
-        out.update(self._trimmed_buffers())
+        list states concatenated, buffer states trimmed to their valid rows.
+        A placed metric gives its whole values as plain tensors (a collective
+        over its mesh, which every rank reaches): those of an unplaced twin."""
+        with self._global_view():
+            self._flush_host_buffers()
+            out: Dict[str, Any] = {"_update_count": self._update_count}
+            for name in self._defaults:
+                value = getattr(self, name)
+                out[name] = dim_zero_cat(value) if isinstance(value, list) and value else value
+            out.update(self._trimmed_buffers())
         return out
 
     def _load_states(self, states: Dict[str, Any]) -> None:
@@ -2138,12 +2460,15 @@ class Metric(nn.Module, ABC):
                 self._refresh_buffer_meta(bname)
 
     def load_state_pytree(self, tree: Dict[str, Any]) -> None:
-        """Load what :meth:`state_pytree` returns (tensors or numpy arrays) onto this metric's device."""
+        """Load what :meth:`state_pytree` returns (tensors or numpy arrays) onto
+        this metric's device.  A placed metric keeps its share of each whole
+        value and places it again (``sync.resharded_states``)."""
         tree = dict(tree)
         self._delta_cache.clear()  # loaded rows were never part of a gathered prefix
         self._computed = None  # a cached compute() predates the loaded state
         self._update_count = int(tree.pop("_update_count", 0))
-        self._load_states(tree)
+        self._load_states(self._contribution_of(tree) if self._placement is not None else tree)
+        self._reshard_after_restore()
 
     # -------------------------------------------------------------- pickling
     def __getstate__(self) -> Dict[str, Any]:
@@ -2157,10 +2482,28 @@ class Metric(nn.Module, ABC):
         # a restored metric re-verifies from one full gather
         d["_delta_cache"] = None
         d["_last_synced_state"] = None
+        # a mesh holds live process groups: neither the placement nor a mesh
+        # backend crosses pickling.  The leaves go as this rank's shares, as an
+        # unplaced metric's go as its rank's own state (the JAX package's global
+        # arrays pickle whole): shard() a deserialized metric again, or sync it
+        if self._placement is not None and self._axis_rank()[1] > 1:
+            d["_pickled_share"] = self._axis_rank()
+        d["_placement"] = None
+        if getattr(d.get("sync_backend"), "mesh", None) is not None:
+            d["sync_backend"] = None
         return d
 
     def __setstate__(self, d: Dict[str, Any]) -> None:
+        share = d.pop("_pickled_share", None)
         super().__setstate__({key: _unpickled(value) for key, value in d.items()})
+        for key, value in (("_specs", {}), ("_placement", None), ("axis_name", None)):
+            self.__dict__.setdefault(key, value)
+        if share is not None:
+            warnings.warn(
+                f"this {type(self).__name__} holds rank {share[0]}'s share of a metric placed over {share[1]} ranks: "
+                "compute() gives the all-rank value only after shard() on that mesh or a sync over those ranks",
+                UserWarning,
+            )
         self._delta_cache = _DeltaCache()
         self._install_wrappers()
 

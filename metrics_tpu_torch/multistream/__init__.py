@@ -8,6 +8,19 @@ See ``docs/multistream.md``.
 """
 
 from metrics_tpu_torch.multistream.core import MultiStreamMetric
-from metrics_tpu_torch.multistream.sharding import shard_spans
+from metrics_tpu_torch.multistream.sharding import (
+    replicate_sharding,
+    shard_spans,
+    shard_streams,
+    stream_mesh,
+    stream_sharding,
+)
 
-__all__ = ["MultiStreamMetric", "shard_spans"]
+__all__ = [
+    "MultiStreamMetric",
+    "shard_spans",
+    "shard_streams",
+    "stream_mesh",
+    "stream_sharding",
+    "replicate_sharding",
+]

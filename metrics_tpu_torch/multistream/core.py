@@ -526,13 +526,17 @@ class MultiStreamMetric(Metric):
         return self._with_query_state(query)
 
     def active_streams(self) -> int:
-        """How many streams have received at least one row (a host int)."""
-        return int(torch.count_nonzero(self.stream_rows))
+        """How many streams have received at least one row (a host int; over
+        every rank of the mesh when the metric is placed)."""
+        with self._global_view():
+            return int(torch.count_nonzero(self.stream_rows))
 
     def dropped_rows(self) -> int:
         """Rows dropped so far: out-of-range ids, plus overflow past
-        ``max_rows_per_stream`` on the vmap path (a host int)."""
-        return int(self.stream_dropped)
+        ``max_rows_per_stream`` on the vmap path (a host int; over every rank of
+        the mesh when the metric is placed)."""
+        with self._global_view():
+            return int(self.stream_dropped)
 
     # -------------------------------------------------------- span migration
     def stream_slice(self, lo: int, hi: int) -> Dict[str, torch.Tensor]:
@@ -542,16 +546,18 @@ class MultiStreamMetric(Metric):
         the ``stream_rows`` vector) is sliced by its stream axis; scalar state
         (``stream_dropped``) stays behind.  The donor half of an elastic span
         migration: the result round-trips through :meth:`adopt_stream_slice`
-        on a recipient of another width.
+        on a recipient of another width.  A placed metric gives its whole rows
+        (a collective over its mesh).
         """
         lo, hi = int(lo), int(hi)
         if not 0 <= lo < hi <= self.num_streams:
             raise MetricsTPUUserError(f"stream_slice needs 0 <= lo < hi <= {self.num_streams}, got [{lo}, {hi})")
         out: Dict[str, torch.Tensor] = {}
-        for key in self._defaults:
-            value = getattr(self, key)
-            if value.ndim and value.shape[0] == self.num_streams:
-                out[key] = value[lo:hi].detach().cpu().clone()
+        with self._global_view():
+            for key in self._defaults:
+                value = getattr(self, key)
+                if value.ndim and value.shape[0] == self.num_streams:
+                    out[key] = value[lo:hi].detach().cpu().clone()
         return out
 
     def adopt_stream_slice(self, lo: int, arrays: Dict[str, Any]) -> int:
@@ -560,8 +566,10 @@ class MultiStreamMetric(Metric):
 
         Row assignment, not a fold: each global stream's full state lives on
         one donor, so placing the rows reproduces the donor's accumulation bit
-        for bit.
+        for bit.  The recipient is an unplaced metric (place it after).
         """
+        if self._placement is not None:
+            raise MetricsTPUUserError("adopt a stream slice into an unplaced metric, then shard it")
         if not arrays:
             return 0
         lo = int(lo)

@@ -17,8 +17,16 @@ that :meth:`DistBackend.for_async` returns, bound to that group and created
 on the main thread before the first round, so a round in flight never pairs
 with a main-thread gather.
 
-``get_backend()`` picks :class:`DistBackend` when a process group of more than
-one rank is initialised, else :class:`NullBackend`.  ``dist_reduce_fx`` names
+* :class:`AxisBackend` — collectives over one named axis of a device mesh
+  (the default process group when no mesh is given), the counterpart of the
+  JAX package's in-trace tier: each rank's step stays one SPMD program, and
+  the fault-tolerance layer stands down (no preflight, watchdog, packing or
+  delta).  :class:`~metrics_tpu_torch.parallel.mesh.MeshBackend` builds on it.
+
+``get_backend()`` picks, innermost first: an :class:`AxisBackend` over an
+explicit ``axis_name`` or the ambient :class:`axis_context`, then
+:class:`DistBackend` when a process group of more than one rank is
+initialised, else :class:`NullBackend`.  ``dist_reduce_fx`` names
 map onto gathers that are reduced in rank order on every rank
 (``sum``/``mean``/``max``/``min``) or concatenated (``cat``).
 
@@ -36,10 +44,11 @@ import dataclasses
 import hashlib
 import os
 import queue
+import sys
 import threading
 import time
 from contextlib import contextmanager
-from typing import Any, Callable, Dict, Iterator, Optional, Sequence, Tuple, Union
+from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -47,6 +56,57 @@ import torch.distributed as dist
 
 from metrics_tpu_torch.obs import core as _obs
 from metrics_tpu_torch.utils.exceptions import SyncDesyncError, SyncError, SyncTimeoutError
+
+_local = threading.local()
+
+
+def _axis_stack() -> List[Union[str, Sequence[str]]]:
+    if not hasattr(_local, "stack"):
+        _local.stack = []
+    return _local.stack
+
+
+class axis_context:
+    """Declare that metric code runs as one SPMD program over a mesh axis.
+
+    Inside the block, a metric's sync and :func:`get_backend` go through an
+    :class:`AxisBackend` over ``axis_name``::
+
+        state = metric.apply_update(metric.init_state(), *my_rows)
+        with metrics_tpu_torch.parallel.axis_context("batch"):
+            value = metric.apply_compute(state, axis_name="batch")
+
+    Every rank of the axis must reach the same collectives in the same order.
+    The stack is per thread, as in the JAX package.
+    """
+
+    def __init__(self, axis_name: Union[str, Sequence[str]]):
+        self.axis_name = axis_name
+
+    def __enter__(self) -> "axis_context":
+        _axis_stack().append(self.axis_name)
+        return self
+
+    def __exit__(self, *exc: Any) -> None:
+        _axis_stack().pop()
+
+
+def current_axis() -> Optional[Union[str, Sequence[str]]]:
+    """The innermost :class:`axis_context`'s axis name on this thread, else ``None``."""
+    stack = _axis_stack()
+    return stack[-1] if stack else None
+
+
+def _dtensor_type() -> Optional[type]:
+    """``DTensor`` once ``torch.distributed.tensor`` is loaded (no DTensor exists before)."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return getattr(mod, "DTensor", None) if mod is not None else None
+
+
+def local_value(value: Any) -> Any:
+    """A DTensor's local tensor; any other value as it is."""
+    cls = _dtensor_type()
+    return value.to_local() if cls is not None and isinstance(value, cls) else value
 
 
 def _env_float(name: str) -> Optional[float]:
@@ -355,6 +415,10 @@ def submit_async_round(fn: Callable[[], Any], label: str = "sync") -> AsyncSyncH
 class Backend:
     """Protocol for metric-state synchronization."""
 
+    #: eager backends run the fault-tolerance layer around a sync (preflight,
+    #: watchdog, packing, delta); SPMD backends (:class:`AxisBackend`) do not
+    eager: bool = True
+
     #: backends whose preflight exchange can vote on the incremental (delta)
     #: cat-state protocol: a metric may gather only the rows appended since
     #: its last successful sync and splice them onto a cached prefix
@@ -473,6 +537,173 @@ class NullBackend(Backend):
 
     def all_gather_stack(self, x):
         return x[None]
+
+
+#: dtypes a row descriptor can name (:meth:`AxisBackend.all_gather_cat`)
+_ROW_DTYPES = (
+    torch.float32, torch.float64, torch.float16, torch.bfloat16, torch.int8, torch.int16, torch.int32,
+    torch.int64, torch.uint8, torch.bool,
+)
+_MAX_TRAIL_DIMS = 8
+
+
+class AxisBackend(Backend):
+    """Collectives over one named axis of a device mesh, as one SPMD program.
+
+    The counterpart of the JAX package's in-trace ``AxisBackend``: every rank
+    of the axis reaches the same collectives in the same order, so the
+    fault-tolerance layer stands down (no preflight, watchdog, packing or
+    delta).  ``mesh`` is a :class:`torch.distributed.device_mesh.DeviceMesh`
+    whose dimension ``axis_name`` names the group (``mesh.get_group``); with
+    no mesh the axis is the default process group.
+
+    The collectives go through ``torch.distributed._functional_collectives``
+    and keep :class:`DistBackend`'s wire rule: under NCCL the bytes stay on
+    the card, under gloo they travel through host memory.  Floating sums and
+    means gather every rank's value and fold it in rank order
+    (:func:`reduce_stack`), so every rank, and a one-process fold of the
+    same values, gets the same bits; integer sums, maxima and minima are one
+    all-reduce (exact in any order).
+    """
+
+    eager = False
+    #: a sync's per-state loop joins the reduced states of one reduce, dtype
+    #: and device into one collective (:meth:`reduce_many`); False reduces
+    #: each state alone
+    combine_reductions = True
+
+    def __init__(self, axis_name: Union[str, Sequence[str]], mesh: Optional[Any] = None):
+        self.axis_name = axis_name
+        self.mesh = mesh
+
+    def _group(self) -> Any:
+        if self.mesh is not None:
+            return self.mesh.get_group(self.axis_name)
+        if not (dist.is_available() and dist.is_initialized()):
+            raise RuntimeError(
+                f"collectives over axis {self.axis_name!r} need an initialised torch.distributed "
+                "process group (or a DeviceMesh naming the axis)"
+            )
+        return dist.group.WORLD
+
+    def is_distributed(self) -> bool:
+        return True
+
+    def world_size(self) -> int:
+        return dist.get_world_size(self._group())
+
+    def rank(self) -> int:
+        return dist.get_rank(self._group())
+
+    def _wire_device(self, group: Any) -> torch.device:
+        if dist.get_backend(group) == "nccl":
+            return torch.device("cuda", torch.cuda.current_device())
+        return torch.device("cpu")
+
+    def _note_wire(self, wire: torch.device, nbytes: int) -> None:
+        """Hook: ``nbytes`` crossed a collective on ``wire`` (telemetry in :class:`MeshBackend`)."""
+
+    def _stack(self, x: torch.Tensor) -> torch.Tensor:
+        """``(P,) + x.shape`` on ``x``'s device, rank order; the payload travels as raw bytes."""
+        from torch.distributed import _functional_collectives as funcol
+
+        group = self._group()
+        world = dist.get_world_size(group)
+        shape = (world,) + tuple(x.shape)
+        flat = x.detach().reshape(-1).contiguous()
+        if not flat.numel():  # every rank holds the same shape here: nothing to move
+            return torch.empty(shape, dtype=x.dtype, device=x.device)
+        wire = self._wire_device(group)
+        raw = flat.view(torch.uint8).to(wire)
+        gather = getattr(funcol, "all_gather_single", None) or funcol.all_gather_tensor
+        out = funcol.wait_tensor(gather(raw, 0, group))
+        self._note_wire(wire, raw.numel() + out.numel())
+        return out.to(x.device).view(x.dtype).reshape(shape)
+
+    def _all_reduce(self, x: torch.Tensor, op: str) -> torch.Tensor:
+        from torch.distributed import _functional_collectives as funcol
+
+        group = self._group()
+        wire = self._wire_device(group)
+        moved = x.detach().contiguous().to(wire)
+        out = funcol.wait_tensor(funcol.all_reduce(moved, op, group))
+        self._note_wire(wire, 2 * moved.numel() * moved.element_size())
+        return out.to(x.device)
+
+    def _reduce(self, x: Any, fx: str) -> torch.Tensor:
+        x = torch.as_tensor(x)
+        if x.dtype in (torch.int32, torch.int64) and fx != "mean":
+            return self._all_reduce(x, fx)
+        return reduce_stack(self._stack(x), fx)
+
+    def psum(self, x):
+        return self._reduce(x, "sum")
+
+    def pmean(self, x):
+        return self._reduce(x, "mean")
+
+    def pmax(self, x):
+        return self._reduce(x, "max")
+
+    def pmin(self, x):
+        return self._reduce(x, "min")
+
+    def reduce_many(self, values: Sequence[torch.Tensor], fx: str) -> List[torch.Tensor]:
+        """``fx`` (``"sum"``/``"mean"``/``"max"``/``"min"``) of several tensors of one dtype on
+        one device in one collective: flattened, joined, reduced as one tensor and split again.
+        Every reduction is elementwise, so each tensor's bits are its own reduction's."""
+        values = [torch.as_tensor(v) for v in values]
+        if len(values) == 1:
+            return [self._reduce(values[0], fx)]
+        out = self._reduce(torch.cat([v.reshape(-1) for v in values]), fx)
+        return [piece.reshape(v.shape) for piece, v in zip(torch.split(out, [v.numel() for v in values]), values)]
+
+    def all_gather_stack(self, x):
+        return self._stack(torch.as_tensor(x))
+
+    def all_gather_cat(self, x, device: Optional[torch.device] = None):
+        """Every rank's rows, concatenated in rank order.
+
+        Ranks may hold different row counts, and a rank with no rows (``None``,
+        an empty list state, or a ``(0,)`` placeholder) takes the trailing
+        shape and dtype of the ranks that have some: one small descriptor
+        gather (rows, trailing shape, dtype) comes first, then one gather of
+        the rows padded to the longest.  Ranks that disagree on the trailing
+        shape or dtype raise :class:`SyncDesyncError` on every rank.  Returns
+        ``x`` unchanged (``None`` included) when no rank has rows.
+        """
+        if x is not None:
+            x = torch.atleast_1d(torch.as_tensor(x))
+            device = x.device
+        known = x is not None and (x.shape[0] > 0 or x.ndim > 1)
+        desc = torch.zeros(3 + _MAX_TRAIL_DIMS, dtype=torch.int64)
+        if known:
+            if x.ndim - 1 > _MAX_TRAIL_DIMS or x.dtype not in _ROW_DTYPES:
+                raise ValueError(f"cannot gather rows of shape {tuple(x.shape)} and dtype {x.dtype}")
+            desc[0], desc[1], desc[2] = x.shape[0], 1 + _ROW_DTYPES.index(x.dtype), x.ndim - 1
+            desc[3 : 2 + x.ndim] = torch.tensor(x.shape[1:], dtype=torch.int64)
+        table = self._stack(desc)
+        kinds = table[:, 1:]
+        have = (kinds[:, 0] > 0).nonzero().flatten().tolist()
+        if not have:
+            return x
+        ref = kinds[have[0]]
+        for r in have[1:]:
+            if not torch.equal(kinds[r], ref):
+                raise SyncDesyncError(
+                    f"rows diverged across the axis: rank {r} holds rows of another trailing shape or dtype "
+                    f"than rank {have[0]}",
+                    rank=r,
+                )
+        dtype = _ROW_DTYPES[int(ref[0]) - 1]
+        trail = tuple(int(d) for d in ref[2 : 2 + int(ref[1])])
+        rows = x if known else torch.empty((0,) + trail, dtype=dtype, device=device)
+        sizes = [int(n) for n in table[:, 0]]
+        longest = max(sizes)
+        if rows.shape[0] < longest:
+            rows = torch.cat([rows, rows.new_zeros((longest - rows.shape[0],) + trail)])
+        gathered = self._stack(rows)
+        return torch.cat([gathered[p, : sizes[p]] for p in range(len(sizes))])
 
 
 #: groups whose collective sequence an abandoned or failed collective left out
@@ -688,6 +919,10 @@ class DistBackend(Backend):
         return [gathered[p, : sizes[p]].tobytes() for p in range(len(sizes))]
 
 
+#: the JAX package's name for its eager cross-process backend
+MultihostBackend = DistBackend
+
+
 class LoopbackBackend(Backend):
     """Single-process stand-in for :class:`DistBackend` with real telemetry.
 
@@ -770,11 +1005,20 @@ class LoopbackBackend(Backend):
         return [payload]
 
 
-def get_backend(process_group: Optional[Any] = None, options: Optional[SyncOptions] = None) -> Backend:
-    """:class:`DistBackend` over ``process_group`` (the default group for
+def get_backend(
+    process_group: Optional[Any] = None,
+    options: Optional[SyncOptions] = None,
+    axis_name: Optional[Union[str, Sequence[str]]] = None,
+) -> Backend:
+    """The innermost active backend: an :class:`AxisBackend` over an explicit
+    ``axis_name``, then over the ambient :class:`axis_context`'s axis; then
+    :class:`DistBackend` over ``process_group`` (the default group for
     ``None``) when ``torch.distributed`` is initialised with more than one
-    rank in it, else :class:`NullBackend`.  ``options`` carries the
-    timeout knobs to the distributed backend."""
+    rank in it; else :class:`NullBackend`.  ``options`` carries the timeout
+    knobs to the distributed backend (the axis and null tiers ignore it)."""
+    axis = axis_name if axis_name is not None else current_axis()
+    if axis is not None:
+        return AxisBackend(axis)
     if dist.is_available() and dist.is_initialized() and dist.get_world_size(process_group) > 1:
         return DistBackend(process_group, options)
     return NullBackend()

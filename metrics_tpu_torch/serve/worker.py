@@ -142,6 +142,12 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     )
     args = parser.parse_args(argv)
 
+    # the handlers go in before READY is printed: a parent may stop the
+    # worker the moment it reads READY, and that SIGTERM must drain the
+    # server (and write the final checkpoint), not kill the process
+    stop = threading.Event()
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        signal.signal(sig, lambda _s, _f: stop.set())
     server = run_worker(
         shard=args.shard,
         num_shards=args.num_shards,
@@ -156,10 +162,6 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         device=args.device,
     )
     print(f"READY {server.port}", flush=True)
-
-    stop = threading.Event()
-    for sig in (signal.SIGTERM, signal.SIGINT):
-        signal.signal(sig, lambda _s, _f: stop.set())
     while not stop.wait(timeout=0.2):
         pass
     # graceful drain; the final checkpoint only exists with a manager

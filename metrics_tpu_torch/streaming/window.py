@@ -165,6 +165,7 @@ class WindowedMetric(Metric):
         Host-side: reads the pointer and the incoming bucket's update count,
         resets that bucket to the base defaults (same shapes) and moves the
         pointer.  Returns the number of updates the evicted bucket held.
+        A placed window rotates each rank's own ring.
         """
         w = self.window_size
         new_ptr = (int(self.w__ptr) + 1) % w

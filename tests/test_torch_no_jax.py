@@ -351,9 +351,8 @@ def test_a_serve_registry_without_device_raises_when_cuda_is_absent(monkeypatch)
     assert EvalServer(reg).registry.device == torch.device("cpu")
 
 
-# names the JAX package's root exports that the port leaves out on purpose (ROADMAP "Left out on purpose")
-LEFT_OUT_ON_PURPOSE = {"AxisBackend", "axis_context", "current_axis", "default_mesh", "leaf_sharding", "MeshBackend",
-                       "MultihostBackend"}
+# names the JAX package's root exports that the port leaves out on purpose: none (the mesh tier is ported)
+LEFT_OUT_ON_PURPOSE = set()
 # the JAX serve modules still to port: none (every name of the JAX serve.__all__ is the port's)
 SERVE_NOT_YET = ()
 

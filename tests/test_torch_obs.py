@@ -32,11 +32,9 @@ from metrics_tpu_torch.obs import core as obs_core
 from metrics_tpu_torch.obs.logging import warn_once
 
 # counters the JAX package keeps for machinery the port does not have: jit
-# traces and eager demotions (the port compiles nothing) and the mesh backend
-NO_COUNTERPART = (
-    "jit_traces", "eager_fallback", "sync.mesh_placements", "sync.resharded_states",
-    "sync.kv_fallback_gathers", "sync.in_xla_reductions",
-)
+# traces and eager demotions (the port compiles nothing) and the key-value
+# fallback of its multihost gathers
+NO_COUNTERPART = ("jit_traces", "eager_fallback", "sync.kv_fallback_gathers")
 EAGER = {"jit_update": False, "jit_compute": False}
 C = 5
 

@@ -19,6 +19,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 import metrics_tpu as jm
 import metrics_tpu_torch as mt
@@ -120,10 +121,26 @@ def test_apply_update_of_a_list_state_does_not_append_to_the_given_list():
     assert state["value"] == [] and len(new["value"]) == 1 and m.value == []
 
 
-def test_apply_compute_over_an_axis_names_ddp():
+def test_apply_compute_over_an_axis_names_ddp(tmp_path):
+    """``apply_compute(state, axis_name=)`` syncs the state over the axis (an
+    ``AxisBackend`` over the default process group) and returns the all-rank
+    value: in a gloo world of one, the rank's own value, bitwise the JAX
+    package's on the same rows (multi-rank worlds: ``tests/test_torch_mesh_parity.py``)."""
+    rng = np.random.default_rng(5)
+    p, t = _eighths(rng, 64), _eighths(rng, 64)
     m = mt.MeanSquaredError(device="cpu")
-    with pytest.raises(NotImplementedError, match="DistBackend"):
-        m.apply_compute(m.init_state(), axis_name="data")
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'store'}", rank=0, world_size=1)
+    try:
+        state = m.apply_update(m.init_state(), torch.from_numpy(p), torch.from_numpy(t))
+        got = m.apply_compute(state, axis_name="data")
+        with mt.parallel.axis_context("data"):
+            assert isinstance(mt.parallel.get_backend(), mt.parallel.AxisBackend)
+            ambient = m.apply_compute(state, axis_name="data")
+    finally:
+        dist.destroy_process_group()
+    ref = jm.MeanSquaredError()
+    want = np.asarray(ref.apply_compute(ref.apply_update(ref.init_state(), jnp.asarray(p), jnp.asarray(t))))
+    assert _np(got).tobytes() == want.tobytes() == _np(ambient).tobytes()
 
 
 # ------------------------------------------------------------------ draws
