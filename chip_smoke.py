@@ -269,7 +269,18 @@ Phases (each passes or raises; any failure exits non-zero):
      with ``coco_match``'s plain version; configuration 2 synced through
      ``MeshBackend`` (its reduced states combined, and one collective a
      state) and ``DistBackend`` on the same states (ms in turns, bytes
-     through the host).
+     through the host);
+  20. the public utilities (``phase_utils``): (a)
+     ``check_forward_full_state_property(Accuracy)`` on the first ImageNet
+     batch of phases 4-8 on the card (10 and 100 steps, 2 repetitions): the
+     two forward paths agree, its printed timings, and the logits entry
+     point launched as often as the forwards imply; (b) ``to_categorical``
+     (ties, NaN, each axis), ``class_reduce`` (all four reductions over the
+     pass's per-class counts, one class with a zero denominator),
+     ``apply_to_collection`` and ``get_group_indexes`` (an MS MARCO-shaped
+     id column) on CUDA tensors against the same calls on CPU tensors:
+     integers and indexes bitwise, quotients bitwise, float32 sums of 1,000
+     terms within their rounding bound, every result on the card.
 The last line is ``{"ok": true, "device": {...}}``.
 
 The sync phases run this script again as their ranks
@@ -279,6 +290,7 @@ with a time limit and fails if a rank fails or hangs.
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -7636,6 +7648,171 @@ def phase_mesh(mt, ops, card: str) -> Tuple[dict, dict]:
     return launches, {"mesh": {"card": card, "one_rank": one, "two_ranks": two, "launches": launches, "phase_s": secs}}
 
 
+UTILS_STEPS = (10, 100)  # (a): check_forward_full_state_property's num_update_to_compare
+UTILS_REPS = 2  # (a): its repetitions of each
+UTILS_QUERIES, UTILS_CANDIDATES = 64, 1000  # (b): get_group_indexes over an MS MARCO-shaped id column, shuffled
+UTILS_DENOM_ZERO_CLASS = 7  # (b): class_reduce's class with no predictions (and so no true positives)
+
+
+def _sum_bound(terms: torch.Tensor, divisor: float = 1.0) -> float:
+    """How far two float32 sums of ``terms`` in different orders may lie apart: each within
+    ``(n - 1) u`` of the exact sum of the absolute values (u = 2**-24), then one division."""
+    absolute = float(terms.double().abs().sum())
+    return 2 * (terms.numel() - 1) * 2.0**-24 * absolute / divisor + 2 * float(np.spacing(np.float32(absolute / divisor)))
+
+
+def _utils_forward_check(mt, preds: torch.Tensor, target: torch.Tensor) -> dict:
+    """(a): ``check_forward_full_state_property(Accuracy)`` on one ImageNet batch; its printed lines parsed."""
+    import contextlib
+    import io
+
+    from metrics_tpu_torch.utils import check_forward_full_state_property
+
+    printed = io.StringIO()
+    start = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        check_forward_full_state_property(mt.Accuracy, init_args={"num_classes": N_CLASSES, "device": DEVICE},
+                                          input_args={"preds": preds, "target": target},
+                                          num_update_to_compare=UTILS_STEPS, reps=UTILS_REPS)
+    secs = time.perf_counter() - start
+    lines = printed.getvalue().strip().splitlines()
+    print("\n".join(lines))
+    steps = {}
+    for line in lines[:-1]:
+        label, mean_s, spread_s, n = re.fullmatch(r"full_state_update=(\w+): (\S+)s \+- (\S+) for (\d+) steps", line).groups()
+        steps.setdefault(label, {})[int(n)] = {"mean_s": float(mean_s), "std_s": float(spread_s)}
+    if len(lines) != 2 * len(UTILS_STEPS) + 1 or "(results match)" not in lines[-1]:
+        raise AssertionError(f"check_forward_full_state_property printed {lines}")
+    return {"secs": secs, "steps": steps, "recommended": lines[-1]}
+
+
+def _utils_on_card_vs_cpu(mt, logits: torch.Tensor, labels: torch.Tensor, checks: dict) -> dict:
+    """(b): the data helpers on the card's tensors against the same calls on their CPU copies."""
+    from metrics_tpu_torch.utils import to_categorical, to_onehot
+    from metrics_tpu_torch.utils.data import apply_to_collection, class_reduce, get_group_indexes
+
+    def on_card(name: str, value) -> None:
+        devices = []
+        apply_to_collection(value, torch.Tensor, lambda t: devices.append(t.device.type))
+        if not devices or set(devices) != {torch.device(DEVICE).type}:
+            raise AssertionError(f"{name}: results on {set(devices)}, not on the input's device")
+
+    def bitwise(name: str, got, want, record: bool = True) -> None:
+        on_card(name, got)
+        got = got.cpu()
+        same = got.dtype == want.dtype and got.shape == want.shape and (
+            torch.equal(got.view(torch.int32), want.view(torch.int32)) if got.dtype == torch.float32
+            else torch.equal(got, want))
+        if not same:
+            raise AssertionError(f"{name}: the card's {got} is not the CPU's {want} bit for bit")
+        if record:
+            checks[name] = "bitwise"
+
+    timings = {}
+
+    def timed(name: str, fn):
+        fn()  # the first call pays the card's lazy module loading
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        timings[name] = (time.perf_counter() - start) * 1e3
+        return out
+
+    # to_categorical: the pass's labels back from one-hots, its argmax, and planted ties and NaN, on each axis
+    batch = logits[:BATCH].clone()
+    batch[0, 3] = batch[0, 11] = float("nan")  # the first NaN wins
+    batch[1, 5] = batch[1, 9] = batch[1].max() + 1  # the first of tied maxima wins
+    batch[2, :] = 0.0
+    batch[2, 4] = -0.0  # -0.0 ties 0.0
+    cpu_batch = batch.cpu()
+    for dim in (0, 1, -1):
+        got = timed(f"to_categorical dim {dim}", lambda: to_categorical(batch, argmax_dim=dim))
+        bitwise(f"to_categorical dim {dim}", got, to_categorical(cpu_batch, argmax_dim=dim))
+    if to_categorical(batch)[:3].tolist() != [3, 5, 0]:
+        raise AssertionError(f"to_categorical's ties and NaN: {to_categorical(batch)[:3].tolist()}")
+    onehot = to_onehot(labels[:BATCH], N_CLASSES)
+    bitwise("to_categorical of one-hots", to_categorical(onehot), labels[:BATCH].cpu())
+    preds = timed("to_categorical of the pass", lambda: to_categorical(logits))
+    bitwise("to_categorical of the pass", preds, to_categorical(logits.cpu()))
+
+    # class_reduce over the pass's per-class counts: precision per class, weighted by support
+    hit = preds == labels
+    num = torch.bincount(labels[hit], minlength=N_CLASSES)
+    denom = torch.bincount(preds, minlength=N_CLASSES)
+    weights = torch.bincount(labels, minlength=N_CLASSES)
+    num[UTILS_DENOM_ZERO_CLASS] = denom[UTILS_DENOM_ZERO_CLASS] = 0
+    cpu_counts = num.cpu(), denom.cpu(), weights.cpu()
+    fractions = class_reduce(*cpu_counts, "none")
+    terms = {"micro": None, "macro": fractions, "weighted": fractions * (weights.cpu().float() / weights.cpu().float().sum())}
+    values = {}
+    for reduction in ("micro", "macro", "weighted", "none"):
+        got = timed(f"class_reduce {reduction}", lambda: class_reduce(num, denom, weights, reduction))
+        want = class_reduce(*cpu_counts, reduction)
+        if terms.get(reduction) is None:  # "none": one quotient a class; "micro": one quotient of two integer sums
+            bitwise(f"class_reduce {reduction}", got, want)
+        else:
+            on_card(f"class_reduce {reduction}", got)
+            bound = _sum_bound(terms[reduction], N_CLASSES if reduction == "macro" else 1.0)
+            err = abs(float(got) - float(want))
+            if not err <= bound:
+                raise AssertionError(f"class_reduce {reduction}: card {float(got)!r}, CPU {float(want)!r}, bound {bound!r}")
+            checks[f"class_reduce {reduction}"] = {"card": float(got), "cpu": float(want), "abs_err": err, "bound": bound}
+        values[reduction] = float(got) if got.ndim == 0 else None
+    if float(class_reduce(num, denom, weights, "none")[UTILS_DENOM_ZERO_CLASS]) != 0.0:
+        raise AssertionError("class_reduce: a class with 0 / 0 is not 0")
+
+    # apply_to_collection: to_categorical over nested batches
+    nested = {"batches": [logits[:BATCH], logits[BATCH : 2 * BATCH]], "pair": (logits[-BATCH:], "tail"), "n": 3}
+    got = timed("apply_to_collection", lambda: apply_to_collection(nested, torch.Tensor, to_categorical))
+    want = apply_to_collection(apply_to_collection(nested, torch.Tensor, lambda t: t.cpu()), torch.Tensor, to_categorical)
+    for i in range(2):
+        bitwise(f"apply_to_collection batches[{i}]", got["batches"][i], want["batches"][i])
+    bitwise("apply_to_collection pair[0]", got["pair"][0], want["pair"][0])
+    if got["pair"][1] != "tail" or got["n"] != 3 or type(got["pair"]) is not tuple:
+        raise AssertionError(f"apply_to_collection changed what it should leave: {got['pair'][1]!r}, {got['n']!r}")
+
+    # get_group_indexes: a re-ranking run's query ids, shuffled
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 20)
+    ids = torch.arange(UTILS_QUERIES, device=DEVICE).repeat_interleave(UTILS_CANDIDATES) * 7 + 1000
+    ids = ids[torch.randperm(ids.numel(), generator=gen, device=DEVICE)]
+    groups = timed("get_group_indexes", lambda: get_group_indexes(ids))
+    want = get_group_indexes(ids.cpu())
+    if len(groups) != len(want) or len(groups) != UTILS_QUERIES:
+        raise AssertionError(f"get_group_indexes: {len(groups)} groups on the card, {len(want)} on the CPU")
+    for i, (g, w) in enumerate(zip(groups, want)):
+        bitwise(f"get_group_indexes group {i}", g, w, record=False)
+    checks["get_group_indexes"] = f"{len(groups)} groups bitwise"
+    return {"ms": timings, "values": values}
+
+
+def phase_utils(mt, ops, card: str) -> Tuple[dict, dict]:
+    """Phase 20: the public utilities on the card.  (a) ``check_forward_full_state_property(Accuracy)`` on
+    phases 4-8's first ImageNet batch; (b) the data helpers on the card's tensors against their CPU copies.
+    Returns the phase's launches per entry point and its line."""
+    phase_start = time.perf_counter()
+    logits, labels, batches = _imagenet_pass()
+    preds, target = (x.clone() for x in batches[0])
+    counters = _counters(ops)
+    forward, launches = _launches_of(counters, lambda: _utils_forward_check(mt, preds, target))
+    # the first comparison: the full-state forward updates twice (the accumulated state, then the batch), the other once;
+    # then each step of each repetition likewise, and compute() launches nothing
+    implied = {"logits": 3 + UTILS_REPS * sum(UTILS_STEPS) * 3, "canonical": 0}
+    print(f"phase 20 (a) launches per entry point: {launches} (the forwards imply {implied})")
+    if launches != implied:
+        raise AssertionError("check_forward_full_state_property did not launch the logits kernel as its forwards imply")
+    checks: dict = {}
+    helpers, helper_launches = _launches_of(counters, lambda: _utils_on_card_vs_cpu(mt, logits, labels, checks))
+    if any(helper_launches.values()):
+        raise AssertionError(f"phase 20 (b) launched a stat-scores kernel: {helper_launches}")
+    del logits, labels, batches
+    secs = time.perf_counter() - phase_start
+    print(f"utilities phase took {secs:.1f} s ({card})")
+    line = {"utils": {"card": card, "forward_check": forward, "helpers": helpers, "checks": checks,
+                      "launches": launches, "phase_s": secs}}
+    return launches, line
+
+
 def phase_timings(ops, launches: dict, max_abs_err: Tuple[int, int]) -> list:
     from metrics_tpu_torch.utils.data import select_topk, to_onehot
 
@@ -7783,17 +7960,19 @@ def main() -> int:
     fleet_launches, fleet_line = phase_fleet(mt, card)
     torch.cuda.empty_cache()
     mesh_launches, mesh_line = phase_mesh(mt, ops, card)
+    torch.cuda.empty_cache()
+    utils_launches, utils_line = phase_utils(mt, ops, card)
     print(f"launches per entry point: main path {launches}, curve phase {curve_launches}, "
           f"rest of classification {rest_launches}, regression {regression_launches}, "
           f"wrappers and retrieval {wrapper_launches}, streaming {streaming_launches}, multistream {ms_launches}, "
           f"core and obs {core_launches} and {core_counts}, serve {serve_launches}, fleet {fleet_launches}, "
-          f"mesh {mesh_launches}")
+          f"mesh {mesh_launches}, utilities {utils_launches}")
     for entry in kernels:
         route = "canonical" if entry["name"] == "stat_scores" else "logits"
         entry["launches"] += (curve_launches[route] + rest_launches[route] + regression_launches[route]
                               + wrapper_launches[route] + streaming_launches[route] + ms_launches[route]
                               + core_launches[route] + serve_launches[route] + fleet_launches[route]
-                              + mesh_launches[route])
+                              + mesh_launches[route] + utils_launches[route])
     kll_entry["launches"] += (ms_counts["kll_fold"] + core_counts["kll_fold"] + serve_launches["kll_fold"]
                               + fleet_launches["kll_fold"] + mesh_launches["kll_fold"])
     kernels.append(kll_entry)
@@ -7820,6 +7999,7 @@ def main() -> int:
     print(json.dumps(serve_line))
     print(json.dumps(fleet_line))
     print(json.dumps(mesh_line))
+    print(json.dumps(utils_line))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

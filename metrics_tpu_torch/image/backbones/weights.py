@@ -24,15 +24,20 @@ INCEPTION_FILE = "inception_fid.npz"
 LPIPS_FILES = {"vgg": "lpips_vgg.npz", "alex": "lpips_alex.npz", "squeeze": "lpips_squeeze.npz"}
 
 
+def _cache_dir() -> str:
+    return os.path.join(os.path.expanduser("~"), ".cache", "metrics_tpu", "weights")
+
+
+def default_weights_dir() -> str:
+    """Where the fetch tool installs converted checkpoints: ``$METRICS_TPU_WEIGHTS_DIR``
+    if set, else ``~/.cache/metrics_tpu/weights`` (the JAX package's directory too)."""
+    return os.environ.get("METRICS_TPU_WEIGHTS_DIR") or _cache_dir()
+
+
 def weight_search_paths(filename: str) -> list:
-    paths = []
-    env = os.environ.get("METRICS_TPU_WEIGHTS_DIR")
-    if env:
-        paths.append(os.path.join(env, filename))
-    paths.append(os.path.join(os.path.expanduser("~"), ".cache", "metrics_tpu", "weights", filename))
     pkg_root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    paths.append(os.path.join(pkg_root, "_weights", filename))
-    return paths
+    dirs = dict.fromkeys([default_weights_dir(), _cache_dir(), os.path.join(pkg_root, "_weights")])
+    return [os.path.join(d, filename) for d in dirs]
 
 
 def find_weight_file(filename: str) -> Optional[str]:

@@ -62,6 +62,7 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tupl
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.nn.modules.module import _IncompatibleKeys
 
@@ -87,6 +88,11 @@ from metrics_tpu_torch.utils.exceptions import (
 )
 from metrics_tpu_torch.utils.prints import rank_zero_warn
 
+
+def jit_distributed_available() -> bool:
+    """Whether ``compute`` has peers to sync with: a ``torch.distributed`` process group is
+    initialised with more than one rank (the JAX package's ``jax.process_count() > 1``)."""
+    return dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1
 
 
 def _metric_labels(metric: "Metric") -> Dict[str, Any]:

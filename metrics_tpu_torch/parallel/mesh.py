@@ -247,6 +247,30 @@ class MeshBackend(AxisBackend):
     def all_gather_cat(self, x, device: Optional[torch.device] = None):
         return self._placed(x, lambda v: AxisBackend.all_gather_cat(self, v, device))
 
+    def all_gather_list(self, entries: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """Every rank's list-state entries, in rank order and each rank's entries in its own order.
+
+        The JAX package's twin is the identity: there one controller's entries
+        already span the mesh.  Here each rank holds its own entries, so this
+        gathers them as a synced list state gathers its rows (the entries
+        joined, one descriptor and one rows gather) plus one gather of each
+        entry's row count, and splits the rows again on every rank.  An entry
+        comes back at least 1-d, on this rank's first entry's device (the
+        wire's when the rank has none).  A rank with no entries takes part too;
+        when no rank has any, every rank gets ``[]``.
+        """
+        self._tick()
+        entries = [torch.atleast_1d(torch.as_tensor(e)) for e in entries]
+        device = entries[0].device if entries else self._wire_device(self._group())
+        sizes = torch.tensor([int(e.shape[0]) for e in entries], dtype=torch.int64)
+        counts = AxisBackend.all_gather_cat(self, sizes, device=torch.device("cpu"))
+        if not counts.numel():
+            return []
+        rows = AxisBackend.all_gather_cat(self, torch.cat(entries).to(device) if entries else None, device=device)
+        if rows is None:  # entries, but none with a row
+            rows = torch.empty(0, device=device)
+        return list(torch.split(rows, counts.tolist()))
+
     def all_gather_merge(self, tree: Dict[str, torch.Tensor], merge_fn: Callable) -> Dict[str, torch.Tensor]:
         self._tick()
         return super().all_gather_merge(tree, merge_fn)

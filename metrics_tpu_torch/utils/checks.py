@@ -6,14 +6,17 @@ ranges) and :func:`_input_format_classification` turns any accepted
 ``(preds, target)`` pair into canonical binary int32 tensors, on the device
 the inputs lie on.  :func:`_check_retrieval_inputs` flattens a retrieval
 batch to int32 query ids, float32 scores and int32 or float32 targets.
+:func:`check_forward_full_state_property` tells a custom metric's author
+whether its ``forward`` may take the fast path (``full_state_update=False``).
 """
 
-from typing import Optional, Tuple
+import time
+from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
 
-from metrics_tpu_torch.utils.data import select_topk, to_onehot
+from metrics_tpu_torch.utils.data import allclose, apply_to_collection, select_topk, to_onehot
 from metrics_tpu_torch.utils.enums import DataType
 
 
@@ -267,6 +270,71 @@ def _canonical_format(
     if case == DataType.MULTICLASS and target_c.ndim == 3 and target_c.shape[-1] == 1:
         preds_c, target_c = preds_c.squeeze(-1), target_c.squeeze(-1)
     return preds_c, target_c, case
+
+
+def _results_close(a: Any, b: Any) -> bool:
+    """Whether two nested results (tensors, numbers, lists, tuples, dicts) agree leaf by leaf (:func:`allclose`)."""
+    if isinstance(a, dict) or isinstance(b, dict):
+        return isinstance(a, dict) and isinstance(b, dict) and a.keys() == b.keys() and all(
+            _results_close(a[k], b[k]) for k in a
+        )
+    if isinstance(a, (list, tuple)) or isinstance(b, (list, tuple)):
+        return (isinstance(a, (list, tuple)) and isinstance(b, (list, tuple)) and len(a) == len(b)
+                and all(_results_close(x, y) for x, y in zip(a, b)))
+    a = torch.as_tensor(a)
+    return allclose(a, torch.as_tensor(b, device=a.device))
+
+
+def _wait_for(result: Any) -> None:
+    """Wait for the card when any tensor of ``result`` lies on it (the JAX package's ``block_until_ready``)."""
+    on_card: list = []
+    apply_to_collection(result, torch.Tensor, lambda t: on_card.append(t.is_cuda))
+    if any(on_card):
+        torch.cuda.synchronize()
+
+
+def check_forward_full_state_property(
+    metric_class,
+    init_args: Optional[dict] = None,
+    input_args: Optional[dict] = None,
+    num_update_to_compare=(10, 100, 1000),
+    reps: int = 5,
+) -> None:
+    """Compare ``forward`` with ``full_state_update`` True and False on ``metric_class``.
+
+    Raises ``ValueError`` when the first ``forward`` of the two differs (the
+    metric needs ``full_state_update=True``); else prints the mean and spread
+    of ``reps`` runs of each number of steps in ``num_update_to_compare``,
+    each ended by a ``compute()``, and recommends ``False``.  The metrics are
+    built with ``init_args``, so on the card unless they pass ``device="cpu"``.
+    """
+    init_args = init_args or {}
+    input_args = input_args or {}
+
+    class FullState(metric_class):
+        full_state_update = True
+
+    class PartState(metric_class):
+        full_state_update = False
+
+    m_full, m_part = FullState(**init_args), PartState(**init_args)
+    if not _results_close(m_full(**input_args), m_part(**input_args)):
+        raise ValueError(
+            "The two step results of full_state_update True/False differ; "
+            f"full_state_update=True is required for {metric_class.__name__}."
+        )
+    for n_updates in num_update_to_compare:
+        for cls, label in ((FullState, "True"), (PartState, "False")):
+            times = []
+            for _ in range(reps):
+                m = cls(**init_args)
+                start = time.perf_counter()
+                for _ in range(n_updates):
+                    m(**input_args)
+                _wait_for(m.compute())
+                times.append(time.perf_counter() - start)
+            print(f"full_state_update={label}: {np.mean(times):.4g}s +- {np.std(times):.2g} for {n_updates} steps")
+    print(f"Recommended setting `full_state_update=False` for {metric_class.__name__} (results match).")
 
 
 # --------------------------------------------------------------------- retrieval

@@ -1,6 +1,6 @@
 """Data / reduction helpers (counterpart of ``metrics_tpu/utils/data.py``)."""
 
-from typing import Any, Dict, List, Optional, Union
+from typing import Any, Callable, Dict, List, Optional, Union
 
 import numpy as np
 import torch
@@ -118,6 +118,17 @@ def select_topk(prob_tensor: torch.Tensor, topk: int = 1, dim: int = 1) -> torch
     return mask.scatter_(dim, idx, 1)
 
 
+def to_categorical(x: torch.Tensor, argmax_dim: int = 1) -> torch.Tensor:
+    """Probabilities or one-hots to dense int64 labels: the argmax along ``argmax_dim``.
+
+    Ties go to the first index and a NaN counts as the maximum (the first NaN
+    wins), as in ``jnp.argmax``; the JAX package's labels are int32.
+    """
+    if x.dtype == torch.bool:
+        x = x.to(torch.uint8)  # argmax takes no bool input
+    return torch.argmax(x, dim=argmax_dim)
+
+
 def _bincount(x: torch.Tensor, minlength: int) -> torch.Tensor:
     """Fixed-length int32 bincount with the semantics of ``jnp.bincount(x, length=...)``:
     negative values count in bin 0 and values past the end are dropped."""
@@ -157,6 +168,66 @@ def _squeeze_if_scalar(data: Any) -> Any:
     if isinstance(data, (list, tuple)):
         return type(data)(_squeeze_if_scalar(v) for v in data)
     return data
+
+
+def apply_to_collection(data: Any, dtype: Union[type, tuple], function: Callable, *args: Any, **kwargs: Any) -> Any:
+    """Apply ``function`` to every element of type ``dtype`` in nested lists, tuples and dicts.
+
+    A tuple keeps its type, a list comes back a list, a dict a dict; anything
+    else that is not a ``dtype`` comes back as it is.
+    """
+    if isinstance(data, dtype):
+        return function(data, *args, **kwargs)
+    if isinstance(data, (list, tuple)):
+        out = [apply_to_collection(d, dtype, function, *args, **kwargs) for d in data]
+        return type(data)(out) if isinstance(data, tuple) else out
+    if isinstance(data, dict):
+        return {k: apply_to_collection(v, dtype, function, *args, **kwargs) for k, v in data.items()}
+    return data
+
+
+def get_group_indexes(indexes: Union[torch.Tensor, np.ndarray]) -> List[torch.Tensor]:
+    """The row positions of each query id, one int64 tensor per id in order of first appearance.
+
+    A host helper: the ids come to the host in one copy, and the positions go
+    back to the input's device in one copy, split into views per id.
+    """
+    device = indexes.device if isinstance(indexes, torch.Tensor) else torch.device("cpu")
+    host = indexes.cpu().numpy() if isinstance(indexes, torch.Tensor) else np.asarray(indexes)
+    groups: Dict[Any, List[int]] = {}
+    for i, idx in enumerate(host.reshape(-1).tolist()):
+        groups.setdefault(idx, []).append(i)
+    if not groups:
+        return []
+    positions = torch.from_numpy(np.concatenate([np.asarray(v, dtype=np.int64) for v in groups.values()]))
+    return list(torch.split(positions.to(device), [len(v) for v in groups.values()]))
+
+
+def class_reduce(
+    num: torch.Tensor, denom: torch.Tensor, weights: torch.Tensor, class_reduction: Optional[str] = "none"
+) -> torch.Tensor:
+    """Reduce per-class fractions ``num / denom``: ``micro`` (the sums' quotient), ``macro``
+    (the mean fraction), ``weighted`` (by ``weights`` over their sum) or ``none``/``None``
+    (the fractions).
+
+    A class with ``denom == 0`` counts 0 when ``num == 0`` and the float32
+    extreme of the sign of ``num`` otherwise, as ``jnp.nan_to_num`` has them.
+    Integer counts divide to float32.
+    """
+    valid_reduction = ("micro", "macro", "weighted", "none", None)
+    if class_reduction == "micro":
+        return torch.nan_to_num(num.sum() / denom.sum())
+    fraction = torch.nan_to_num(num / denom)
+    if class_reduction == "macro":
+        return _mean(fraction)
+    if class_reduction == "weighted":
+        w = weights.to(torch.float32)
+        return torch.sum(fraction * (w / w.sum()))
+    if class_reduction in ("none", None):
+        return fraction
+    raise ValueError(
+        f"Reduction parameter {class_reduction} unknown. Choose between one of these: {valid_reduction}"
+    )
 
 
 def allclose(a: torch.Tensor, b: torch.Tensor, rtol: float = 1e-5, atol: float = 1e-8) -> bool:

@@ -1,11 +1,20 @@
 """Enums (counterpart of ``metrics_tpu/utils/enums.py``)."""
 
 from enum import Enum
-from typing import Union
+from typing import Optional, Union
 
 
 class EnumStr(str, Enum):
     """Case-insensitive string enum."""
+
+    @classmethod
+    def from_str(cls, value: str) -> Optional["EnumStr"]:
+        """The member whose name is ``value`` in any case, or None."""
+        try:
+            keys = [name.lower() for name in cls.__members__]
+            return list(cls.__members__.values())[keys.index(str(value).lower())]
+        except ValueError:
+            return None
 
     def __eq__(self, other: Union[str, "EnumStr", None]) -> bool:  # type: ignore[override]
         other = other.value if isinstance(other, Enum) else str(other)

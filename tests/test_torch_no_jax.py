@@ -353,8 +353,6 @@ def test_a_serve_registry_without_device_raises_when_cuda_is_absent(monkeypatch)
 
 # names the JAX package's root exports that the port leaves out on purpose: none (the mesh tier is ported)
 LEFT_OUT_ON_PURPOSE = set()
-# the JAX serve modules still to port: none (every name of the JAX serve.__all__ is the port's)
-SERVE_NOT_YET = ()
 
 
 def test_the_root_all_covers_the_jax_root_all():
@@ -367,13 +365,11 @@ def test_the_root_all_covers_the_jax_root_all():
         assert star[name] is getattr(mt, name)
 
 
-def test_the_serve_all_is_the_jax_one_less_the_modules_not_yet_ported():
+def test_the_serve_all_is_the_jax_one():
     import metrics_tpu.serve as jserve
 
     import metrics_tpu_torch.serve as tserve
 
-    later = {name for name in jserve.__all__ if getattr(jserve, name).__module__.rsplit(".", 1)[-1] in SERVE_NOT_YET}
-    assert later == set()
     assert tserve.__all__ == jserve.__all__
     assert all(hasattr(tserve, name) for name in tserve.__all__)
     for name in tserve.__all__:
