@@ -5843,7 +5843,7 @@ def _issues_no_device_operation(where: str, run) -> Optional[int]:
             run()
             canary = canary + 1
             torch.cuda.synchronize()
-        seen = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        seen = [e.name for e in _device_events(prof)]
         if seen:
             if len(seen) != 1:
                 raise AssertionError(f"{where}: the updates issued device operations: {seen[:10]}")
@@ -7251,9 +7251,16 @@ def _device_ops(fn, calls: int = 1) -> Optional[list]:
     except RuntimeError as err:
         print(f"profiler: {err}")
         return None
-    seen = [(e.name, e.time_range.elapsed_us() / 1e3) for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    seen = [(e.name, e.time_range.elapsed_us() / 1e3) for e in _device_events(prof)]
     return seen or None
+
+
+def _device_events(prof) -> list:
+    """The operations on the card (kernels, copies, memsets) of a profiler session, without the
+    device-side copies of its user annotations: an enabled obs span records one while a profiler runs."""
+    events = prof.events()
+    annotations = {e.name for e in events if getattr(e, "is_user_annotation", False)}
+    return [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA and e.name not in annotations]
 
 
 def _in_turns(fns: dict, order: list) -> dict:

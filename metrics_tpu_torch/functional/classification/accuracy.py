@@ -12,6 +12,7 @@ from metrics_tpu_torch.functional.classification.stat_scores import (
     _reduce_stat_scores,
     _stat_scores_update,
 )
+from metrics_tpu_torch.obs import core as _obs
 from metrics_tpu_torch.utils.checks import (
     _as_tensor,
     _check_classification_inputs,
@@ -26,6 +27,7 @@ def _check_subset_validity(mode: DataType) -> bool:
     return mode in (DataType.MULTILABEL, DataType.MULTIDIM_MULTICLASS)
 
 
+@_obs.spanned_function("validation.check")
 def _mode(
     preds: torch.Tensor,
     target: torch.Tensor,

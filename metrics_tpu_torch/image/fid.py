@@ -14,6 +14,7 @@ import torch
 
 from metrics_tpu_torch.image._batching import ChunkedExtractorMixin
 from metrics_tpu_torch.metric import Metric
+from metrics_tpu_torch.obs import core as _obs
 from metrics_tpu_torch.utils.compute import _sqrt
 from metrics_tpu_torch.utils.prints import rank_zero_warn
 
@@ -145,7 +146,8 @@ class FrechetInceptionDistance(ChunkedExtractorMixin, Metric):
         self._push_or_ingest(bool(real), imgs)
 
     def _ingest_chunk(self, key: bool, imgs: Any) -> None:
-        features = torch.as_tensor(self.extractor(imgs), device=self.device).to(self.real_sum.dtype)
+        with _obs.span("extractor.forward", metric=type(self).__name__):
+            features = torch.as_tensor(self.extractor(imgs), device=self.device).to(self.real_sum.dtype)
         side = "real" if key else "fake"
         setattr(self, f"{side}_sum", getattr(self, f"{side}_sum") + features.sum(dim=0))
         setattr(self, f"{side}_outer", getattr(self, f"{side}_outer") + features.T @ features)

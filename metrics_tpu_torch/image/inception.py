@@ -14,6 +14,7 @@ import torch
 from metrics_tpu_torch.image._batching import ChunkedExtractorMixin
 from metrics_tpu_torch.image.fid import _builtin_extractor
 from metrics_tpu_torch.metric import Metric
+from metrics_tpu_torch.obs import core as _obs
 from metrics_tpu_torch.streaming import _threefry
 from metrics_tpu_torch.utils.data import dim_zero_cat
 
@@ -71,7 +72,9 @@ class InceptionScore(ChunkedExtractorMixin, Metric):
         self._push_or_ingest(None, imgs)
 
     def _ingest_chunk(self, key: Any, imgs: Any) -> None:
-        self.features.append(torch.as_tensor(self.extractor(imgs), device=self.device))
+        with _obs.span("extractor.forward", metric=type(self).__name__):
+            features = torch.as_tensor(self.extractor(imgs), device=self.device)
+        self.features.append(features)
 
     def reset(self) -> None:
         self._reset_chunking()

@@ -15,6 +15,7 @@ import torch
 from metrics_tpu_torch.image._batching import ChunkedExtractorMixin
 from metrics_tpu_torch.image.fid import _builtin_extractor
 from metrics_tpu_torch.metric import Metric
+from metrics_tpu_torch.obs import core as _obs
 from metrics_tpu_torch.streaming import _threefry
 from metrics_tpu_torch.utils.data import dim_zero_cat
 
@@ -146,7 +147,8 @@ class KernelInceptionDistance(ChunkedExtractorMixin, Metric):
         self._push_or_ingest(bool(real), imgs)
 
     def _ingest_chunk(self, key: bool, imgs: Any) -> None:
-        features = torch.as_tensor(self.extractor(imgs), device=self.device)
+        with _obs.span("extractor.forward", metric=type(self).__name__):
+            features = torch.as_tensor(self.extractor(imgs), device=self.device)
         (self.real_features if key else self.fake_features).append(features)
 
     def compute(self) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -1108,12 +1108,17 @@ class Metric(nn.Module, ABC):
         self._pre_update(*args, **kwargs)
         self._computed = None
         self._update_count += 1
-        self._update_impl(*args, **kwargs)
+        self._spanned_update_impl(*args, **kwargs)
         if self.compute_on_cpu:
             self._move_list_states_to_cpu()
 
     # the public update; forward's inner updates call _update_now, unspanned
     _update_wrapper = _obs.spanned("metric.update", _metric_labels)(_update_now)
+
+    # the update body itself (input validation and the state update), under metric.update or metric.forward
+    @_obs.spanned("metric.update_impl", _metric_labels)
+    def _spanned_update_impl(self, *args: Any, **kwargs: Any) -> None:
+        self._update_impl(*args, **kwargs)
 
     def _move_list_states_to_cpu(self) -> None:
         """Move list and buffer states to host memory (``compute_on_cpu``)."""

@@ -16,14 +16,17 @@ events, fault injections) are always on: they only tick on cold paths.
 Spans are sampled only while enabled; disabled, ``obs.span`` returns a
 shared no-op and the hot update path pays a single flag check.  A span times
 the host around a call and never synchronizes the device, so a span around
-an update measures the host's launch time, not the kernels'.  Counter names,
+an update measures the host's launch time, not the kernels'.  While a
+``torch.profiler`` session records, every enabled span also appears in the
+profiler's trace as a user annotation of its name (``metric.forward``,
+``metric.update_impl``, ``validation.check``, ``extractor.forward``, ...), on
+the clock of the device operations launched inside it.  Counter names,
 the exporters' text and ``METRICS_TPU_OBS`` are those of the JAX package, so
 one environment switch and one scrape config serve both.
 """
 
 from metrics_tpu_torch.obs.core import (
     NOOP_SPAN,
-    count_trace,
     counter_inc,
     counter_value,
     counters_snapshot,
@@ -48,7 +51,6 @@ from metrics_tpu_torch.obs.logging import warn_once
 
 __all__ = [
     "NOOP_SPAN",
-    "count_trace",
     "counter_inc",
     "counter_value",
     "counters_snapshot",

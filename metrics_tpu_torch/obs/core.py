@@ -14,8 +14,12 @@ Two cost tiers, chosen per instrument:
 
 Spans time the host with ``time.perf_counter`` and never synchronize the
 device: a span around a CUDA update measures the launches, not the kernels.
+While a ``torch.profiler`` session records, an enabled span also opens a
+profiler user annotation of its name, so the profiler's trace puts the
+span on the same clock as the device operations launched inside it.
 Everything here is process-local and thread-safe and imports nothing of the
-package, so any layer may pull it in.
+package (``torch`` only on the first enabled span), so any layer may pull
+it in.
 """
 
 import functools
@@ -110,17 +114,6 @@ def counters_snapshot() -> Dict[CounterKey, float]:
         return dict(_rt.counters)
 
 
-def count_trace(metric: str, fn: str) -> None:
-    """Count one trace of a compiled function body under ``jit_traces``.
-
-    Kept with the JAX package's signature so exporters and callers stay
-    common.  This package compiles nothing (updates and computes run eagerly,
-    the kernels are built ahead of their first launch), so no code here calls
-    it and the ``jit_traces`` bucket stays empty.
-    """
-    counter_inc("jit_traces", metric=metric, fn=fn)
-
-
 # ---------------------------------------------------------------------------
 # spans
 
@@ -143,8 +136,29 @@ class _NoopSpan:
 NOOP_SPAN = _NoopSpan()
 
 
+# torch's "is a profiler recording" check and its user annotation, bound by
+# the first enabled span
+_profiler: Optional[Tuple[Callable[[], bool], Callable[[str], Any]]] = None
+
+
+def _annotation(name: str) -> Any:
+    """An entered profiler user annotation named ``name`` while a profiler
+    records, else ``None``."""
+    global _profiler
+    if _profiler is None:
+        import torch
+
+        _profiler = (torch._C._autograd._profiler_enabled, torch.profiler.record_function)
+    recording, record_function = _profiler
+    if not recording():
+        return None
+    annotation = record_function(name)
+    annotation.__enter__()
+    return annotation
+
+
 class _Span:
-    __slots__ = ("name", "labels", "_start", "_parent")
+    __slots__ = ("name", "labels", "_start", "_parent", "_annotation")
 
     def __init__(self, name: str, labels: Dict[str, Any]) -> None:
         self.name = name
@@ -160,11 +174,14 @@ class _Span:
             stack = _rt.tls.stack = []
         self._parent = stack[-1].name if stack else None
         stack.append(self)
+        self._annotation = _annotation(self.name)
         self._start = time.perf_counter()
         return self
 
     def __exit__(self, *exc: Any) -> bool:
         dur = time.perf_counter() - self._start
+        if self._annotation is not None:
+            self._annotation.__exit__(*exc)
         stack = getattr(_rt.tls, "stack", None)
         if stack and stack[-1] is self:
             stack.pop()
@@ -209,6 +226,23 @@ def spanned(name: str, labels: Callable[[Any], Dict[str, Any]]) -> Callable[[Cal
                 return fn(self, *args, **kwargs)
             with _Span(name, labels(self)):
                 return fn(self, *args, **kwargs)
+
+        return inner
+
+    return wrap
+
+
+def spanned_function(name: str) -> Callable[[Callable], Callable]:
+    """Function decorator: :func:`spanned` for a plain function, with no
+    labels."""
+
+    def wrap(fn: Callable) -> Callable:
+        @functools.wraps(fn)
+        def inner(*args: Any, **kwargs: Any) -> Any:
+            if not _rt.enabled:
+                return fn(*args, **kwargs)
+            with _Span(name, {}):
+                return fn(*args, **kwargs)
 
         return inner
 

@@ -16,6 +16,7 @@ from typing import Any, Optional, Tuple
 import numpy as np
 import torch
 
+from metrics_tpu_torch.obs import core as _obs
 from metrics_tpu_torch.utils.data import allclose, apply_to_collection, select_topk, to_onehot
 from metrics_tpu_torch.utils.enums import DataType
 
@@ -175,6 +176,7 @@ def _input_format_classification(
     return _canonical_format(preds, target, case, threshold, top_k, num_classes, multiclass)
 
 
+@_obs.spanned_function("validation.check")
 def _checked_inputs(
     preds,
     target,
@@ -203,6 +205,7 @@ def _checked_inputs(
     return preds, target, case
 
 
+@_obs.spanned_function("validation.format")
 def _canonical_format(
     preds: torch.Tensor,
     target: torch.Tensor,

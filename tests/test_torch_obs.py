@@ -108,11 +108,6 @@ class TestDisabledNoOp:
         obs.disable()
         assert obs.span("x") is obs_core.NOOP_SPAN
 
-    def test_count_trace_keeps_its_signature(self):
-        # nothing in the port compiles, so nothing calls it; callers may
-        obs.count_trace("Accuracy", "update")
-        assert obs.summarize_counters() == {"recompiles": 1, "recompiles_by_metric": {"Accuracy": 1}}
-
 
 # ----------------------------------------------------------- spans + nesting
 class TestSpans:

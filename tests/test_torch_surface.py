@@ -41,6 +41,8 @@ JAX_ONLY = {
     "image/backbones/inception.py::fold_inception_variables": "folds the Flax variables for fast_inception_apply; "
                                                              "FoldedInceptionV3 folds its own",
     "image/backbones/__init__.py::__all__:FlaxInceptionV3": "re-exports the Flax module above",
+    "obs/core.py::count_trace": "counts jit traces under jit_traces; the port compiles nothing, so nothing would call it",
+    "obs/__init__.py::__all__:count_trace": "re-exports count_trace above",
 }
 
 
