@@ -12,7 +12,9 @@ Phases (each passes or raises; any failure exits non-zero):
      the canonical route on int32 and bool one-hots, the logits route on
      float32, bfloat16 and float16 logits with int64 and int32 labels,
      including NaN, tied, signed-zero and infinite logits and labels out of
-     range;
+     range, and the planes route (multi-dimensional ``(N, C, X)`` logits, both
+     forms) on the same kinds of values and at a Cityscapes image's
+     ``(1, 19, 1024 * 2048)``;
   4. main path: an ImageNet-1k validation pass (50,000 samples, 1000 classes,
      batches of 1024) through configuration 1 (``Accuracy`` with ``forward``
      per batch), configuration 2 (``Accuracy``/``F1Score``/``Precision``
@@ -33,8 +35,8 @@ Phases (each passes or raises; any failure exits non-zero):
      gives the median ms of a synced config-2 ``compute()``, the bytes it
      gathers and each rank's kernel launches;
   6. timings: samples/s per configuration, and each entry point's device
-     time beside its plain version and its bound; the logits route also
-     beside the chain of operations it replaces;
+     time beside its plain version and its bound; the logits and planes
+     routes also beside the chains of operations they replace;
   7. curves: the same pass, as float32 softmax probabilities, through one
      ``MetricCollection`` of ``AUROC`` and ``AveragePrecision`` (macro, one
      compute group sharing one pair of buffer states), ``Specificity`` and
@@ -280,7 +282,14 @@ Phases (each passes or raises; any failure exits non-zero):
      ``apply_to_collection`` and ``get_group_indexes`` (an MS MARCO-shaped
      id column) on CUDA tensors against the same calls on CPU tensors:
      integers and indexes bitwise, quotients bitwise, float32 sums of 1,000
-     terms within their rounding bound, every result on the card.
+     terms within their rounding bound, every result on the card;
+  21. segmentation (``phase_segmentation``): ``JaccardIndex``, ``Accuracy``
+     (macro, ``mdmc_average="global"``) and ``ConfusionMatrix`` in a
+     ``MetricCollection``, ``forward`` on 4 Cityscapes-shaped steps of
+     ``(1, 19, 1024, 2048)`` float32 logits and int64 labels: the planes
+     entry point launched 3 times a step and no other stat-scores kernel,
+     every state bitwise ``torch.bincount``'s counts; the kernels line
+     reports this phase's planes launches.
 The last line is ``{"ok": true, "device": {...}}``.
 
 The sync phases run this script again as their ranks
@@ -466,8 +475,32 @@ def _logit_cases(n: int, c: int, dtype: torch.dtype, label_dtype: torch.dtype, s
     return logits, torch.from_numpy(labels).to(device=DEVICE, dtype=label_dtype)
 
 
-def phase_kernels(ops) -> Tuple[int, int]:
-    """Each entry point vs its plain version, bitwise, on the card.  Returns the largest abs errors (0, 0)."""
+def _plane_cases(n: int, c: int, x: int, dtype: torch.dtype, label_dtype: torch.dtype, seed: int):
+    """:func:`_logit_cases`' values as ``(N, C, X)`` logits: pixel ``j`` of image 0 holds row ``j``'s
+    logits (the special rows where N * X >= 8), and the labels follow."""
+    logits, labels = _logit_cases(n * x, c, dtype, label_dtype, seed)
+    return logits.view(n, x, c).transpose(1, 2).contiguous(), labels.view(n, x)
+
+
+def _compare_planes(ops, logits: torch.Tensor, labels: torch.Tensor, case: str) -> int:
+    """Both forms of the planes entry point against their plain version, bitwise; returns the largest abs error (0)."""
+    worst = 0
+    for form in ("confmat", "stat_scores"):
+        got = ops.fused_logits_counts(logits, labels, form)
+        torch.cuda.synchronize()
+        expected = ops.fused_logits_counts_plain(logits, labels, form)
+        torch.cuda.synchronize()
+        if form == "confmat":
+            got, expected = (got,), (expected,)
+        worst = max(worst, _compare(f"stat_scores_planes {form}", got, expected, case))
+    return worst
+
+
+PLANE_SHAPES = [(1, 19, 1024 * 2048), (3, 19, 64 * 33), (3, 150, 120), (1, 2, 7), (3, 19, 1), (0, 4, 8)]
+
+
+def phase_kernels(ops) -> Tuple[int, int, int]:
+    """Each entry point vs its plain version, bitwise, on the card.  Returns the largest abs errors (0, 0, 0)."""
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     worst = 0
     for (n, c), dtype in [(shape, torch.int32) for shape in KERNEL_SHAPES] + [
@@ -495,7 +528,15 @@ def phase_kernels(ops) -> Tuple[int, int]:
                 torch.cuda.synchronize()
                 case = f"{(n, c)} {str(dtype).replace('torch.', '')} logits, {str(label_dtype).replace('torch.', '')} labels"
                 worst_logits = max(worst_logits, _compare("stat_scores_logits", got, expected, case))
-    return worst, worst_logits
+
+    worst_planes = 0
+    for (n, c, x) in PLANE_SHAPES:
+        for dtype in LOGIT_DTYPES:
+            for label_dtype in (torch.int64, torch.int32):
+                logits, labels = _plane_cases(n, c, x, dtype, label_dtype, seed=n + c + x)
+                case = f"{(n, c, x)} {str(dtype).replace('torch.', '')} logits, {str(label_dtype).replace('torch.', '')} labels"
+                worst_planes = max(worst_planes, _compare_planes(ops, logits, labels, case))
+    return worst, worst_logits, worst_planes
 
 
 def _reference(logits: torch.Tensor, labels: torch.Tensor) -> dict:
@@ -543,7 +584,7 @@ def _route(metric) -> Optional[str]:
 
 
 def _counters(ops) -> dict:
-    return {"logits": ops.fused_stat_scores_logits, "canonical": ops.fused_stat_scores}
+    return {"logits": ops.fused_stat_scores_logits, "canonical": ops.fused_stat_scores, "planes": ops.fused_logits_counts}
 
 
 def _implied_config2(ops, col, n_batches: int) -> dict:
@@ -2387,7 +2428,7 @@ def _bootstrap_pass(mt, ops, batches, correct: list, strategy: str, checks: dict
             boot.update(preds, target)
         return boot.compute()
 
-    out, secs, counts = _driven(ops, f"bootstrap ({strategy})", run, lambda: {"logits": fed, "canonical": 0})
+    out, secs, counts = _driven(ops, f"bootstrap ({strategy})", run, lambda: {"logits": fed, "canonical": 0, "planes": 0})
     if not boot._stacked:
         raise AssertionError("BootStrapper(Accuracy) did not take the stacked draws the JAX package takes")
     got_hits = np.array([int(m.tp.sum()) for m in boot.metrics])
@@ -2689,7 +2730,7 @@ def phase_wrappers_retrieval(mt, ops, card: str) -> Tuple[dict, dict]:
             cw.update(preds, target)
         return cw.compute()
 
-    out_cw, secs, counts = _driven(ops, "classwise", run_cw, lambda: {"logits": n_batches, "canonical": 0})
+    out_cw, secs, counts = _driven(ops, "classwise", run_cw, lambda: {"logits": n_batches, "canonical": 0, "planes": 0})
     add(counts)
     cm = ref["cm"]
     per_class = np.diag(cm) / cm.sum(axis=1)
@@ -2703,7 +2744,7 @@ def phase_wrappers_retrieval(mt, ops, card: str) -> Tuple[dict, dict]:
     def run_mm():
         return [mm(preds, target) for preds, target in batches], mm.compute()
 
-    (steps, out_mm), secs, counts = _driven(ops, "minmax", run_mm, lambda: {"logits": n_batches, "canonical": 0})
+    (steps, out_mm), secs, counts = _driven(ops, "minmax", run_mm, lambda: {"logits": n_batches, "canonical": 0, "planes": 0})
     add(counts)
     batch_acc = np.array([ok.mean() for ok in correct])
     _check_bound("minmax batch values", torch.stack([s["raw"] for s in steps]), batch_acc, 2 * U32 * batch_acc, checks, "wrappers/retrieval")
@@ -3282,7 +3323,7 @@ def _phase_windows(mt, ops, kll, checks: dict) -> Tuple[dict, dict, dict]:
     secs = time.perf_counter() - start
     launches = {route: fn.launches for route, fn in _counters(ops).items()}
     kll_launches = kll.kll_fold.launches
-    implied = {"logits": updates, "canonical": 0}
+    implied = {"logits": updates, "canonical": 0, "planes": 0}
     print(f"windows: {updates} updates, {computes} computes, {evicted} evictions in {secs:.2f} s; stat-scores launches "
           f"{launches} (updates imply {implied}); kll_fold launches {kll_launches} (updates and compute merges imply "
           f"{updates + computes})")
@@ -4619,7 +4660,7 @@ def _core_windows(mt, ops, batches) -> Tuple[dict, int]:
     grouped, _, counts = _driven(
         ops, "core_obs (e) windows in one compute group",
         lambda: drive(col.update, col.advance_windows, col.compute),
-        lambda: {"logits": total + 1, "canonical": 0},  # both members on the first batch, then the leader alone
+        lambda: {"logits": total + 1, "canonical": 0, "planes": 0},  # both members on the first batch, then the leader alone
     )
     alone = windows()
     members = list(alone.values())
@@ -7804,7 +7845,7 @@ def phase_utils(mt, ops, card: str) -> Tuple[dict, dict]:
     forward, launches = _launches_of(counters, lambda: _utils_forward_check(mt, preds, target))
     # the first comparison: the full-state forward updates twice (the accumulated state, then the batch), the other once;
     # then each step of each repetition likewise, and compute() launches nothing
-    implied = {"logits": 3 + UTILS_REPS * sum(UTILS_STEPS) * 3, "canonical": 0}
+    implied = {"logits": 3 + UTILS_REPS * sum(UTILS_STEPS) * 3, "canonical": 0, "planes": 0}
     print(f"phase 20 (a) launches per entry point: {launches} (the forwards imply {implied})")
     if launches != implied:
         raise AssertionError("check_forward_full_state_property did not launch the logits kernel as its forwards imply")
@@ -7817,6 +7858,65 @@ def phase_utils(mt, ops, card: str) -> Tuple[dict, dict]:
     print(f"utilities phase took {secs:.1f} s ({card})")
     line = {"utils": {"card": card, "forward_check": forward, "helpers": helpers, "checks": checks,
                       "launches": launches, "phase_s": secs}}
+    return launches, line
+
+
+SEG_SHAPE, SEG_CLASSES, SEG_STEPS = (1024, 2048), 19, 4  # phase 21: Cityscapes val images, one a step
+
+
+def _seg_collection(mt):
+    """The segmentation evaluation: mIoU, mean class accuracy over every pixel and the confusion matrix."""
+    return mt.MetricCollection({
+        "iou": mt.JaccardIndex(num_classes=SEG_CLASSES, device=DEVICE),
+        "acc": mt.Accuracy(num_classes=SEG_CLASSES, average="macro", mdmc_average="global", device=DEVICE),
+        "cm": mt.ConfusionMatrix(num_classes=SEG_CLASSES, device=DEVICE),
+    }, device=DEVICE)
+
+
+def phase_segmentation(mt, ops, card: str) -> Tuple[dict, dict]:
+    """Phase 21: the segmentation collection's ``forward`` on ``(1, 19, 1024, 2048)`` float32 logits and int64
+    labels in blocks of 16 pixels.  Each member's update counts the logits with the planes entry point, so a
+    step launches it 3 times and no other stat-scores kernel; the states equal ``torch.bincount``'s counts bitwise.
+    Returns the phase's launches per entry point and its line."""
+    phase_start = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 21)
+    h, w = SEG_SHAPE
+    batches = []
+    for _ in range(SEG_STEPS):
+        blocks = torch.randint(0, SEG_CLASSES, (1, h // 16, w // 16), generator=gen, device=DEVICE)
+        labels = blocks.repeat_interleave(16, 1).repeat_interleave(16, 2)
+        logits = torch.randn((1, SEG_CLASSES, h, w), generator=gen, device=DEVICE)
+        logits.scatter_add_(1, labels[:, None], torch.full((1, 1, h, w), 2.0, device=DEVICE))  # right on most pixels
+        batches.append((logits, labels))
+    warm = _seg_collection(mt)
+    warm(*batches[0])
+    warm.compute()
+    col = _seg_collection(mt)
+
+    def run():
+        return [col(logits, labels) for logits, labels in batches], col.compute()
+
+    (steps, final), secs, launches = _driven(ops, "segmentation forward", run,
+                                             lambda: {"logits": 0, "canonical": 0, "planes": 3 * SEG_STEPS})
+    want = sum(torch.bincount((labels * SEG_CLASSES + logits.argmax(1)).reshape(-1), minlength=SEG_CLASSES**2)
+               for logits, labels in batches).reshape(SEG_CLASSES, SEG_CLASSES)
+    tp = torch.diagonal(want)
+    acc = col["acc"]
+    states = {"iou.confmat": (col["iou"].confmat, want), "cm.confmat": (col["cm"].confmat, want),
+              "acc.tp": (acc.tp, tp), "acc.fp": (acc.fp, want.sum(0) - tp), "acc.fn": (acc.fn, want.sum(1) - tp),
+              "acc.tn": (acc.tn, SEG_STEPS * h * w - want.sum(0) - want.sum(1) + tp)}
+    for name, (got, expected) in states.items():
+        if not torch.equal(got.long(), expected):
+            raise AssertionError(f"segmentation forward: {name} differs from bincount's counts")
+    if not torch.equal(final["cm"], col["cm"].confmat) or len(steps) != SEG_STEPS:
+        raise AssertionError("segmentation forward: compute() is not the accumulated confusion matrix")
+    mpixels_per_s = SEG_STEPS * h * w / secs / 1e6
+    print(f"check segmentation forward: {SEG_STEPS} steps, states {sorted(states)} bitwise bincount's; launches "
+          f"{launches}; {mpixels_per_s!r} Mpixels/s forward + compute ({card})")
+    del batches, warm
+    secs = time.perf_counter() - phase_start
+    line = {"segmentation": {"card": card, "steps": SEG_STEPS, "launches": launches, "bitwise": True,
+                             "mpixels_per_s": mpixels_per_s, "phase_s": secs}}
     return launches, line
 
 
@@ -7911,7 +8011,62 @@ def phase_timings(ops, launches: dict, max_abs_err: Tuple[int, int]) -> list:
             "library_ms": None,
             "library_note": "no single PyTorch call computes the four counts from logits and labels",
         }
-    return [canonical, logits_entry]
+    return [canonical, logits_entry, _plane_timings(ops, empty_ms, max_abs_err[2])]
+
+
+def _plane_timings(ops, empty_ms: float, max_abs_err: int) -> dict:
+    """The planes entry point at a Cityscapes image, ``(1, 19, 1024 * 2048)`` float32 logits and int64 labels,
+    in both forms, beside its plain version, the one-hot chains it replaces and its byte bound."""
+    from metrics_tpu_torch.utils.checks import _input_format_classification
+    from metrics_tpu_torch.utils.data import _confusion_counts
+
+    n, c, x = 1, 19, 1024 * 2048
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
+    labels = torch.randint(0, c, (n, x), generator=gen, device=DEVICE)
+    logits = torch.rand((n, c, x), generator=gen, device=DEVICE)
+    logits.scatter_add_(1, labels[:, None], torch.full((n, 1, x), 0.5, device=DEVICE))  # right on most pixels
+    # each input read once, the outputs written once; C order keys and compares per pixel
+    bound_ms, bound_by = _bound(n * x * (c * logits.element_size() + labels.element_size()) + c * c * 4, 3 * n * c * x)
+
+    def chain(form: str):
+        preds, target, _ = _input_format_classification(logits, labels, num_classes=c)
+        if form == "confmat":  # the argmax of both one-hots, then bincount
+            return _confusion_counts(torch.argmax(preds, dim=1), torch.argmax(target, dim=1), c)
+        return ops.fused_stat_scores(torch.movedim(preds, 1, 2).reshape(-1, c).contiguous(),
+                                     torch.movedim(target, 1, 2).reshape(-1, c).contiguous())
+
+    forms = {}
+    for form in ("confmat", "stat_scores"):
+        kernel = lambda: ops.fused_logits_counts(logits, labels, form)  # noqa: E731
+        plain = lambda: ops.fused_logits_counts_plain(logits, labels, form)  # noqa: E731
+        own_ms = _one_launch(f"stat_scores_planes {form}", kernel)
+        print(f"stat_scores_planes {form} at {(n, c, x)} float32 logits, int64 labels, device ms per call, in turns:")
+        times = _in_turns({"plain": plain, "kernel": kernel}, ["plain", "kernel", "kernel", "plain"])
+        chain_ms = _call_ms(lambda: chain(form), reps=10, warmup=2)
+        kernel_call_ms = _call_ms(kernel)
+        print(f"stat_scores_planes {form} at {(n, c, x)}: kernel {times['kernel']!r} ms (its own device time {own_ms!r} "
+              f"ms), plain {times['plain']!r} ms, bound {bound_ms!r} ms ({bound_by}); one call on an idle card, host "
+              f"launch work included: kernel {kernel_call_ms!r} ms, the one-hot chain it replaces {chain_ms!r} ms")
+        forms[form] = {"ms": times["kernel"], "kernel_ms": own_ms, "plain_ms": times["plain"],
+                       "call_ms": kernel_call_ms, "chain_call_ms": chain_ms}
+    return {
+        "name": "stat_scores_planes",
+        "route": "cuda",
+        "source": "metrics_tpu_torch/ops/csrc/stat_scores.cu",
+        "replaces": "metrics_tpu/ops/stat_scores_pallas.py:124",
+        "replaces_note": "on the (N, C, X) global route its counts form does the Pallas kernel's per-class counts of the "
+                         "one-hots, which the canonical entry point still does on the canonical route; its confusion "
+                         "form replaces no TPU kernel (the JAX package argmaxes the one-hots, then bincounts)",
+        "launches": 0,
+        "bitwise": max_abs_err == 0,
+        "max_abs_err": max_abs_err,
+        "empty_kernel_ms": empty_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "forms": forms,
+        "library_ms": None,
+        "library_note": "no single PyTorch call counts multi-dimensional logits against labels",
+    }
 
 
 def main() -> int:
@@ -7969,12 +8124,17 @@ def main() -> int:
     mesh_launches, mesh_line = phase_mesh(mt, ops, card)
     torch.cuda.empty_cache()
     utils_launches, utils_line = phase_utils(mt, ops, card)
+    torch.cuda.empty_cache()
+    seg_launches, seg_line = phase_segmentation(mt, ops, card)
     print(f"launches per entry point: main path {launches}, curve phase {curve_launches}, "
           f"rest of classification {rest_launches}, regression {regression_launches}, "
           f"wrappers and retrieval {wrapper_launches}, streaming {streaming_launches}, multistream {ms_launches}, "
           f"core and obs {core_launches} and {core_counts}, serve {serve_launches}, fleet {fleet_launches}, "
-          f"mesh {mesh_launches}, utilities {utils_launches}")
+          f"mesh {mesh_launches}, utilities {utils_launches}, segmentation {seg_launches}")
     for entry in kernels:
+        if entry["name"] == "stat_scores_planes":  # only the segmentation phase's route launches it
+            entry["launches"] = seg_launches["planes"]
+            continue
         route = "canonical" if entry["name"] == "stat_scores" else "logits"
         entry["launches"] += (curve_launches[route] + rest_launches[route] + regression_launches[route]
                               + wrapper_launches[route] + streaming_launches[route] + ms_launches[route]
@@ -8007,6 +8167,7 @@ def main() -> int:
     print(json.dumps(fleet_line))
     print(json.dumps(mesh_line))
     print(json.dumps(utils_line))
+    print(json.dumps(seg_line))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,8 @@ from typing import Optional
 
 import torch
 
-from metrics_tpu_torch.utils.checks import _input_format_classification
+from metrics_tpu_torch.functional.classification.stat_scores import _is_multidim_logits, _logits_counts
+from metrics_tpu_torch.utils.checks import _canonical_format, _checked_inputs
 from metrics_tpu_torch.utils.data import _bincount, _confusion_counts
 from metrics_tpu_torch.utils.enums import DataType
 from metrics_tpu_torch.utils.prints import warn_once
@@ -19,16 +20,22 @@ def _confusion_matrix_update(
     multilabel: bool = False,
     validate_args: bool = True,
 ) -> torch.Tensor:
-    """Unnormalized int32 confusion counts: ``(C, C)``, or ``(C, 2, 2)`` for multilabel."""
-    preds, target, mode = _input_format_classification(
-        preds,
-        target,
-        threshold,
-        # pass num_classes so out-of-range labels fail validation loudly instead
-        # of being silently dropped by the fixed-length bincount
-        num_classes=None if multilabel else num_classes,
-        validate_args=validate_args,
+    """Unnormalized int32 confusion counts: ``(C, C)``, or ``(C, 2, 2)`` for multilabel.
+
+    Multi-dimensional float logits ``(N, C, ...)`` with labels ``(N, ...)`` and
+    ``num_classes == C`` are counted straight from the logits
+    (:func:`fused_logits_counts`); every other input goes through the
+    one-hots, their argmax and a ``bincount``.
+    """
+    # pass num_classes so out-of-range labels fail validation loudly instead
+    # of being silently dropped by the fixed-length bincount
+    checked_classes = None if multilabel else num_classes
+    preds, target, mode = _checked_inputs(
+        preds, target, threshold, num_classes=checked_classes, validate_args=validate_args
     )
+    if not multilabel and _is_multidim_logits(preds, target, mode, "confmat") and num_classes == preds.shape[1]:
+        return _logits_counts(preds, target, "confmat")
+    preds, target, mode = _canonical_format(preds, target, mode, threshold, num_classes=checked_classes)
     if mode not in (DataType.BINARY, DataType.MULTILABEL):
         preds = torch.argmax(preds, dim=1)
         target = torch.argmax(target, dim=1)

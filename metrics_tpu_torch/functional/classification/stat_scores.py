@@ -5,8 +5,10 @@ Absent or ignored classes are marked with a ``-1`` denominator sentinel and
 masked inside :func:`_reduce_stat_scores`, as in the JAX package.
 
 Float logits ``(N, C)`` with integer labels ``(N,)`` (the main path) go
-straight to :func:`fused_stat_scores_logits`; every other input is first
-canonicalised to binary one-hots and counted by :func:`_stat_scores`.
+straight to :func:`fused_stat_scores_logits`, and multi-dimensional logits
+``(N, C, ...)`` with labels ``(N, ...)`` under ``mdmc_reduce="global"`` to
+:func:`fused_logits_counts`; every other input is first canonicalised to
+binary one-hots and counted by :func:`_stat_scores`.
 """
 
 import math
@@ -14,13 +16,16 @@ from typing import Optional, Tuple
 
 import torch
 
+from metrics_tpu_torch.obs import core as _obs
 from metrics_tpu_torch.ops.stat_scores import (
     LABEL_DTYPES,
     LOGIT_DTYPES,
+    fused_logits_counts,
     fused_stat_scores,
     fused_stat_scores_logits,
     fused_stream_stat_scores,
     fused_stream_stat_scores_logits,
+    logits_counts_fit,
 )
 from metrics_tpu_torch.utils.checks import _as_tensor, _canonical_format, _checked_inputs
 from metrics_tpu_torch.utils.enums import AverageMethod, DataType, MDMCAverageMethod
@@ -104,6 +109,53 @@ def _takes_logits_route(
     )
 
 
+def _is_multidim_logits(preds: torch.Tensor, target: torch.Tensor, case: DataType, form: str) -> bool:
+    """Whether checked inputs are float logits ``(N, C, ...)`` against integer labels ``(N, ...)``
+    that :func:`fused_logits_counts` counts in ``form`` in one pass."""
+    return (
+        case == DataType.MULTIDIM_MULTICLASS
+        and preds.ndim >= 3
+        and preds.dtype in LOGIT_DTYPES
+        and target.dtype in LABEL_DTYPES
+        and target.shape == preds.shape[:1] + preds.shape[2:]
+        and target.numel() < 2**31 - 1
+        and logits_counts_fit(preds.shape[1], form)
+    )
+
+
+def _logits_counts(preds: torch.Tensor, target: torch.Tensor, form: str):
+    """:func:`fused_logits_counts` of ``(N, C, ...)`` logits and ``(N, ...)`` labels, counted
+    as ``engine.logits_counts`` while obs is enabled."""
+    if _obs.enabled():
+        _obs.counter_inc("engine.logits_counts", form=form)
+    logits = preds.reshape(preds.shape[0], preds.shape[1], -1).contiguous()
+    return fused_logits_counts(logits, target.reshape(target.shape[0], -1).contiguous(), form)
+
+
+def _takes_multidim_logits_route(
+    preds: torch.Tensor,
+    target: torch.Tensor,
+    case: DataType,
+    reduce: Optional[str],
+    mdmc_reduce: Optional[str],
+    num_classes: Optional[int],
+    top_k: Optional[int],
+    multiclass: Optional[bool],
+    ignore_index: Optional[int],
+) -> bool:
+    """Whether checked inputs count straight from multi-dimensional logits: top-1 ``(N, C, ...)``
+    logits against ``(N, ...)`` labels, macro or micro over all pixels, nothing ignored."""
+    return (
+        reduce in ("macro", "micro")
+        and mdmc_reduce == "global"
+        and _is_multidim_logits(preds, target, case, "stat_scores")
+        and top_k in (None, 1)
+        and multiclass is not False
+        and ignore_index is None
+        and num_classes in (None, preds.shape[1])
+    )
+
+
 def _drop_negative_ignored_indices(
     preds: torch.Tensor, target: torch.Tensor, ignore_index: int, mode: DataType
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -152,6 +204,10 @@ def _stat_scores_update(
     )
     if _takes_logits_route(preds, target, case, reduce, num_classes, top_k, multiclass, ignore_index):
         return _reduced(fused_stat_scores_logits(preds.contiguous(), target.contiguous()), reduce)
+    if _takes_multidim_logits_route(
+        preds, target, case, reduce, mdmc_reduce, num_classes, top_k, multiclass, ignore_index
+    ):
+        return _reduced(_logits_counts(preds, target, "stat_scores"), reduce)
     preds, target, _ = _canonical_format(preds, target, case, threshold, top_k, num_classes, multiclass)
 
     if ignore_index is not None and ignore_index >= preds.shape[1]:

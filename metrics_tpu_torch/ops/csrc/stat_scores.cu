@@ -1,4 +1,4 @@
-// Per-class tp/fp/tn/fn counts on Hopper: three entry points, one launch each.
+// Per-class tp/fp/tn/fn counts on Hopper: four entry points, one launch each.
 //
 // Replaces the Pallas TPU kernel
 // metrics_tpu/ops/stat_scores_pallas.py::fused_stat_scores (its `_kernel`).
@@ -26,6 +26,16 @@
 //    classes, (S,): the JAX package's Pallas kernel under jax.vmap, one row at
 //    a time, with segment_sum into the streams
 //    (metrics_tpu/multistream/core.py, the segment strategy).
+// D. stat_scores_planes_{f32,b16}: multi-dimensional float logits (N, C, X)
+//    and integer labels (N, X), each pixel's argmax over the C planes (B's
+//    order), counted in one of two forms: the (C, C) confusion counts in
+//    [target, pred] order, as the JAX package's confusion update counts
+//    (argmax(select_topk(logits)), argmax(to_onehot(labels))), so a label
+//    outside [0, C) counts in row 0; or B's four (C,) counts of the same
+//    pixels, from tp, pc and lc, a label outside [0, C) adding no fn.  It
+//    replaces no TPU kernel: the JAX package counts these inputs through the
+//    one-hots and the Pallas kernel (or a one-hot matmul), which on this card
+//    turned a 176 MB read into about 1.3 GB of one-hot traffic (PERF.md).
 //
 // What bounds them on an H100: bytes.  A reads 2 * N * C * sizeof(T) bytes
 // (8.19 MB for (1024, 1000) int32, 2.45 us at 3.35 TB/s); B reads the logits
@@ -995,6 +1005,221 @@ int stream_counts(const void* a, const void* b, int b_is_64, const void* ids, in
                                                                    out, static_cast<cudaStream_t>(stream))));
 }
 
+// ---------------------------------------------------------------- D: multi-dimensional logits and labels
+//
+// What bounds it: bytes.  It reads the logits and labels once, N * X * (C * sizeof(T) + sizeof(label)):
+// 176 MB for (1, 19, 1024 * 2048) float32 with int64 labels, 0.0526 ms at 3.35 TB/s.  Per pixel it does C
+// order keys and compares, and one shared-memory increment per group of equal pixels in a warp.
+// The design, one cooperative launch:
+//   * Adjacent threads take adjacent words (16 bytes: 4 float32 or 8 16-bit pixels) of one channel plane, so
+//     each plane is read with coalesced 16-byte loads; each thread walks the C planes at stride X with
+//     kPlaneUnroll loads in flight and keeps its pixels' best keys and indices in registers.  Nothing is
+//     written per pixel: no one-hot, no argmax tensor, no scratch.
+//   * Each block counts into shared memory: C * C bins (confusion form) or [tp | pc | lc] (3C, counts form).
+//     Pixels of a warp with the same (label, argmax) pair are added together, one increment by one lane
+//     (__match_any_sync): 85-95 % of a segmentation's pixels fall on the diagonal, in runs of one label.
+//   * Every block stores its bins to its own row of scratch, one grid barrier, and each block then owns a
+//     range of the outputs and sums that range over the blocks' rows (many threads to an output, reading
+//     through L2), storing each output element once.  The scratch is 2 * SMs rows at most, written whole.
+// The bins must fit a block's shared memory (kMaxBinBytes: C <= 226 for the confusion form); the Engine
+// keeps larger inputs on the one-hot route.
+
+constexpr int kPlaneThreads = 512;        // D: threads a block, two blocks an SM
+constexpr int kPlaneUnroll = 4;           // D: channel planes each thread has in flight
+// D: the most shared memory a block's bins may take.  ops/stat_scores.py's MAX_PLANE_BINS is this / 4, and
+// the Engine routes by it: change both together (a CPU test holds them equal).
+constexpr int kMaxBinBytes = 200 * 1024;
+
+// The classes of kVec consecutive labels: a label in [0, C) as it is, any other as `outside`.  With `vec`
+// the labels are read in 16-byte words (the wrapper's base pointer aligned to 16 bytes).
+template <typename L, int kVec>
+__device__ __forceinline__ void load_classes(const L* src, bool vec, int64_t c, int outside, int (&cls)[kVec]) {
+  constexpr int kPer = 16 / static_cast<int>(sizeof(L));  // labels a word
+  L l[kVec];
+  if (kVec % kPer == 0 && vec) {
+#pragma unroll
+    for (int i = 0; i < kVec / kPer; ++i) {
+      const Pack<L, 16> w = load<L, 16>(src + i * kPer);
+#pragma unroll
+      for (int e = 0; e < kPer; ++e) l[i * kPer + e] = w.e[e];
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) l[e] = __ldg(src + e);
+  }
+#pragma unroll
+  for (int e = 0; e < kVec; ++e) cls[e] = l[e] >= 0 && l[e] < c ? static_cast<int>(l[e]) : outside;
+}
+
+// out: (C, C) with kConfusion, else (4, C) rows tp, fp, tn, fn; partial: gridDim.x rows of the bins.
+template <typename T, int VB, bool kConfusion>
+__global__ void __launch_bounds__(kPlaneThreads, 2)
+plane_counts_kernel(const T* __restrict__ logits, const void* __restrict__ labels, int labels_are_64,
+                    int labels_vec, int64_t n, int64_t c, int64_t x, int* __restrict__ out, int* partial) {
+  constexpr int kVec = VB / sizeof(T);  // pixels a thread takes at once, side by side in each plane
+  extern __shared__ int bins[];         // C * C confusion counts, or [tp | pc | lc] of each class
+  __shared__ int sums[kPlaneThreads];   // the fold's
+  const int64_t nbins = kConfusion ? c * c : 3 * c;
+  for (int64_t j = threadIdx.x; j < nbins; j += kPlaneThreads) bins[j] = 0;
+  __syncthreads();
+
+  const int lane = threadIdx.x % 32;
+  const int64_t per_image = x / kVec;  // with more than one pixel a word, X is a multiple of kVec
+  const int64_t groups = n * per_image;
+  const int outside = kConfusion ? 0 : static_cast<int>(c);  // the class a label outside [0, C) counts as
+  // the warp's lanes take neighbouring groups, and the whole warp loops while any of them is live
+  for (int64_t first = static_cast<int64_t>(blockIdx.x) * kPlaneThreads + (threadIdx.x - lane); first < groups;
+       first += static_cast<int64_t>(gridDim.x) * kPlaneThreads) {
+    const int64_t g = first + lane;
+    const bool live = g < groups;
+    int key[kVec], arg[kVec], cls[kVec];
+    if (live) {
+      const int64_t image = g / per_image;
+      if (labels_are_64) {
+        load_classes<long long, kVec>(static_cast<const long long*>(labels) + g * kVec, labels_vec, c, outside, cls);
+      } else {
+        load_classes<int, kVec>(static_cast<const int*>(labels) + g * kVec, labels_vec, c, outside, cls);
+      }
+      const T* base = logits + image * c * x + (g - image * per_image) * kVec;
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) {
+        key[e] = INT_MIN;  // at most the least key, so plane 0 always sets the index
+        arg[e] = 0;
+      }
+      for (int64_t k0 = 0; k0 < c; k0 += kPlaneUnroll) {
+        Pack<T, VB> w[kPlaneUnroll];
+#pragma unroll
+        for (int u = 0; u < kPlaneUnroll; ++u) {
+          if (k0 + u < c) w[u] = load<T, VB>(base + (k0 + u) * x);
+        }
+#pragma unroll
+        for (int u = 0; u < kPlaneUnroll; ++u) {
+          if (k0 + u < c) {
+#pragma unroll
+            for (int e = 0; e < kVec; ++e) {
+              const int k = order_key(w[u].e[e]);
+              if (k > key[e]) {  // strictly greater: of tied planes the lowest index stays
+                key[e] = k;
+                arg[e] = static_cast<int>(k0) + u;
+              }
+            }
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) {
+      const int code = live ? cls[e] * static_cast<int>(c) + arg[e] : -1;  // the (label, argmax) pair
+      const unsigned same = __match_any_sync(0xffffffffu, code);
+      if (live && lane == __ffs(same) - 1) {
+        const int k = __popc(same);
+        if constexpr (kConfusion) {
+          atomicAdd(bins + code, k);
+        } else {
+          atomicAdd(bins + c + arg[e], k);
+          if (cls[e] == arg[e]) atomicAdd(bins + arg[e], k);
+          if (cls[e] < c) atomicAdd(bins + 2 * c + cls[e], k);
+        }
+      }
+    }
+  }
+  __syncthreads();
+  int* mine = partial + static_cast<int64_t>(blockIdx.x) * nbins;
+  for (int64_t j = threadIdx.x; j < nbins; j += kPlaneThreads) mine[j] = bins[j];
+
+  cg::this_grid().sync();  // every block's bins are in scratch
+
+  // each block owns a range of the outputs (classes in the counts form, each three bins), a round of at most
+  // kPlaneThreads bins at a time, each bin summed over the blocks' rows by `ways` threads
+  constexpr int kPer = kConfusion ? 1 : 3;
+  const int64_t units = kConfusion ? c * c : c;
+  const int64_t share = (units + gridDim.x - 1) / gridDim.x;
+  const int64_t u0 = static_cast<int64_t>(blockIdx.x) * share;
+  const int64_t u1 = u0 + share < units ? u0 + share : units;
+  for (int64_t k0 = u0; k0 < u1; k0 += kPlaneThreads / kPer) {
+    const int width = static_cast<int>(u1 - k0 < kPlaneThreads / kPer ? u1 - k0 : kPlaneThreads / kPer);
+    const int entries = kPer * width;
+    const int ways = kPlaneThreads / entries;
+    sums[threadIdx.x] = 0;
+    __syncthreads();
+    if (static_cast<int>(threadIdx.x) < ways * entries) {
+      const int i = threadIdx.x % entries;
+      const int64_t bin = kConfusion ? k0 + i : (i / width) * c + k0 + i % width;
+      int sum = 0;
+      for (int64_t b = threadIdx.x / entries; b < gridDim.x; b += ways) {
+        sum += __ldcg(partial + b * nbins + bin);  // written by other blocks in this launch: read through L2
+      }
+      atomicAdd(sums + i, sum);
+    }
+    __syncthreads();
+    if (static_cast<int>(threadIdx.x) < width) {
+      const int64_t u = k0 + threadIdx.x;
+      if constexpr (kConfusion) {
+        out[u] = sums[threadIdx.x];
+      } else {  // B's identities
+        const int tp = sums[threadIdx.x], pc = sums[width + threadIdx.x], lc = sums[2 * width + threadIdx.x];
+        out[u] = tp;
+        out[c + u] = pc - tp;
+        out[2 * c + u] = static_cast<int>(n * x) - pc - lc + tp;
+        out[3 * c + u] = lc - tp;
+      }
+    }
+    __syncthreads();
+  }
+}
+
+template <typename T, int VB, bool kConfusion>
+cudaError_t launch_planes(const void* logits, const void* labels, int labels_are_64, int64_t n, int64_t c, int64_t x,
+                          int64_t slots, void* partial, void* out, cudaStream_t stream) {
+  auto kernel = plane_counts_kernel<T, VB, kConfusion>;
+  const size_t smem = static_cast<size_t>(kConfusion ? c * c : 3 * c) * sizeof(int);
+  if (smem > static_cast<size_t>(kMaxBinBytes)) return cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxBinBytes);
+    if (err != cudaSuccess) return err;
+  }
+  int per_sm = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kPlaneThreads, smem);
+  if (err != cudaSuccess) return err;
+  const int64_t resident = static_cast<int64_t>(sm_count()) * per_sm;  // a cooperative grid is resident at once
+  if (resident == 0) return cudaErrorInvalidValue;
+  constexpr int kVec = VB / sizeof(T);
+  int64_t blocks = (n * (x / kVec) + kPlaneThreads - 1) / kPlaneThreads;  // at most a group a thread
+  blocks = blocks < resident ? blocks : resident;
+  blocks = blocks < slots ? blocks : slots;  // the rows of scratch the wrapper allocated
+  blocks = blocks > 0 ? blocks : 1;
+
+  const T* logits_t = static_cast<const T*>(logits);
+  int labels_vec = reinterpret_cast<uintptr_t>(labels) % 16 == 0;
+  int* out_i = static_cast<int*>(out);
+  int* partial_i = static_cast<int*>(partial);
+  void* args[] = {&logits_t, &labels, &labels_are_64, &labels_vec, &n, &c, &x, &out_i, &partial_i};
+  return cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel), dim3(static_cast<unsigned>(blocks)),
+                                     dim3(kPlaneThreads), args, smem, stream);
+}
+
+template <typename T, bool kConfusion>
+cudaError_t dispatch_planes(const void* logits, const void* labels, int labels_are_64, int64_t n, int64_t c,
+                            int64_t x, int64_t slots, void* partial, void* out, cudaStream_t stream) {
+  // 16-byte words where the base and the plane stride allow them, else one pixel a thread
+  if (vector_bytes(logits, logits, x * static_cast<int64_t>(sizeof(T))) >= 16) {
+    return launch_planes<T, 16, kConfusion>(logits, labels, labels_are_64, n, c, x, slots, partial, out, stream);
+  }
+  return launch_planes<T, sizeof(T), kConfusion>(logits, labels, labels_are_64, n, c, x, slots, partial, out, stream);
+}
+
+template <typename T>
+int plane_counts(const void* logits, const void* labels, int labels_are_64, int64_t n, int64_t c, int64_t x,
+                 int confusion, int64_t slots, void* partial, void* out, void* stream) {
+  if (n < 0 || x < 0 || c <= 0 || c >= INT_MAX / (c + 1) || slots <= 0 || n * x >= INT_MAX) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(launched(
+      confusion ? dispatch_planes<T, true>(logits, labels, labels_are_64, n, c, x, slots, partial, out, s)
+                : dispatch_planes<T, false>(logits, labels, labels_are_64, n, c, x, slots, partial, out, s)));
+}
+
 }  // namespace
 
 extern "C" {
@@ -1044,6 +1269,18 @@ int stream_stat_scores_i32(const void* preds, const void* target, const void* id
 int stream_stat_scores_u8(const void* preds, const void* target, const void* ids, int ids_are_64, int64_t n,
                           int64_t c, int64_t s, int micro, void* out, void* stream) {
   return stream_counts<uint8_t, false>(preds, target, 0, ids, ids_are_64, n, c, s, micro, out, stream);
+}
+
+// D: logits (N, C, X); labels (N, X) int64 when labels_are_64, else int32; partial: `slots` rows of int32
+// scratch, each C * C (confusion) or 3 * C long; out: (C, C) int32 when confusion, else (4, C)
+int stat_scores_planes_f32(const void* logits, const void* labels, int labels_are_64, int64_t n, int64_t c, int64_t x,
+                           int confusion, int64_t slots, void* partial, void* out, void* stream) {
+  return plane_counts<float>(logits, labels, labels_are_64, n, c, x, confusion, slots, partial, out, stream);
+}
+
+int stat_scores_planes_b16(const void* logits, const void* labels, int labels_are_64, int64_t n, int64_t c, int64_t x,
+                           int confusion, int64_t slots, void* partial, void* out, void* stream) {
+  return plane_counts<unsigned short>(logits, labels, labels_are_64, n, c, x, confusion, slots, partial, out, stream);
 }
 
 }  // extern "C"

@@ -1,7 +1,7 @@
 """Fused tp/fp/tn/fn counts: the hand-written CUDA kernels, their plain versions and their loader.
 
 Counterpart of ``metrics_tpu/ops/stat_scores_pallas.py::fused_stat_scores``,
-with two entry points in ``csrc/stat_scores.cu``, one launch each:
+with four entry points in ``csrc/stat_scores.cu``, one launch each:
 
 * :func:`fused_stat_scores` counts canonical binary ``(N, C)`` operands, the
   TPU kernel's own function;
@@ -13,7 +13,11 @@ with two entry points in ``csrc/stat_scores.cu``, one launch each:
   count the same inputs per stream: each row carries a stream id and adds
   its counts into its stream's row of ``(S, C)`` outputs (``(S,)`` summed
   over the classes with ``micro``), as the JAX package's multistream segment
-  update adds each row's own stat-scores update into its stream.
+  update adds each row's own stat-scores update into its stream;
+* :func:`fused_logits_counts` counts multi-dimensional float logits
+  ``(N, C, X)`` against integer labels ``(N, X)``, each pixel's argmax over
+  the channel planes, into the ``(C, C)`` confusion counts or the four
+  per-class counts: what the one-hot route counts, without the one-hots.
 
 CUDA tensors launch the kernel and CPU tensors take the plain version.  The
 kernels are compiled with ``nvcc`` from the package's own source at first use,
@@ -28,7 +32,7 @@ from typing import Tuple
 import torch
 
 from metrics_tpu_torch.ops import _build
-from metrics_tpu_torch.utils.data import select_topk, to_onehot
+from metrics_tpu_torch.utils.data import _total_order_keys, select_topk, to_onehot
 
 _SOURCE = _build.CSRC / "stat_scores.cu"
 _COUNT_FUNCTIONS = {torch.int32: "stat_scores_i32", torch.bool: "stat_scores_u8"}
@@ -42,6 +46,12 @@ LABEL_DTYPES = (torch.int64, torch.int32)
 _STREAM_LOGITS_FUNCTIONS = {dtype: "stream_" + name for dtype, name in _LOGITS_FUNCTIONS.items()}
 _STREAM_COUNT_FUNCTIONS = {dtype: "stream_" + name for dtype, name in _COUNT_FUNCTIONS.items()}
 ID_DTYPES = (torch.int64, torch.int32)
+_PLANE_FUNCTIONS = {torch.float32: "stat_scores_planes_f32", torch.bfloat16: "stat_scores_planes_b16",
+                    torch.float16: "stat_scores_planes_b16"}
+FORMS = ("confmat", "stat_scores")
+# the int32 bins a block of the planes kernel holds in shared memory: C * C for "confmat", 3 * C for
+# "stat_scores"; csrc/stat_scores.cu's kMaxBinBytes / 4, changed together with it (a CPU test holds them equal)
+MAX_PLANE_BINS = 200 * 1024 // 4
 
 Counts = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -65,6 +75,10 @@ def _library() -> ctypes.CDLL:
     for name in set(_STREAM_COUNT_FUNCTIONS.values()):
         fn = getattr(lib, name)  # (preds, target, ids, ids_are_64, n, c, s, micro, out, stream)
         fn.argtypes = [pointer, pointer, pointer, ctypes.c_int, i64, i64, i64, ctypes.c_int, pointer, pointer]
+        fn.restype = ctypes.c_int
+    for name in set(_PLANE_FUNCTIONS.values()):
+        fn = getattr(lib, name)  # (logits, labels, labels_are_64, n, c, x, confusion, slots, scratch, out, stream)
+        fn.argtypes = [pointer, pointer, ctypes.c_int, i64, i64, i64, ctypes.c_int, i64, pointer, pointer, pointer]
         fn.restype = ctypes.c_int
     return lib
 
@@ -302,3 +316,101 @@ def fused_stream_stat_scores_logits(logits: torch.Tensor, labels: torch.Tensor, 
 
 
 fused_stream_stat_scores_logits.launches = 0
+
+
+def logits_counts_fit(num_classes: int, form: str) -> bool:
+    """Whether :func:`fused_logits_counts` takes ``num_classes`` classes in ``form``: its bins fit a block."""
+    bins = num_classes * num_classes if form == "confmat" else 3 * num_classes
+    return 0 < bins <= MAX_PLANE_BINS
+
+
+def _check_plane_operands(logits: torch.Tensor, labels: torch.Tensor, form: str) -> None:
+    if form not in FORMS:
+        raise ValueError(f"fused_logits_counts counts in one of the forms {FORMS}, got {form!r}")
+    if not isinstance(logits, torch.Tensor) or not isinstance(labels, torch.Tensor):
+        raise TypeError("fused_logits_counts takes two tensors")
+    if logits.dtype not in LOGIT_DTYPES or labels.dtype not in LABEL_DTYPES:
+        raise TypeError(
+            "fused_logits_counts takes float32, bfloat16 or float16 logits and int64 or int32 labels, got "
+            f"{logits.dtype} and {labels.dtype}"
+        )
+    if logits.ndim != 3 or labels.shape != (logits.shape[0], logits.shape[2]):
+        raise ValueError(
+            f"fused_logits_counts takes (N, C, X) logits and (N, X) labels, got {tuple(logits.shape)} and "
+            f"{tuple(labels.shape)}"
+        )
+    if not logits_counts_fit(logits.shape[1], form):
+        raise ValueError(f"fused_logits_counts takes C >= 1 classes whose {form!r} bins fit a block's shared memory "
+                         f"({MAX_PLANE_BINS} int32), got C = {logits.shape[1]}")
+    if labels.numel() >= 2**31 - 1:
+        raise ValueError(f"fused_logits_counts counts in int32: fewer than 2**31 - 1 pixels, got {labels.numel()}")
+    _check_tensors("fused_logits_counts", logits, labels)
+
+
+def _histogram(index: torch.Tensor, weight: torch.Tensor, length: int) -> torch.Tensor:
+    """int32 sums of ``weight`` at ``index`` over ``[0, length)``; unlike ``bincount``, no read to the host."""
+    out = torch.zeros(length, dtype=torch.int32, device=index.device)
+    return out.index_add_(0, index, weight.to(torch.int32))
+
+
+def fused_logits_counts_plain(logits: torch.Tensor, labels: torch.Tensor, form: str = "stat_scores"):
+    """The planes kernel's function in plain PyTorch: each pixel's argmax over dim 1 (the order of
+    :func:`~metrics_tpu_torch.utils.data.select_topk`), then histograms of the pixels.
+
+    ``"confmat"`` counts the pixel at ``[label, argmax]``, a label outside ``[0, C)`` in row 0, as the
+    argmax of its all-zero one-hot; ``"stat_scores"`` gives what
+    :func:`fused_stat_scores_logits_plain` gives for the pixels as rows.
+    """
+    c = logits.shape[1]
+    pred = _total_order_keys(logits).argmax(1).reshape(-1)
+    label = labels.reshape(-1).to(torch.int64)
+    inside = (label >= 0) & (label < c)
+    row = torch.where(inside, label, 0)
+    if form == "confmat":
+        return _histogram(row * c + pred, torch.ones_like(pred), c * c).reshape(c, c)
+    tp = _histogram(pred, label == pred, c)
+    pc = _histogram(pred, torch.ones_like(pred), c)
+    lc = _histogram(row, inside, c)
+    return tp, pc - tp, label.numel() - pc - lc + tp, lc - tp
+
+
+@functools.lru_cache(maxsize=None)
+def _scratch_rows(index: int) -> int:
+    """The blocks whose bins a call's scratch holds: the kernel launches at most two an SM."""
+    return 2 * torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def fused_logits_counts(logits: torch.Tensor, labels: torch.Tensor, form: str = "stat_scores"):
+    """Counts of each pixel's argmax over the channel planes against its label, in one pass.
+
+    ``logits`` is ``(N, C, X)`` float32, bfloat16 or float16 and ``labels``
+    ``(N, X)`` int64 or int32.  ``form="confmat"`` gives the ``(C, C)`` int32
+    confusion counts in ``[target, pred]`` order, a label outside ``[0, C)``
+    counting in row 0; ``form="stat_scores"`` the per-class ``(tp, fp, tn,
+    fn)``, each ``(C,)`` int32, a label outside ``[0, C)`` adding no fn.  The
+    argmax ranks values as :func:`fused_stat_scores_logits` does.  CPU tensors
+    take :func:`fused_logits_counts_plain`; CUDA tensors launch the kernel on
+    the current stream, one device operation per call, with int32 scratch of
+    two rows of bins an SM.  ``fused_logits_counts.launches`` counts the
+    kernel's launches.
+    """
+    _check_plane_operands(logits, labels, form)
+    if logits.device.type == "cpu":
+        return fused_logits_counts_plain(logits, labels, form)
+    n, c, x = logits.shape
+    confusion = form == "confmat"
+    slots = _scratch_rows(logits.device.index)
+    out = torch.empty((c, c) if confusion else (4, c), dtype=torch.int32, device=logits.device)
+    scratch = torch.empty(slots * (c * c if confusion else 3 * c), dtype=torch.int32, device=logits.device)
+    fn = getattr(_library(), _PLANE_FUNCTIONS[logits.dtype])
+    with torch.cuda.device(logits.device):
+        err = fn(
+            logits.data_ptr(), labels.data_ptr(), labels.dtype == torch.int64, n, c, x, confusion, slots,
+            scratch.data_ptr(), out.data_ptr(), torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_on_error("stat_scores_planes", err)
+    fused_logits_counts.launches += 1
+    return out if confusion else out.unbind(0)
+
+
+fused_logits_counts.launches = 0

@@ -4,8 +4,10 @@ While obs is enabled and a profiler records, every span also opens a user
 annotation of its name, so the trace nests ``collection.forward`` over the
 members' ``metric.forward``, each over its update body
 (``metric.update_impl``), which holds the Validation spans
-(``validation.check``, ``validation.format``) and, for the image metrics, the
-extractor's call (``extractor.forward``).  Disabled, no span site reaches the
+(``validation.check``, and ``validation.format`` where the inputs are
+canonicalised: segmentation logits ``(N, C, H, W)`` are counted straight from
+the logits, without it) and, for the image metrics, the extractor's call
+(``extractor.forward``).  Disabled, no span site reaches the
 profiler; enabled without a profiler, the in-memory aggregates are kept as
 before and no annotation is opened.
 """
@@ -70,7 +72,8 @@ def test_a_collection_forward_nests_its_spans_by_time():
     for forward in forwards:
         (body,) = _named(_inside(spans, forward), "metric.update_impl")
         checks = _named(_inside(spans, forward), "validation.check")
-        assert checks and _named(_inside(spans, body), "validation.format")
+        # the Engine counts the logits without canonicalising them
+        assert checks and not _named(_inside(spans, body), "validation.format")
         assert _named(_inside(spans, body), "validation.check")
         # the batch value's compute follows the update body inside the member's forward
         (value,) = _named(_inside(spans, forward), "metric.compute")
@@ -123,7 +126,9 @@ def test_enabled_without_a_profiler_keeps_the_aggregates_and_opens_no_annotation
         assert agg[1] >= agg[2] >= 0
     assert counts["collection.forward"] == 1 and counts["metric.forward"] == 3
     assert counts["metric.update_impl"] == 3 and counts["metric.compute"] == 3
-    assert counts["validation.check"] >= 3 and counts["validation.format"] >= 3
+    assert counts["validation.check"] >= 3 and "validation.format" not in counts
+    assert obs.counter_value("engine.logits_counts", form="confmat") == 2
+    assert obs.counter_value("engine.logits_counts", form="stat_scores") == 1
     parents = {dict(labels).get("parent") for (name, labels) in spans if name == "metric.update_impl"}
     assert parents == {"metric.forward"}
     assert {dict(labels)["metric"] for (name, labels) in spans if name == "metric.update_impl"} == {
@@ -140,11 +145,14 @@ def test_forward_still_records_no_metric_update():
 
 def test_a_public_update_nests_its_update_body():
     obs.enable()
-    m = mt.Accuracy(num_classes=C, average="macro", mdmc_average="global", device="cpu")
-    spans = _profile(lambda: m.update(*_batch()))
-    (update,) = _named(spans, "metric.update")
-    (body,) = _named(_inside(spans, update), "metric.update_impl")
-    assert _named(_inside(spans, body), "validation.format")
+    # samplewise counts go through the canonical one-hots; global ones straight from the logits
+    for mdmc_average, formats in (("samplewise", 1), ("global", 0)):
+        m = mt.Accuracy(num_classes=C, average="macro", mdmc_average=mdmc_average, device="cpu")
+        spans = _profile(lambda: m.update(*_batch()))
+        (update,) = _named(spans, "metric.update")
+        (body,) = _named(_inside(spans, update), "metric.update_impl")
+        assert _named(_inside(spans, body), "validation.check")
+        assert len(_named(_inside(spans, body), "validation.format")) == formats
 
 
 def _features(x):
