@@ -67,8 +67,8 @@ def holds(intervals: Sequence[Interval], t: int) -> bool:
 
 
 def is_host_read(op: DeviceOp) -> bool:
-    """A copy from the card to the host (each ``.item()``, ``.tolist()`` or ``.cpu()`` is one).  The test of
-    ``seg.host_syncs_per_step`` also matches ``Memcpy DtoD (Device -> Device)``, a copy on the card."""
+    """A copy from the card to the host (each ``.item()``, ``.tolist()`` or ``.cpu()`` is one), as
+    ``seg.host_syncs_per_step`` counts them: a copy on the card is none."""
     return "DtoH" in op.name
 
 

@@ -8,6 +8,10 @@ its pool batch.  Labels come in square blocks drawn from the configuration's cla
 prediction keeps the label on a share of its pixels drawn from ``top1_share`` and elsewhere is a uniform
 class; the logits are uniform noise with the predicted class raised above the noise's maximum by a gap
 drawn from ``top_gap``, so each pixel has one strict maximum.
+
+What the window keeps for judging (each step's batch values, each pass's ``compute()`` and states) is copied
+to host slots as it is produced and leaves the card, so ``metric_peak_mib`` reads the metric's own memory and
+not the number of steps the window took.
 """
 
 import time
@@ -60,6 +64,55 @@ def states(collection) -> Dict[str, Dict[str, torch.Tensor]]:
     return {name: {k: getattr(m, k).clone() for k in m._defaults} for name, m in collection.items()}
 
 
+class HostSlots:
+    """Host copies of records of one fixed layout (a flat dict of tensors, one record a slot), filled from the
+    card without waiting: pinned chunks of ``chunk`` slots, a new one allocated once the last is full."""
+
+    def __init__(self, like: Dict[Any, torch.Tensor], chunk: int, pin: bool) -> None:
+        self.layout = {key: (tuple(t.shape), t.dtype) for key, t in like.items()}
+        self.chunk, self.pin = chunk, pin
+        self.chunks: List[Dict[Any, torch.Tensor]] = []
+        self.count = 0
+        self._grow()
+
+    def _grow(self) -> None:
+        self.chunks.append({key: torch.empty((self.chunk, *shape), dtype=dtype, pin_memory=self.pin)
+                            for key, (shape, dtype) in self.layout.items()})
+
+    def put(self, record: Dict[Any, torch.Tensor]) -> int:
+        """Queues the copy of ``record`` into the next slot and returns the slot; read it after a ``sync``."""
+        c, i = divmod(self.count, self.chunk)
+        for key, t in record.items():
+            self.chunks[c][key][i].copy_(t, non_blocking=True)
+        self.count += 1
+        if self.count == len(self.chunks) * self.chunk:
+            self._grow()
+        return self.count - 1
+
+    def get(self, slot: int) -> Dict[Any, torch.Tensor]:
+        c, i = divmod(slot, self.chunk)
+        return {key: t[i] for key, t in self.chunks[c].items()}
+
+
+STEP_SLOTS, PASS_SLOTS = 4096, 64  # a chunk: some seconds of steps, more passes than a window holds
+
+
+def pass_record(res: Dict[str, torch.Tensor], collection) -> Dict[Any, torch.Tensor]:
+    """A pass end's ``compute()`` and the states before ``reset()``, flat: ``(name,)`` and ``(name, state)``."""
+    record: Dict[Any, torch.Tensor] = {(name,): value for name, value in res.items()}
+    record.update({(name, key): getattr(m, key) for name, m in collection.items() for key in m._defaults})
+    return record
+
+
+def unpack_pass(record: Dict[Any, torch.Tensor]):
+    res = {key[0]: t for key, t in record.items() if len(key) == 1}
+    snap: Dict[str, Dict[str, torch.Tensor]] = {}
+    for key, t in record.items():
+        if len(key) == 2:
+            snap.setdefault(key[0], {})[key[1]] = t
+    return res, snap
+
+
 def sync(device: str) -> None:
     if device.startswith("cuda"):
         torch.cuda.synchronize()
@@ -91,8 +144,12 @@ def run(cell, seed: int, seconds: float, tracer, device: str, t0: float, limits:
 
     # warm every shape of the pass: the full batch, the short last one, the pass end
     for p, n in sorted({(0, n) for _, n in plan}):
-        step(p, n)
-    collection.compute()
+        out = step(p, n)
+    res = collection.compute()
+    pin = device.startswith("cuda")
+    step_slots = HostSlots(out, STEP_SLOTS, pin) if out is not None else None
+    pass_slots = HostSlots(pass_record(res, collection), PASS_SLOTS, pin)
+    del out, res
     collection.reset()
     sync(device)
     stages.mark("warm-up")
@@ -101,8 +158,8 @@ def run(cell, seed: int, seconds: float, tracer, device: str, t0: float, limits:
     if device.startswith("cuda"):
         torch.cuda.reset_peak_memory_stats()
 
-    steps: List[Tuple[int, int, int, Any]] = []  # (pass, step of the pass, images, batch values)
-    passes: List[Tuple[Dict[str, Any], Dict[str, Dict[str, torch.Tensor]]]] = []  # (compute(), states before reset)
+    kept: List[Tuple[int, int, int, Any]] = []  # (pass, step of the pass, images, slot of the batch values)
+    passes = 0
     pixels = 0
     tracer.start()
     start = time.perf_counter()
@@ -112,16 +169,19 @@ def run(cell, seed: int, seconds: float, tracer, device: str, t0: float, limits:
             p, n = plan[j]
             with tracer.span("pb.step"):
                 out = step(p, n)
-            steps.append((len(passes), j, n, out))
+            # the batch values go to the host and leave the card, outside the step
+            kept.append((passes, j, n, None if out is None else step_slots.put(out)))
+            del out
             pixels += n * cfg["height"] * cfg["width"]
             j += 1
             if j == len(plan):
                 with tracer.span("pb.compute"):
                     res = collection.compute()
                     float(res[read_key])  # the pass's score, read on the host
-                    snap = states(collection)
+                    pass_slots.put(pass_record(res, collection))
+                    del res
                     collection.reset()
-                passes.append((res, snap))
+                passes += 1
                 j = 0
             if time.perf_counter() - start >= seconds:
                 break
@@ -131,7 +191,9 @@ def run(cell, seed: int, seconds: float, tracer, device: str, t0: float, limits:
     window_peak = torch.cuda.max_memory_allocated() if device.startswith("cuda") else 0
     partial = states(collection)
     del collection
-    checks, attempted, failed = judge(cfg, traffic, plan, logits, labels, steps, passes, partial, limits)
+    steps = [(i, j, n, None if slot is None else step_slots.get(slot)) for i, j, n, slot in kept]
+    done_passes = [unpack_pass(pass_slots.get(slot)) for slot in range(passes)]
+    checks, attempted, failed = judge(cfg, traffic, plan, logits, labels, steps, done_passes, partial, limits)
     images = sum(s[2] for s in steps)
     return Outcome(
         setup_s=setup_s,

@@ -66,3 +66,25 @@ def test_busy_idle_and_blocked_time():
     b = t.breakdown()
     assert b["device_ops"][0] == ["argmax_kernel", 100e-9]
     assert abs(sum(s for _, s in b["idle_gaps"]) - (1000 - 230) / 1e9) < 1e-15
+
+
+def test_host_syncs_count_reads_to_the_host_and_no_copy_on_the_card():
+    from portbench.cell import Cell, peaks
+    from portbench.harness import Outcome, Reading
+
+    trace = reduce_events([
+        Event("pb.window", 0, 1000, annotation=True),
+        Event("pb.step", 0, 400, annotation=True),
+        Event("pb.step", 500, 400, annotation=True),
+        Event("cudaMemcpyAsync", 10, 5, corr=1), Event("Memcpy DtoD (Device -> Device)", 20, 5, device=True, corr=1),
+        Event("cudaMemcpyAsync", 30, 5, corr=2), Event("Memcpy DtoH (Device -> Pinned)", 40, 5, device=True, corr=2),
+        Event("cudaMemcpyAsync", 510, 5, corr=3), Event("Memcpy DtoD (Device -> Device)", 520, 5, device=True, corr=3),
+        Event("cudaMemcpyAsync", 530, 5, corr=4), Event("Memcpy DtoH (Device -> Pageable)", 540, 5, device=True, corr=4),
+        Event("cudaMemcpyAsync", 550, 5, corr=5), Event("Memcpy DtoH (Device -> Pinned)", 560, 5, device=True, corr=5),
+        Event("cudaMemcpyAsync", 550, 5, corr=6), Event("Memcpy HtoD (Pinned -> Device)", 570, 5, device=True, corr=6),
+        # launched between the steps, as the window's host copies of the batch values are: not the step's
+        Event("cudaMemcpyAsync", 420, 5, corr=7), Event("Memcpy DtoH (Device -> Pinned)", 430, 5, device=True, corr=7),
+    ])
+    out = Outcome(setup_s=0.0, end_to_end={}, counts={}, memory_peak_bytes=0, checks=[], attempted=0, failed=0)
+    cell = Cell("cityscapes_seg.logits_b1")
+    assert cell.reader("seg.host_syncs_per_step")(Reading(trace, out, cell, peaks())) == 3 / 2
