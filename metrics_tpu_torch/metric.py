@@ -1557,30 +1557,31 @@ class Metric(nn.Module, ABC):
         except SyncTimeoutError as err:
             err.synced_states = []  # all or nothing: nothing landed
             raise
-        per_rank = [
-            {key: t if key in on_host else t.to(self.device) for key, t in _unpack_state_blob(s).items()}
-            for s in shards
-        ]
+        with _obs.span("sync.reduce", **_metric_labels(self)):
+            per_rank = [
+                {key: t if key in on_host else t.to(self.device) for key, t in _unpack_state_blob(s).items()}
+                for s in shards
+            ]
 
-        def cat_ranks(key: str) -> torch.Tensor:
-            parts = [r[key] for r in per_rank]
-            filled = [p for p in parts if p.shape[0]]
-            return torch.cat(filled) if filled else parts[0]
+            def cat_ranks(key: str) -> torch.Tensor:
+                parts = [r[key] for r in per_rank]
+                filled = [p for p in parts if p.shape[0]]
+                return torch.cat(filled) if filled else parts[0]
 
-        for bname in self._buffer_states:
-            gathered = cat_ranks("b." + bname)
-            out[bname + "__buf"] = gathered
-            out[bname + "__len"] = int(gathered.shape[0])
-        for name in cat_names:
-            gathered = cat_ranks("c." + name)
-            out[name] = self._splice_prefix(name, gathered) if name in delta_plan else gathered
-        for name in reduce_names:
-            stacked = torch.stack([r["r." + name] for r in per_rank])
-            out[name] = reduce_stack(stacked, self._reduce_fns[name])
-        for sname in self._sketch_states:
-            merged_tree = self._merge_sketches(sname, [{k[2:]: v for k, v in r.items() if k.startswith("s.")} for r in per_rank])
-            _obs.counter_inc("streaming.sketch_merge_calls", metric=type(self).__name__)
-            out.update({f"{sname}__sk_{leaf}": value for leaf, value in merged_tree.items()})
+            for bname in self._buffer_states:
+                gathered = cat_ranks("b." + bname)
+                out[bname + "__buf"] = gathered
+                out[bname + "__len"] = int(gathered.shape[0])
+            for name in cat_names:
+                gathered = cat_ranks("c." + name)
+                out[name] = self._splice_prefix(name, gathered) if name in delta_plan else gathered
+            for name in reduce_names:
+                stacked = torch.stack([r["r." + name] for r in per_rank])
+                out[name] = reduce_stack(stacked, self._reduce_fns[name])
+            for sname in self._sketch_states:
+                merged_tree = self._merge_sketches(sname, [{k[2:]: v for k, v in r.items() if k.startswith("s.")} for r in per_rank])
+                _obs.counter_inc("streaming.sketch_merge_calls", metric=type(self).__name__)
+                out.update({f"{sname}__sk_{leaf}": value for leaf, value in merged_tree.items()})
         return out
 
     # ------------------------------------------------------------- delta sync
@@ -1836,7 +1837,8 @@ class Metric(nn.Module, ABC):
                         preflight_kwargs["delta_token"] = (
                             self._delta_cache.token(list(delta_plan)) if delta_plan else None
                         )
-                    info = backend.preflight_check(self._schema_entries(), self._update_count, **preflight_kwargs)
+                    with _obs.span("sync.preflight", **_metric_labels(self)):
+                        info = backend.preflight_check(self._schema_entries(), self._update_count, **preflight_kwargs)
                 if info:
                     report.update(info)
                 # delta only when EVERY rank voted a matching token

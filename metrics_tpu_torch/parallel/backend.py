@@ -769,11 +769,11 @@ class DistBackend(Backend):
             return torch.device("cuda", torch.cuda.current_device())
         return torch.device("cpu")
 
-    def _allgather(self, x: torch.Tensor) -> torch.Tensor:
-        """``(P,) + x.shape`` on ``x``'s device; the payload travels as raw bytes."""
+    def _allgather(self, x: torch.Tensor, wire: torch.device) -> torch.Tensor:
+        """``(P,) + x.shape`` on ``x``'s device; the payload travels as raw bytes on ``wire``."""
         world = self.world_size()
         flat = x.detach().reshape(-1).contiguous()
-        raw = flat.view(torch.uint8).to(self._wire_device())
+        raw = flat.view(torch.uint8).to(wire)
         parts = [torch.empty_like(raw) for _ in range(world)]
         dist.all_gather(parts, raw, group=self.group)
         shape = (world,) + tuple(x.shape)
@@ -782,7 +782,14 @@ class DistBackend(Backend):
         return torch.stack(parts).to(x.device).view(x.dtype).reshape(shape)
 
     def _gather(self, x: Any) -> torch.Tensor:
-        """Stacked cross-process gather: returns ``(P,) + x.shape``."""
+        """Stacked cross-process gather: returns ``(P,) + x.shape``.
+
+        The wire device is taken here, on the calling thread: with a timeout
+        the collective runs on a watchdog thread, whose current CUDA device is
+        the runtime's default, not the rank's.  The copy back to ``x``'s device
+        stays under the deadline: under NCCL the host waits for the collective
+        there.
+        """
         x = torch.as_tensor(x)
         label = self._label or "gather"
         key = self._group_key()
@@ -791,10 +798,11 @@ class DistBackend(Backend):
                 f"collective {label!r} refused: the process group is out of step since "
                 f"{_BROKEN_GROUPS[key]}; re-create the process group to sync again"
             )
+        wire = self._wire_device()
         self._telemetry["attempts"] = self._telemetry.get("attempts", 0) + 1
         try:
             with _obs.span("sync.collective", backend=type(self).__name__, state=label):
-                out = _call_with_deadline(lambda: self._allgather(x), self.options.timeout, label)
+                out = _call_with_deadline(lambda: self._allgather(x, wire), self.options.timeout, label)
         except _WatchdogTimeout:
             _BROKEN_GROUPS[key] = f"collective {label!r} timed out"
             raise SyncTimeoutError(

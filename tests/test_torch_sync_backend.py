@@ -88,7 +88,7 @@ def test_timeout_marks_the_group_out_of_step(world_of_one, monkeypatch):
     import threading
 
     release = threading.Event()
-    monkeypatch.setattr(world_of_one, "_allgather", lambda x: release.wait(5) and x[None])
+    monkeypatch.setattr(world_of_one, "_allgather", lambda x, wire: release.wait(5) and x[None])
     world_of_one.options = bk.SyncOptions(timeout=0.05, max_retries=3)
     with pytest.raises(bk.SyncTimeoutError) as err:
         world_of_one.all_gather_stack(torch.ones(2))
@@ -107,3 +107,63 @@ def test_nccl_groups_put_the_wire_on_the_card(world_of_one, monkeypatch):
 def test_get_backend_needs_more_than_one_rank(world_of_one):
     assert isinstance(bk.get_backend(), bk.NullBackend)
     assert isinstance(bk.get_backend(options=bk.SyncOptions(timeout=1.0)), bk.NullBackend)
+
+
+def test_the_wire_device_is_taken_on_the_calling_thread(world_of_one, monkeypatch):
+    """With a timeout the collective runs on a watchdog thread, whose current CUDA device is the runtime's
+    default and not the rank's: the wire device is chosen before, on the caller's thread."""
+    import threading
+
+    seen = {}
+    wire_device, allgather = world_of_one._wire_device, world_of_one._allgather
+
+    def wire():
+        seen["wire"] = threading.current_thread()
+        return wire_device()
+
+    def gather(x, wire):
+        seen["gather"] = threading.current_thread()
+        return allgather(x, wire)
+
+    monkeypatch.setattr(world_of_one, "_wire_device", wire)
+    monkeypatch.setattr(world_of_one, "_allgather", gather)
+    world_of_one.options = bk.SyncOptions(timeout=30.0)
+    x = torch.arange(6, dtype=torch.int64).reshape(2, 3)
+    out = world_of_one.all_gather_stack(x)
+    assert out.dtype == x.dtype and torch.equal(out[0], x)
+    assert seen["wire"] is threading.current_thread()
+    assert seen["gather"] is not threading.current_thread()  # the watchdog's thread ran the collective
+
+
+def test_a_collective_that_blocks_at_its_copy_back_times_out(world_of_one, monkeypatch):
+    """Under NCCL ``all_gather`` only queues the collective: the host waits for it at the copy back to the
+    payload's device.  That copy runs under the deadline too, so a stalled peer raises instead of blocking
+    the caller, and the group is marked out of step."""
+    import threading
+    import time
+
+    release = threading.Event()
+
+    class Queued(torch.Tensor):  # a gathered row whose bytes land only once ``release`` is set
+        @classmethod
+        def __torch_function__(cls, func, types, args=(), kwargs=None):
+            if func is torch.Tensor.to:
+                release.wait(5)
+            return super().__torch_function__(func, types, args, kwargs or {})
+
+    all_gather = dist.all_gather
+
+    def queue_only(parts, raw, group=None):
+        all_gather(parts, raw, group=group)
+        parts[:] = [p.as_subclass(Queued) for p in parts]
+
+    monkeypatch.setattr(dist, "all_gather", queue_only)
+    world_of_one.options = bk.SyncOptions(timeout=0.05)
+    start = time.monotonic()
+    try:
+        with pytest.raises(bk.SyncTimeoutError):
+            world_of_one.all_gather_stack(torch.ones(2))
+        assert time.monotonic() - start < 2.5
+    finally:
+        release.set()
+    assert world_of_one._group_key() in bk._BROKEN_GROUPS
